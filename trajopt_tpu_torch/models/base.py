@@ -1,0 +1,86 @@
+"""Dynamics model abstraction.
+
+Counterpart of ``trajopt_tpu/models/base.py``. A ``Model`` wraps a continuous
+dynamics function ``f(x, u) -> xdot`` written in tensor ops that broadcast
+over leading batch dimensions; ``discretize`` turns it into a
+``DiscreteModel`` with a ``step(x, u, dt)`` and trajectory Jacobians from
+``torch.func.jacfwd`` vmapped over every knot of every problem at once.
+"""
+from __future__ import annotations
+
+import torch
+
+from trajopt_tpu_torch.ops.integration import INTEGRATORS
+
+
+class Model:
+    """Continuous-time dynamics model xdot = f(x, u) (reference
+    src/model.jl:103-140)."""
+
+    def __init__(self, f, n: int, m: int, name: str = "model"):
+        self.n = n
+        self.m = m
+        self.name = name
+        # (a, b) slice of a unit-quaternion block in the state, if any —
+        # enables quaternion-aware error-state solves (models/quaternions.py)
+        self.quat_slice = None
+        self._f = f
+
+    def __call__(self, x, u):
+        return self._f(x, u)
+
+    def dynamics(self, x, u):
+        return self._f(x, u)
+
+    def __repr__(self):
+        return f"Model({self.name}, n={self.n}, m={self.m})"
+
+
+class DiscreteModel:
+    """Discrete dynamics x_{k+1} = step(x_k, u_k, dt).
+
+    ``cuda_step`` names the CUDA step that the closed-loop rollout kernel
+    inlines for this model (``ops/cuda_rollout.py``), or is None.
+    """
+
+    def __init__(self, step, n: int, m: int, model: Model | None = None,
+                 integrator: str = "rk3", name: str = "discrete_model"):
+        self.n = n
+        self.m = m
+        self.step = step
+        self.model = model
+        self.integrator = integrator
+        self.name = name
+        self.quat_slice = getattr(model, "quat_slice", None)
+        self.cuda_step = None
+        self._jac = torch.func.jacfwd(step, argnums=(0, 1))
+
+    def __call__(self, x, u, dt):
+        return self.step(x, u, dt)
+
+    def jacobian_traj(self, X, U, dt):
+        """Jacobians at every knot: X (..., N-1, n), U (..., N-1, m), dt a
+        float or a tensor broadcastable to U.shape[:-1].
+        Returns A (..., N-1, n, n), B (..., N-1, n, m)."""
+        lead = U.shape[:-1]
+        n, m = X.shape[-1], U.shape[-1]
+        dt = torch.as_tensor(dt, dtype=X.dtype, device=X.device).expand(lead)
+        A, B = torch.func.vmap(self._jac)(
+            X.reshape(-1, n), U.reshape(-1, m), dt.reshape(-1))
+        return A.reshape(*lead, n, n), B.reshape(*lead, n, m)
+
+    def __repr__(self):
+        return (f"DiscreteModel({self.name}, n={self.n}, m={self.m}, "
+                f"{self.integrator})")
+
+
+def discretize(model: Model, integrator: str = "rk3") -> DiscreteModel:
+    """Discretize a continuous model (reference src/model.jl:607-647)."""
+    step = INTEGRATORS[integrator](model.dynamics)
+    dmodel = DiscreteModel(step, model.n, model.m, model=model,
+                           integrator=integrator, name=model.name)
+    # the closed-loop rollout kernel (csrc/rollout_quadrotor.cu) carries the
+    # quadrotor's RK3 step; the other models' CUDA steps are ROADMAP K6
+    if (model.name, integrator) == ("quadrotor", "rk3"):
+        dmodel.cuda_step = "quadrotor_rk3"
+    return dmodel

@@ -1,0 +1,183 @@
+"""Augmented Lagrangian outer loop: the per-lane stepper of the queued
+pool solver (``parallel/batch.py::solve_batch_queued``).
+
+Counterpart of ``trajopt_tpu/solvers/al.py``: ``ALOptions``,
+``ALLaneState``, ``al_cost_fns``, ``dual_update``, ``penalty_update`` and
+``al_lane_stepper``, batched over a leading lane dimension. Only the
+unconstrained arm (P = 0) of the stepper is ported; the constrained arm
+needs the constraint layer (ROADMAP Queue 1, slice 2), and ``al_solve`` is
+not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from trajopt_tpu_torch.ops.constraints import ConstraintSet
+from trajopt_tpu_torch.ops.cost import Expansion
+from trajopt_tpu_torch.problem import Problem
+from trajopt_tpu_torch.solvers.ilqr import (
+    HostSyncs, iLQROptions, ilqr_solve, reg_noise_scale,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ALOptions:
+    """(reference AugmentedLagrangianSolverOptions,
+    augmented_lagrangian_solver.jl:8-66). Field for field the JAX
+    package's ``ALOptions``, with the same defaults."""
+
+    opts_uncon: iLQROptions = iLQROptions()
+    cost_tolerance: float = 1e-4
+    cost_tolerance_intermediate: float = 1e-3
+    gradient_norm_tolerance: float = 1e-5
+    gradient_norm_tolerance_intermediate: float = 1e-5
+    constraint_tolerance: float = 1e-3
+    constraint_tolerance_intermediate: float = 1e-3
+    iterations: int = 30
+    dual_min: float = -1e8
+    dual_max: float = 1e8
+    penalty_max: float = 1e8
+    penalty_initial: float = 1.0
+    penalty_scaling: float = 10.0
+    penalty_scaling_no: float = 1.0
+    constraint_decrease_ratio: float = 0.25
+    outer_loop_update_type: str = "default"
+    active_constraint_tolerance: float = 0.0
+    kickout_max_penalty: bool = False
+    verbose: bool = False
+
+
+def al_cost_fns(obj, cs: ConstraintSet, dt_traj, lam, mu, tol=0.0):
+    """(cost_fn, expansion_fn) of the AL-decorated objective for a batch:
+
+        J + Σ_k λᵀc + ½ cᵀ Iμ c,   Iμ = diag(active ⊙ μ)
+
+    (reference aula_cost, augmented_lagrangian_methods.jl:186-229, 284-286).
+    lam, mu: (B, N, P)."""
+
+    def cost_fn(X, U):
+        J = obj.total(X, U, dt_traj)
+        C = cs.evaluate(X, U)
+        a = cs.active_set(C, lam, tol)
+        Imu = torch.where(a, mu, torch.zeros_like(mu))
+        return J + (lam * C + 0.5 * C * Imu * C).sum((-2, -1))
+
+    def expansion_fn(X, U):
+        e = obj.expansion(X, U, dt_traj)
+        C = cs.evaluate(X, U)
+        a = cs.active_set(C, lam, tol)
+        Imu = torch.where(a, mu, torch.zeros_like(mu))
+        g = Imu * C + lam
+        tx, tu, txx, tuu, tux = cs.al_expansion_terms(X, U, g, Imu)
+        return Expansion(x=e.x + tx, u=e.u + tu[..., :-1, :],
+                         xx=e.xx + txx, uu=e.uu + tuu[..., :-1, :, :],
+                         ux=e.ux + tux[..., :-1, :, :])
+
+    return cost_fn, expansion_fn
+
+
+def dual_update(cs: ConstraintSet, C, lam, mu, opts: ALOptions):
+    """λ ← clamp(λ + μ∘c, dual_min, dual_max); inequality rows projected to
+    λ ≥ 0 (reference dual_update!, augmented_lagrangian_methods.jl:107-118)."""
+    lam_new = torch.clamp(lam + mu * C, opts.dual_min, opts.dual_max)
+    lam_new = torch.where(cs.is_eq, lam_new, lam_new.clamp(min=0.0))
+    return torch.where(cs.mask, lam_new, torch.zeros_like(lam_new))
+
+
+def penalty_update(cs: ConstraintSet, mu, scaling, opts: ALOptions):
+    """μ ← min(scaling·μ, μ_max) (reference penalty_update!, :121-126)."""
+    mu_new = torch.clamp(scaling * mu, 0.0, opts.penalty_max)
+    return torch.where(cs.mask, mu_new, torch.zeros_like(mu_new))
+
+
+class ALLaneState(NamedTuple):
+    """Resumable per-lane AL state for the queued pool solver
+    (parallel/batch.py): one outer iteration per step, so a converged lane
+    can hand its slot to a fresh problem. Every field has a leading lane
+    dimension."""
+
+    x0: torch.Tensor
+    X: torch.Tensor
+    U: torch.Tensor
+    lam: torch.Tensor
+    mu: torch.Tensor
+    c_max: torch.Tensor
+    J: torch.Tensor
+    it: torch.Tensor            # outer iterations done
+    it_total: torch.Tensor      # inner iLQR iterations total
+    gradient: torch.Tensor
+    converged: torch.Tensor
+
+
+def al_lane_stepper(prob: Problem, opts: ALOptions, constraint_tolerance=None,
+                    mu_init=None, penalty_scaling=None,
+                    syncs: HostSyncs | None = None):
+    """(init, step) pair for one AL OUTER iteration per call, the semantics
+    of one trip of ``al_solve``'s loop, for a batch of lanes.
+
+    ``init(x0s (L, n), U0s (L, N-1, m))`` makes fresh lane states;
+    ``step(state, active=None)`` advances every lane in ``active`` (all by
+    default) by one outer iteration and returns the others unchanged.
+    """
+    cs = prob.constraints
+    if cs.P > 0:
+        raise NotImplementedError(
+            "the constrained AL arm needs the constraint layer "
+            "(ROADMAP Queue 1, slice 2)")
+    syncs = HostSyncs() if syncs is None else syncs
+    dtype, dev = prob.U.dtype, prob.device
+    dt_traj = prob.dt_traj()
+    N, P = cs.N, cs.P
+    ctol = opts.constraint_tolerance if constraint_tolerance is None \
+        else constraint_tolerance
+    scaling = torch.as_tensor(
+        opts.penalty_scaling if penalty_scaling is None else penalty_scaling,
+        dtype=dtype, device=dev).expand(P)
+    mu0_row = torch.as_tensor(
+        opts.penalty_initial if mu_init is None else mu_init, dtype=dtype,
+        device=dev).expand(N, P) * cs.mask
+    atol = opts.active_constraint_tolerance
+
+    def init(x0s, U0s):
+        L = x0s.shape[0]
+        X0 = prob.X.expand(L, -1, -1).clone()
+        X0[:, 0] = x0s
+        inf = torch.full((L,), float("inf"), dtype=dtype, device=dev)
+        return ALLaneState(
+            x0=x0s.contiguous(), X=X0, U=U0s.contiguous(),
+            lam=torch.zeros((L, N, P), dtype=dtype, device=dev),
+            mu=mu0_row.expand(L, N, P).clone(), c_max=inf, J=inf.clone(),
+            it=torch.zeros(L, dtype=torch.int32, device=dev),
+            it_total=torch.zeros(L, dtype=torch.int32, device=dev),
+            gradient=inf.clone(),
+            converged=torch.zeros(L, dtype=torch.bool, device=dev))
+
+    def step(st: ALLaneState, active=None) -> ALLaneState:
+        # no duals/penalties to stitch tolerances around: every round runs
+        # at FINAL tolerances (al_solve's unconstrained plain-iLQR arm)
+        cost_fn, expansion_fn = al_cost_fns(prob.obj, cs, dt_traj, st.lam,
+                                            st.mu, atol)
+        res = ilqr_solve(prob.model, cost_fn, expansion_fn, st.x0, st.X,
+                         st.U, prob.dt, opts.opts_uncon,
+                         cost_tol=opts.cost_tolerance,
+                         grad_tol=opts.gradient_norm_tolerance,
+                         reg_scale=reg_noise_scale(st.mu, dtype),
+                         active=active, syncs=syncs)
+        C = cs.evaluate(res.X, res.U)
+        c_max_new = cs.max_violation(C)
+        # (P = 0: the "feedback" switch only chooses between empty updates)
+        lam = dual_update(cs, C, st.lam, st.mu, opts)
+        mu = penalty_update(cs, st.mu, scaling, opts)
+        # c_max is identically 0 without constraints: a lane is done only
+        # when the INNER solve converged by its own dJ/grad rules rather
+        # than being cut by the round boundary
+        converged = (c_max_new < ctol) & res.converged
+        return ALLaneState(
+            x0=st.x0, X=res.X, U=res.U, lam=lam, mu=mu, c_max=c_max_new,
+            J=res.J, it=st.it + 1, it_total=st.it_total + res.iterations,
+            gradient=res.gradient, converged=converged)
+
+    return init, step

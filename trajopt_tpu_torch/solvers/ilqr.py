@@ -1,0 +1,391 @@
+"""Batched iLQR solver (inner loop of ALTRO).
+
+Counterpart of ``trajopt_tpu/solvers/ilqr.py`` (reference
+src/solvers/ilqr/), written for a batch of problems in one call: every
+tensor carries a leading problem dimension where the JAX package uses
+``vmap``. The JAX ``while_loop``s become Python loops that carry an explicit
+per-problem mask and freeze a problem once its own loop condition is false,
+which is what ``vmap`` of a ``while_loop`` does: the main iteration loop,
+the line search and the ρ-retry of the backward pass.
+
+Each loop test reads one boolean from the device; ``HostSyncs`` counts
+those reads. The backward pass runs on kernel K1 (``ops/cuda_sqrt.py``) and
+every line-search candidate on kernel K2 (``ops/cuda_rollout.py``); a
+tensor on the CPU runs their plain twins instead.
+
+Ported so far: the error-state square-root path that the quadrotor
+benchmark runs (``bp_type='sqrt'``). The scan and parallel backward passes,
+the proximal step limit, time sharding and the live printing/plotting
+options raise ``NotImplementedError`` (ROADMAP Queues 1-2); the fused flags
+are inert, as they are in the JAX package with the square-root pass.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from trajopt_tpu_torch.ops.cost import Expansion
+from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
+from trajopt_tpu_torch.ops.cuda_sqrt import (  # noqa: F401  (re-export)
+    SQRT_PIVOT_FLOOR_F32, SQRT_PIVOT_NEG_TOL, sqrt_sweep, sqrt_sweep_cuda,
+)
+from trajopt_tpu_torch.ops.rollout import rollout
+from trajopt_tpu_torch.utils.tree import precise
+
+
+@dataclasses.dataclass(frozen=True)
+class iLQROptions:
+    """(reference iLQRSolverOptions, ilqr_solver.jl:7-81). Field for field
+    the JAX package's ``iLQROptions``, with the same defaults; see there for
+    what each option means."""
+
+    cost_tolerance: float = 1e-4
+    gradient_norm_tolerance: float = 1e-5
+    iterations: int = 300
+    dJ_counter_limit: int = 10
+    square_root: bool = False
+    line_search_lower_bound: float = 1e-8
+    line_search_upper_bound: float = 10.0
+    iterations_linesearch: int = 20
+    bp_reg_initial: float = 0.0
+    bp_reg_increase_factor: float = 1.6
+    bp_reg_max: float = 1e8
+    bp_reg_min: float = 1e-8
+    bp_reg_type: str = "control"
+    bp_reg_fp: float = 10.0
+    max_cost_value: float = 1e8
+    max_state_value: float = 1e8
+    max_control_value: float = 1e8
+    gradient_type: str = "todorov"
+    live_plotting: str = "off"
+    bp_max_attempts: int = 50
+    fused: bool = False
+    fused_al: bool = True
+    fused_al_fk: bool = False
+    bp_step_limit: float = 0.0
+    line_search_warm_start: bool = False
+    verbose: bool = False
+    error_state: bool = False
+    bp_type: str = "scan"
+    tp_mesh: Optional[object] = None
+    tp_axis: str = "tp"
+
+
+def _check_supported(opts: iLQROptions):
+    """Raise for the options whose code paths are not ported yet. The fused
+    flags need no check: the JAX package never takes a fused path with the
+    square-root backward pass."""
+    if not (opts.square_root or opts.bp_type == "sqrt"):
+        raise NotImplementedError(
+            f"bp_type={opts.bp_type!r}: only the square-root backward pass "
+            "is ported (scan BP: ROADMAP Queue 2 K5; parallel: Queue 1 #13)")
+    for name, off in (("bp_step_limit", 0.0), ("verbose", False),
+                      ("live_plotting", "off"), ("tp_mesh", None)):
+        if getattr(opts, name) != off:
+            raise NotImplementedError(f"iLQROptions.{name} is not ported yet")
+
+
+class ILQRResult(NamedTuple):
+    X: torch.Tensor
+    U: torch.Tensor
+    K: torch.Tensor
+    d: torch.Tensor
+    J: torch.Tensor
+    iterations: torch.Tensor
+    gradient: torch.Tensor
+    dJ: torch.Tensor
+    rho: torch.Tensor
+    drho: torch.Tensor
+    converged: torch.Tensor
+
+
+class HostSyncs:
+    """Counts the device-to-host reads the solver's Python loops make: each
+    loop test waits for the device to finish and copies one boolean."""
+
+    def __init__(self):
+        self.count = 0
+
+    def any(self, mask: torch.Tensor) -> bool:
+        self.count += 1
+        return bool(mask.any())
+
+
+def _where(mask, a, b):
+    """Per-problem select over a leading batch dimension."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
+
+
+def reg_increase(rho, drho, opts: iLQROptions):
+    """(reference regularization_update! :increase, ilqr_methods.jl:164-171)."""
+    drho = torch.clamp(drho * opts.bp_reg_increase_factor,
+                       min=opts.bp_reg_increase_factor)
+    rho = torch.clamp(rho * drho, min=opts.bp_reg_min)
+    return rho, drho
+
+
+def reg_decrease(rho, drho, opts: iLQROptions):
+    """(reference regularization_update! :decrease, ilqr_methods.jl:171-176)."""
+    drho = torch.clamp(drho / opts.bp_reg_increase_factor,
+                       max=1.0 / opts.bp_reg_increase_factor)
+    rho = rho * drho * (rho * drho > opts.bp_reg_min)
+    return rho, drho
+
+
+def reg_noise_scale(mu, dtype):
+    """ρ jump target for the scale-aware retry, per problem:
+    ~100·ε·(max μ + 1) over the trailing (N, P) axes of ``mu``; 0 when μ is
+    empty (no constraints), which is the exact reference escalation."""
+    batch = mu.shape[:-2]
+    if mu.numel() == 0:
+        return torch.zeros(batch, dtype=dtype, device=mu.device)
+    eps = torch.finfo(dtype).eps
+    return (100.0 * eps) * (mu.flatten(-2).amax(-1) + 1.0)
+
+
+def backward_pass(A, B, exp: Expansion, rho, drho, opts: iLQROptions,
+                  reg_scale=None, active=None, syncs: HostSyncs | None = None):
+    """Batched sqrt Riccati sweep on kernel K1 with the reference's
+    per-problem ρ-retry (counterpart of ``_bp_batched_pallas``): every
+    attempt re-sweeps all problems, but only failing ones get ρ bumped, so
+    the others are re-swept at their own ρ; the attempts counter is shared.
+    Problems outside ``active`` do not keep the retry going.
+
+    A (B, N-1, n, n), B (B, N-1, n, m), exp batched, rho/drho (B,).
+    Returns (K, d, dV1, dV2, rho, drho).
+    """
+    syncs = HostSyncs() if syncs is None else syncs
+    args = [t.contiguous() for t in (A, B, exp.x, exp.u, exp.xx, exp.uu,
+                                     exp.ux)]
+
+    def sweep(rho_v):
+        return sqrt_sweep_cuda(*args, rho_v.contiguous())
+
+    K, d, v1, v2, fail = sweep(rho)
+    jump = torch.zeros_like(rho) if reg_scale is None else reg_scale
+    live = fail if active is None else fail & active
+    attempts = 0
+    while attempts < opts.bp_max_attempts and syncs.any(live):
+        rho_i, drho_i = reg_increase(rho, drho, opts)
+        rho = torch.where(fail, torch.maximum(rho_i, jump), rho)
+        drho = torch.where(fail, drho_i, drho)
+        K, d, v1, v2, fail = sweep(rho)
+        live = fail if active is None else fail & active
+        attempts += 1
+    rho, drho = reg_decrease(rho, drho, opts)
+    return K, d, v1, v2, rho, drho
+
+
+def forward_pass(model, cost_fn, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
+                 dt, opts: iLQROptions, alpha0=None, active=None,
+                 syncs: HostSyncs | None = None):
+    """Batched backtracking line search (reference forwardpass!,
+    forward_pass.jl:5-85): per-problem α halving, divergence retry, and
+    restore + ρ bump once the search runs out. Each candidate is one launch
+    of kernel K2 over all problems; a problem leaves the search when its
+    own condition is met. Returns (X̄, Ū, J, rho, drho, alpha_used).
+    """
+    syncs = HostSyncs() if syncs is None else syncs
+    qs = getattr(model, "quat_slice", None) if opts.error_state else None
+    Bz = X.shape[0]
+    dtype, dev = X.dtype, X.device
+    alpha = torch.ones(Bz, dtype=dtype, device=dev) if alpha0 is None \
+        else torch.as_tensor(alpha0, dtype=dtype, device=dev).expand(Bz)
+    it = torch.zeros(Bz, dtype=torch.int32, device=dev)
+    J = torch.full((Bz,), float("inf"), dtype=dtype, device=dev)
+    z = -torch.ones(Bz, dtype=dtype, device=dev)
+    expected = torch.zeros(Bz, dtype=dtype, device=dev)
+    Xb, Ub = X, U
+    done = torch.zeros(Bz, dtype=torch.bool, device=dev)
+    active = torch.ones(Bz, dtype=torch.bool, device=dev) if active is None \
+        else active
+
+    def searching():
+        s = ((z <= opts.line_search_lower_bound)
+             | (z > opts.line_search_upper_bound)) & (J >= J_prev)
+        return s & ~done & active
+
+    go = searching()
+    while syncs.any(go):
+        over = it > opts.iterations_linesearch
+
+        # exhausted branch (forward_pass.jl:22-37): restore & bump ρ
+        rho_o, drho_o = reg_increase(rho, drho, opts)
+        rho_o = rho_o + opts.bp_reg_fp
+
+        # normal branch: rollout at the current α
+        Xc, Uc, ok = rollout_closed_loop_cuda(
+            model, x0, X, U, K, d, alpha.contiguous(), dt,
+            max_state_value=opts.max_state_value,
+            max_control_value=opts.max_control_value, quat_slice=qs)
+        J_c = cost_fn(Xc, Uc)
+        expected_c = -alpha * (dV1 + alpha * dV2)
+        z_c = torch.where(expected_c > 0.0, (J_prev - J_c) / expected_c,
+                          -torch.ones_like(J_c))
+
+        # a diverged rollout keeps J = inf and just halves α
+        J_n = torch.where(ok, J_c, J)
+        z_n = torch.where(ok, z_c, z)
+        exp_n = torch.where(ok, expected_c, expected)
+        Xb_n = _where(ok, Xc, Xb)
+        Ub_n = _where(ok, Uc, Ub)
+
+        # exhausted vs normal, applied only where the search is running
+        zero = torch.zeros_like(alpha)
+        alpha = torch.where(go, torch.where(over, zero, alpha / 2.0), alpha)
+        it = torch.where(go, it + 1, it)
+        J = torch.where(go, torch.where(over, J_prev, J_n), J)
+        z = torch.where(go, torch.where(over, zero, z_n), z)
+        expected = torch.where(go, torch.where(over, zero, exp_n), expected)
+        Xb = _where(go, _where(over, X, Xb_n), Xb)
+        Ub = _where(go, _where(over, U, Ub_n), Ub)
+        rho = torch.where(go, torch.where(over, rho_o, rho), rho)
+        drho = torch.where(go, torch.where(over, drho_o, drho), drho)
+        done = torch.where(go, over, done)
+        go = searching()
+    return Xb, Ub, J, rho, drho, alpha * 2.0
+
+
+def gradient_todorov(d, U):
+    """(reference gradient_todorov, ilqr_methods.jl:122-129), per problem."""
+    return (d.abs() / (U.abs() + 1.0)).amax(-1).mean(-1)
+
+
+def gradient_feedforward(d):
+    """‖d‖∞ per problem (reference gradient_feedforward,
+    ilqr_methods.jl:135-137)."""
+    return d.abs().flatten(-2).amax(-1)
+
+
+def calculate_gradient(gradient_type, d, U, expansion_fn, X):
+    """Dispatch on iLQROptions.gradient_type (reference calculate_gradient,
+    ilqr_methods.jl:91-102): 'todorov' (the default), 'feedforward', and
+    'l2'/'linf' of the stacked cost-expansion gradient [lx₁ lu₁ … lx_N]."""
+    if gradient_type == "todorov":
+        return gradient_todorov(d, U)
+    if gradient_type == "feedforward":
+        return gradient_feedforward(d)
+    if gradient_type not in ("l2", "linf"):
+        raise ValueError(f"unknown gradient_type {gradient_type!r} "
+                         "(todorov | feedforward | l2 | linf)")
+    exp = expansion_fn(X, U)
+    g = torch.cat([exp.x.flatten(-2), exp.u.flatten(-2)], dim=-1)
+    if gradient_type == "l2":
+        return torch.linalg.vector_norm(g, dim=-1)
+    return g.abs().amax(-1)
+
+
+@precise
+def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
+               opts: iLQROptions = iLQROptions(), cost_tol=None,
+               grad_tol=None, rho0=None, do_rollout: bool = True,
+               reg_scale=None, active=None,
+               syncs: HostSyncs | None = None) -> ILQRResult:
+    """Solve a batch of unconstrained (or AL-decorated) problems with iLQR
+    (reference solve!, ilqr_methods.jl:3-45).
+
+    ``cost_fn(X, U) -> J (B,)`` and ``expansion_fn(X, U) -> Expansion``
+    define the objective for a batch X (B, N, n), U (B, N-1, m); x0 (B, n).
+    ``dt`` is the uniform step as a Python float (the rollout kernel takes
+    it as an argument) or a per-interval tensor for the CPU path.
+    ``active`` (B,) bool: problems outside it are left as they are (the
+    queued pool solver passes its idle lanes here). Convergence follows the
+    reference rules, including the ``dJ_zero`` counter.
+    """
+    _check_supported(opts)
+    syncs = HostSyncs() if syncs is None else syncs
+    dtype, dev = X0.dtype, X0.device
+    Bz, Nm1, m = U0.shape
+    n = X0.shape[-1]
+
+    def per_problem(v, default):
+        v = default if v is None else v
+        if torch.is_tensor(v):
+            return v.to(dtype=dtype, device=dev).expand(Bz)
+        return torch.full((Bz,), float(v), dtype=dtype, device=dev)
+
+    cost_tol = per_problem(cost_tol, opts.cost_tolerance)
+    grad_tol = per_problem(grad_tol, opts.gradient_norm_tolerance)
+    dt_traj = torch.as_tensor(dt, dtype=dtype, device=dev).expand(Nm1)
+    active = torch.ones(Bz, dtype=torch.bool, device=dev) if active is None \
+        else active
+
+    if do_rollout:
+        # initial rollout where there is no valid state seed (reference
+        # rollout!, rollout.jl:25-31); an open-loop seed that blows up holds
+        # x0 instead, so J0 stays finite (trajopt_tpu ilqr.py:1276-1284)
+        needs = ~torch.isfinite(X0).flatten(1).all(-1) & active
+        if syncs.any(needs):
+            X_roll = rollout(model, x0, U0, dt_traj)
+            blew = ~torch.isfinite(X_roll).flatten(1).all(-1)
+            X_roll = _where(blew, x0[:, None, :].expand_as(X_roll), X_roll)
+            X0 = _where(needs, X_roll, X0)
+
+    J0 = cost_fn(X0, U0)
+    rho = per_problem(rho0, opts.bp_reg_initial).clone()
+    drho = torch.ones(Bz, dtype=dtype, device=dev)
+
+    qs = getattr(model, "quat_slice", None) if opts.error_state else None
+    ns = n - 1 if qs is not None else n     # error-state tangent dim
+    if qs is not None:
+        from trajopt_tpu_torch.models.quaternions import project_error_state
+
+    X, U = X0, U0
+    K = torch.zeros((Bz, Nm1, m, ns), dtype=dtype, device=dev)
+    d = torch.zeros((Bz, Nm1, m), dtype=dtype, device=dev)
+    J_prev = J0
+    inf = torch.full((Bz,), float("inf"), dtype=dtype, device=dev)
+    dJ, grad = inf, inf
+    dJ_zero = torch.zeros(Bz, dtype=torch.int32, device=dev)
+    it = torch.zeros(Bz, dtype=torch.int32, device=dev)
+    converged = torch.zeros(Bz, dtype=torch.bool, device=dev)
+    a_prev = torch.ones(Bz, dtype=dtype, device=dev)
+
+    def running():
+        return (~converged & (it < opts.iterations)
+                & (J_prev < opts.max_cost_value) & active)
+
+    go = running()
+    while syncs.any(go):
+        A, B = model.jacobian_traj(X[:, :-1], U, dt_traj)
+        exp = expansion_fn(X, U)
+        if qs is not None:
+            A, B, exp = project_error_state(X, A, B, exp, qs)
+        K_n, d_n, dV1, dV2, rho_n, drho_n = backward_pass(
+            A, B, exp, rho, drho, opts, reg_scale=reg_scale, active=go,
+            syncs=syncs)
+        alpha0 = None
+        if opts.line_search_warm_start:
+            # grow from the last accepted step; reset to 1 after exhaustion
+            alpha0 = torch.where(a_prev > 0.0,
+                                 (2.0 * a_prev).clamp(2.0 ** -10, 1.0),
+                                 torch.ones_like(a_prev))
+        Xn, Un, J, rho_n, drho_n, alpha = forward_pass(
+            model, cost_fn, x0, X, U, K_n, d_n, dV1, dV2, J_prev, rho_n,
+            drho_n, dt, opts, alpha0=alpha0, active=go, syncs=syncs)
+
+        dJ_n = (J - J_prev).abs()
+        grad_n = calculate_gradient(opts.gradient_type, d_n, Un,
+                                    expansion_fn, Xn)
+        dJ_zero_n = torch.where(dJ_n == 0.0, dJ_zero + 1,
+                                torch.zeros_like(dJ_zero))
+        conv_n = (((0.0 < dJ_n) & (dJ_n < cost_tol)) | (grad_n < grad_tol)
+                  | (dJ_zero_n > opts.dJ_counter_limit))
+
+        X, U = _where(go, Xn, X), _where(go, Un, U)
+        K, d = _where(go, K_n, K), _where(go, d_n, d)
+        J_prev = torch.where(go, J, J_prev)
+        dJ = torch.where(go, dJ_n, dJ)
+        grad = torch.where(go, grad_n, grad)
+        rho = torch.where(go, rho_n, rho)
+        drho = torch.where(go, drho_n, drho)
+        dJ_zero = torch.where(go, dJ_zero_n, dJ_zero)
+        converged = torch.where(go, conv_n, converged)
+        a_prev = torch.where(go, alpha, a_prev)
+        it = it + go.to(it.dtype)
+        go = running()
+    return ILQRResult(X=X, U=U, K=K, d=d, J=J_prev, iterations=it,
+                      gradient=grad, dJ=dJ, rho=rho, drho=drho,
+                      converged=converged)
