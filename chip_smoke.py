@@ -1,30 +1,43 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``trajopt_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py               # about two minutes on one H100
+    python3 chip_smoke.py               # a few minutes on one H100
 
 Phases, each of which must pass:
 
 1. device and build: the card's name and power limit from ``nvidia-smi``,
-   TF32 off (``precise``), the CUDA kernels built from ``csrc/`` by nvcc
-   (ptxas's register and spill report printed), and each wrapper refusing
-   a float64 CUDA input;
-2. kernel K1 (``csrc/sqrt_sweep.cu``) against its plain twin on the card,
-   float32, at the main path's shapes (B=128, N=101, error state n=12,
-   m=4), on error-state linearizations of ``quadrotor_line`` around 128
-   perturbed starts, for rho in {0, 1e-2}; at rho = 0 one problem needs
+   TF32 off (``precise``), the CUDA kernels built from ``csrc/`` by nvcc,
+   one compiler per source side by side (ptxas's register and spill report
+   printed), and each wrapper refusing a float64 CUDA input;
+2. kernel K1 (``csrc/sqrt_sweep.cu``) against its plain version on the
+   card, float32, at the main path's shapes (B=128, N=101, error state
+   n=12, m=4), on error-state linearizations of ``quadrotor_line`` around
+   128 perturbed starts, for rho in {0, 1e-2}; at rho = 0 one problem needs
    the equilibrated Cholesky fallback and one fails outright;
-3. kernel K2 (``csrc/rollout_quadrotor.cu``) against its plain twin on the
-   card, float32, B=128, N=101, with two lanes forced to diverge, and on
-   stiff gains against the twin in float64;
-4. the slice: ``solve_batch_queued`` on ``quadrotor_line(N=101)`` in float32
+3. kernel K2 (``csrc/rollout_quadrotor.cu``) against its plain version on
+   the card, float32, B=128, N=101, with two lanes forced to diverge, and on
+   stiff gains against the plain version in float64;
+4. slice 1: ``solve_batch_queued`` on ``quadrotor_line(N=101)`` in float32
    with the quadrotor benchmark's options, a pool of 1024 perturbed starts
-   over 128 lanes. Both kernels' launch counters must move, the outcome
+   over 128 lanes. K1's and K2's launch counters must move, the outcome
    bars must hold, and the first problems of the pool must agree with a
-   float64 solve of the same problems by the plain twins on the CPU;
-5. profile: one round of 6 iLQR iterations on 128 lanes, timed plainly and
-   then under ``torch.profiler``: device busy share, launches and host
-   syncs per iteration, and the kernels that take the device time.
+   float64 solve of the same problems by the plain versions on the CPU;
+5. profile of one slice-1 round of 6 iLQR iterations on 128 lanes, timed
+   plainly and then under ``torch.profiler``: device busy share, launches
+   and host syncs per iteration, and the kernels that take the device time;
+6. kernel K3 (``csrc/fused_al_backward.cu``) against its plain version on
+   the card, float32, B=128, N=101, on the infeasible-start maze stack
+   (P = 89): benign duals, late-schedule duals, a problem made indefinite,
+   and the in-kernel Jacobians against ``jacobian_traj``;
+7. kernel K4 (``csrc/fused_al_forward.cu``) against its plain version on
+   the card, same shapes, gains from K3, with lanes forced to diverge and
+   one whose search runs out;
+8. slice 2: ``solve_batch_queued_altro_retry`` on ``quadrotor_maze`` in
+   float32 with the maze benchmark's options, a pool of perturbed starts
+   over 128 lanes. K3's and K4's counters must move, K1's and K2's must
+   not, the quality gates must hold, and two of the first problems must
+   agree in outcome with a float64 solve by the plain versions on the CPU;
+9. profile of one maze round of 10 iLQR iterations on 128 lanes.
 
 The last two lines of standard output are the card's ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``; the line before them is a JSON summary of
@@ -49,6 +62,7 @@ ROOT = Path(__file__).resolve().parent
 # scale, because the feedforward is not f32-determined at stiff knots
 # (kappa(Quu) ~ 1e9); dV at rtol 3e-2, atol 1e-5; rollouts at atol 1e-4.
 K_TOL, D_TOL, DV_RTOL, DV_ATOL, X_ATOL = 2e-3, 1e-1, 3e-2, 1e-5, 1e-4
+# slice 1's pool: the first 1024 of the benchmark's 4096 starts
 B, N, POOL = 128, 101, 1024
 GOAL = (0.0, 60.0, 10.0)
 # small-input agreement with the CPU float64 twins: problems and the bar on
@@ -62,6 +76,45 @@ EQ_AT, FAIL_AT = (5, 7), (9, 12)
 # the kernel's rollout error against the twin in float64 on stiff gains,
 # at most this multiple of the float32 twin's (phase 3)
 STIFF_RATIO = 1.5
+
+# --- slice 2 (the maze) ---
+# The maze benchmark's pool: 2048 starts (seed 0, 0.05 m position noise),
+# all of them driven here, over 128 lanes.
+MAZE_POOL = 2048
+# Quality gates after the failed-lane retry, from the JAX package's bars
+# (ROADMAP "Recent"): share with c_max < 1e-2, share with c_max < 1e-3,
+# median c_max.
+MAZE_GATES = (0.97, 0.93, 1e-3)
+# Pool problems also solved in float64 by the plain versions on the CPU and
+# compared in outcome: of the first four, the two that a float64 solve
+# finishes soonest (80 and 75 inner iterations, under two minutes of CPU
+# time together; problems 0 and 2 take several times as long)
+MAZE_REF = (1, 3)
+# K3 against its plain version. The float32 plain version itself sits up to
+# 3e-3 (K) and 2e-2 (d) of scale from the float64 one on the maze stack
+# (R_inf = 1e-8 against Qf = 1e3 and penalties up to 1e8: kappa(Quu) ~ 1e9),
+# and two float32 results that far from float64 may sit twice that apart.
+# So K and d are held to the plain version at K3_K_TOL and K3_D_TOL of
+# scale and, the sharper check, as K2 on stiff gains, to the float64 plain
+# version at K3_RATIO times the float32 plain version's own distance; dV, a
+# sum the conditioning does not amplify, at the JAX test's 1e-3.
+K3_K_TOL, K3_D_TOL, K3_DV_TOL, K3_RATIO = 1e-2, 1e-1, 1e-3, 1.5
+JAC_TOL = 1e-5
+# K4 against its plain version (tests/test_fused_al.py:306-314): alpha equal
+# on at least this share of the problems, and on those J within
+# 1e-3 max(1, |J|) and X within 1e-4 max(1, |X|)
+K4_ALPHA_SHARE, K4_J_TOL, K4_X_TOL = 0.97, 1e-3, 1e-4
+# K4's branch problems: lanes whose feedforward is scaled by 1e6, so their
+# first candidates diverge, and a lane given a cost no candidate can beat,
+# so its search runs out
+K4_DIVERGE, K4_EXHAUST = (3, 77), 11
+# peaks of one H100 SXM for the bounds (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3
+PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+# iLQROptions' line-search defaults as the fused forward kernel takes them:
+# lower and upper bound on z, candidates, bp_reg_min, bp_reg_increase_factor,
+# bp_reg_fp
+LS_OPTS = (1e-8, 10.0, 20, 1e-8, 1.6, 10.0)
 
 
 def log(*a):
@@ -99,6 +152,24 @@ def cuda_time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops, moved):
+    """The least time (ms) the card could take: the larger of the
+    operations over its float32 peak and the bytes (each input read once,
+    each output written once) over its memory rate, and which of the two."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, moved / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mm(p, q, r):
+    """Operations of a (p x r)(r x q) product."""
+    return 2 * p * q * r
+
+
 def linearization(x0s):
     """Error-state linearizations of quadrotor_line (N=101) around the
     open-loop rollouts from the starts ``x0s`` (B, 13) under the hover
@@ -128,7 +199,7 @@ def linearization(x0s):
 def quad_x0():
     from trajopt_tpu_torch.problems.zoo import quadrotor_line
 
-    return quadrotor_line(N=N).x0.numpy()
+    return quadrotor_line(N=N).x0.cpu().numpy()
 
 
 def indefinite(luu, at, off):
@@ -143,11 +214,46 @@ def indefinite(luu, at, off):
     luu[at] = M
 
 
+def wrappers():
+    """The kernels' wrappers by the names of the ``kernels`` line."""
+    from trajopt_tpu_torch.ops.cuda_al_fused import (
+        fused_al_backward_cuda, fused_al_forward_cuda)
+    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
+    from trajopt_tpu_torch.ops.cuda_sqrt import sqrt_sweep_cuda
+
+    return {"sqrt_sweep": sqrt_sweep_cuda,
+            "rollout_closed_loop_quadrotor": rollout_closed_loop_cuda,
+            "fused_al_backward": fused_al_backward_cuda,
+            "fused_al_forward": fused_al_forward_cuda}
+
+
+def reset_counts():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in wrappers().items()}
+
+
+def record_launches(report, counts, ran, idle):
+    """Write the main path's launch counts into the kernels' entries and
+    check that the path went through ``ran`` and not through ``idle``."""
+    for k in report["kernels"]:
+        if k["name"] in ran:
+            k["launches"] = counts[k["name"]]
+    check(all(counts[name] > 0 for name in ran), "a kernel never launched")
+    check(all(counts[name] == 0 for name in idle),
+          f"a kernel of the other path was launched: {counts}")
+
+
 def phase_build(report):
     import torch
     from trajopt_tpu_torch.kernels import _build
     from trajopt_tpu_torch.models import zoo
     from trajopt_tpu_torch.models.base import Model, discretize
+    from trajopt_tpu_torch.ops.cuda_al_fused import (
+        fused_al_backward_cuda, fused_al_forward_cuda)
     from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
     from trajopt_tpu_torch.ops.cuda_sqrt import sqrt_sweep_cuda
 
@@ -160,15 +266,18 @@ def phase_build(report):
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
     t0 = time.perf_counter()
-    path = _build.build()
+    libs = _build.build()
     _build.load()
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in path.with_suffix(".log").read_text().splitlines():
-        if line.strip():
-            log("nvcc:", line.strip())
+    log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(p.name for p in libs.values()))
+    for path in libs.values():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if line.strip():
+                log("nvcc:", line.strip())
 
     dev = torch.device("cuda", 0)
     z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)  # noqa
+    maze = maze_setup(torch.float64, 2)
     for name, call in (
             ("sqrt_sweep_cuda", lambda: sqrt_sweep_cuda(
                 z(2, 3, 12, 12), z(2, 3, 12, 4), z(2, 4, 12), z(2, 3, 4),
@@ -176,7 +285,15 @@ def phase_build(report):
             ("rollout_closed_loop_cuda", lambda: rollout_closed_loop_cuda(
                 discretize(zoo.quadrotor, "rk3"), z(2, 13), z(2, 4, 13),
                 z(2, 3, 4), z(2, 3, 4, 12), z(2, 3, 4), z(2), 0.05,
-                quat_slice=(3, 7)))):
+                quat_slice=(3, 7))),
+            ("fused_al_backward_cuda", lambda: fused_al_backward_cuda(
+                maze["prob"].model, maze["canon"], maze["X"], maze["U"],
+                maze["lam"], maze["mu"], maze["dt"], maze["prob"].obj, z(2))),
+            ("fused_al_forward_cuda", lambda: fused_al_forward_cuda(
+                maze["prob"].model, maze["canon"], maze["X"][:, 0], maze["X"],
+                maze["U"], z(2, N - 1, 17, 13), z(2, N - 1, 17), z(2), z(2),
+                z(2), z(2), z(2), None, maze["lam"], maze["mu"], maze["dt"],
+                maze["prob"].obj, LS_OPTS))):
         try:
             call()
         except ValueError as e:
@@ -272,11 +389,24 @@ def phase_k1(report):
     plain_ms = cuda_time_ms(lambda: sqrt_sweep(A, Bm, exp, rho), reps=3,
                             warmup=1)
     log(f"K1 time per sweep: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    # per knot (n = 12, m = 4, p = n + m): the joint factor's Cholesky, the
+    # product Ssqrt [B A], the Householder QR of the (p + n) x p stack, and
+    # the small solves and updates
+    n_, m_, p_ = 12, 4, 16
+    per_knot = (p_ ** 3 / 3 + mm(n_, p_, n_)
+                + 2 * p_ * p_ * (p_ + n_ - p_ / 3)
+                + mm(m_, n_, m_) + 3 * mm(n_, 1, m_) + mm(m_, n_, m_))
+    bound_ms, bound_by = bound(
+        B * (N - 1) * per_knot,
+        nbytes(A, Bm, lx, lu, lxx, luu, lux, rho) + 4 * B * (N - 1) * (
+            m_ * n_ + m_) + 9 * B)
+    log(f"K1 bound: {bound_ms:.5f} ms by {bound_by}")
     report["kernels"].append(dict(
         name="sqrt_sweep", route="cuda",
         source="trajopt_tpu_torch/csrc/sqrt_sweep.cu",
         replaces="trajopt_tpu/ops/pallas_sqrt.py:321", max_abs_err=worst,
-        ms=ms, plain_ms=plain_ms))
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None))
     return lin
 
 
@@ -328,11 +458,18 @@ def phase_k2(report, lin):
     plain_ms = cuda_time_ms(lambda: rollout_closed_loop(model, *ins, dt, **kw),
                             reps=3, warmup=1)
     log(f"K2 time per rollout: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    # per knot: the error state (~60), K dx, and three dynamics evaluations
+    # of the RK3 step (~120 each) with its combinations (~100)
+    bound_ms, bound_by = bound(
+        B * (N - 1) * (60 + mm(4, 1, 12) + 3 * 120 + 100),
+        nbytes(*ins) + nbytes(Xk, Uk, okk))
+    log(f"K2 bound: {bound_ms:.5f} ms by {bound_by}")
     report["kernels"].append(dict(
         name="rollout_closed_loop_quadrotor", route="cuda",
         source="trajopt_tpu_torch/csrc/rollout_quadrotor.cu",
         replaces="trajopt_tpu/ops/pallas_rollout.py:260",
-        max_abs_err=max(eX, eU), ms=ms, plain_ms=plain_ms))
+        max_abs_err=max(eX, eU), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
 
     # The stiff gains of phase 2's open-loop linearizations (|K| ~ 7e2,
     # rho = 0) amplify float32 rounding of the state past the atol above,
@@ -381,8 +518,6 @@ def pool_starts(x0):
 
 def phase_slice(report):
     import torch
-    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
-    from trajopt_tpu_torch.ops.cuda_sqrt import sqrt_sweep_cuda
     from trajopt_tpu_torch.parallel.batch import solve_batch_queued
     from trajopt_tpu_torch.problems.zoo import quadrotor_line
     import trajopt_tpu_torch as tt
@@ -400,19 +535,16 @@ def phase_slice(report):
     solve_batch_queued(prob, warm, x0s[:B], lanes=B)
     torch.cuda.synchronize()
 
-    sqrt_sweep_cuda.launches = 0
-    rollout_closed_loop_cuda.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     res = solve_batch_queued(prob, opts, x0s, lanes=B)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"sqrt_sweep": sqrt_sweep_cuda.launches,
-                "rollout_closed_loop_quadrotor":
-                    rollout_closed_loop_cuda.launches}
+    launches = read_counts()
     log(f"slice: launches {launches}")
-    for k in report["kernels"]:
-        k["launches"] = launches[k["name"]]
-    check(all(v > 0 for v in launches.values()), "a kernel never launched")
+    record_launches(report, launches,
+                    ran=("sqrt_sweep", "rollout_closed_loop_quadrotor"),
+                    idle=("fused_al_backward", "fused_al_forward"))
 
     check(res.X.shape == (POOL, N, 13) and res.U.shape == (POOL, N - 1, 4),
           "slice output shapes")
@@ -439,7 +571,7 @@ def phase_slice(report):
     # the same first problems, solved in float64 by the plain twins on the
     # CPU (the path the CPU tests hold to the JAX package)
     t0 = time.perf_counter()
-    prob64 = quadrotor_line(N=N, dtype=torch.float64)
+    prob64 = quadrotor_line(N=N, dtype=torch.float64, device="cpu")
     ref = solve_batch_queued(prob64, opts, torch.as_tensor(x0s_np[:N_REF]),
                              lanes=N_REF)
     p_ref = ref.X[:, -1, :3].numpy()
@@ -451,16 +583,59 @@ def phase_slice(report):
     check(np.median(dp) < REF_TOL, "the card disagrees with the CPU twins")
 
 
-def phase_profile(report):
-    """Where one round's time goes: one AL round of 6 iLQR iterations on the
-    first 128 pool problems (warmed up), timed plainly, then again under
-    torch.profiler. The busy share is the union of the device's kernel and
-    copy intervals in the profiled run over the plain run's wall time."""
+def profile_round(tag, one_round, iters, names):
+    """Where one round's time goes: ``one_round()`` (warmed up) is timed
+    plainly, then again under torch.profiler. The busy share is the union of
+    the device's kernel and copy intervals in the profiled run over the
+    plain run's wall time. ``names``: the kernels whose launches to count."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
-    from trajopt_tpu_torch.ops.cuda_sqrt import sqrt_sweep_cuda
+
+    one_round()
+    before = read_counts()
+    t0 = time.perf_counter()
+    res = one_round()
+    wall = time.perf_counter() - t0
+    counts = {k: read_counts()[k] - before[k] for k in names}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        one_round()
+    wall_prof = time.perf_counter() - t0
+    log(f"{tag}: one round of {iters} iterations on {B} lanes: "
+        f"{wall * 1e3:.1f} ms plain ({wall_prof * 1e3:.1f} ms profiled), "
+        f"launches {counts}, {res.host_syncs} host syncs")
+    dev_evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev_evts:
+        log(f"{tag}: device time not measured (no device events traced)")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_evts)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e3  # ms
+    by_name = {}
+    for e in dev_evts:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    total = sum(t for t, _ in by_name.values())
+    log(f"{tag}: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms plain "
+        f"wall = busy share {busy / (wall * 1e3):.3f}, idle share "
+        f"{1 - busy / (wall * 1e3):.3f}; {len(dev_evts)} device launches "
+        f"= {len(dev_evts) / iters:.0f} per iteration, "
+        f"{res.host_syncs / iters:.1f} host syncs per iteration")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"{tag}:   {100 * t / total:5.1f}% of device time, {c:5d} x "
+            f"{1e3 * t / c:8.1f} us  {name[:90]}")
+
+
+def phase_profile(report):
+    """One slice-1 AL round of 6 iLQR iterations on the first 128 pool
+    problems."""
+    import torch
     from trajopt_tpu_torch.parallel.batch import solve_batch_queued
     from trajopt_tpu_torch.problems.zoo import quadrotor_line
     import trajopt_tpu_torch as tt
@@ -478,45 +653,437 @@ def phase_profile(report):
         torch.cuda.synchronize()
         return res
 
-    one_round()
-    k1, k2 = sqrt_sweep_cuda.launches, rollout_closed_loop_cuda.launches
+    profile_round("profile", one_round, iters,
+                  ("sqrt_sweep", "rollout_closed_loop_quadrotor"))
+
+
+# ------------------------------------------------------------- slice 2
+
+def maze_options():
+    """The maze benchmark's schedule: penalty scaling 25, inner iLQR cap 10,
+    intermediate cost tolerance 1e-3, R_inf = 1e-8, fused iterations."""
+    import trajopt_tpu_torch as tt
+
+    al = tt.ALOptions(
+        iterations=40, opts_uncon=tt.iLQROptions(iterations=10, fused=True),
+        cost_tolerance=1e-5, cost_tolerance_intermediate=1e-3,
+        constraint_tolerance=1e-3, penalty_initial=1.0, penalty_scaling=25.0)
+    return tt.ALTROOptions(R_inf=1e-8, opts_al=al)
+
+
+def maze_starts(x0, count):
+    """The maze benchmark's pool: seed 0, 0.05 m position noise on 2048
+    starts; the first ``count`` of them."""
+    rng = np.random.default_rng(0)
+    x0 = np.asarray(x0, dtype=np.float64)
+    pool = (np.tile(x0[None], (2048, 1))
+            + np.concatenate([rng.normal(size=(2048, 3)) * 0.05,
+                              np.zeros((2048, 10))], axis=1))
+    return pool[:count]
+
+
+def maze_setup(dtype, batch):
+    """The infeasible-start maze problem (n = 13, m = 17, P = 89), its
+    canonical stack, and a batch of kernel inputs: X and U the transform's
+    seeds plus noise (0.05 on the states, 0.02 on the controls), duals
+    λ in [0, 0.5] and penalties μ in [0.5, 20] on the valid rows."""
+    import torch
+    from trajopt_tpu_torch.ops.canonical import canonical_stack
+    from trajopt_tpu_torch.problems.zoo import quadrotor_maze
+    from trajopt_tpu_torch.solvers.altro import infeasible_problem
+
+    dev = torch.device("cuda", 0)
+    prob = infeasible_problem(quadrotor_maze(dtype=dtype, device=dev), 1e-8)
+    canon = canonical_stack(prob.constraints, prob.model.n, prob.model.m,
+                            dtype=dtype)
+    rng = np.random.default_rng(5)
+    P = prob.constraints.P
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    mask = prob.constraints.mask
+    X = (prob.X[None] + t(rng.normal(size=(batch, N, 13)) * 0.05)).contiguous()
+    U = (prob.U[None]
+         + t(rng.normal(size=(batch, N - 1, 17)) * 0.02)).contiguous()
+    lam = (t(rng.uniform(0.0, 0.5, size=(batch, N, P))) * mask).contiguous()
+    mu = (t(rng.uniform(0.5, 20.0, size=(batch, N, P))) * mask).contiguous()
+    return dict(prob=prob, canon=canon, X=X, U=U, lam=lam, mu=mu,
+                dt=prob.dt_traj(), rng=rng)
+
+
+def to64(ms):
+    """The float64 copy of a maze set-up, same values."""
+    import torch
+    from trajopt_tpu_torch.ops.canonical import canonical_stack
+    from trajopt_tpu_torch.problems.zoo import quadrotor_maze
+    from trajopt_tpu_torch.solvers.altro import infeasible_problem
+
+    dev = ms["X"].device
+    prob = infeasible_problem(
+        quadrotor_maze(dtype=torch.float64, device=dev), 1e-8)
+    return dict(prob=prob, canon=canonical_stack(
+        prob.constraints, 13, 17, dtype=torch.float64), dt=prob.dt_traj())
+
+
+def phase_k3(report):
+    import torch
+    from trajopt_tpu_torch.ops.cuda_al_fused import (
+        fused_al_backward, fused_al_backward_cuda)
+    from trajopt_tpu_torch.solvers.ilqr import reg_noise_scale
+
+    ms = maze_setup(torch.float32, B)
+    m64 = to64(ms)
+    prob, canon, X, U, dt = ms["prob"], ms["canon"], ms["X"], ms["U"], ms["dt"]
+    dev = X.device
+
+    def three(lam, mu, rho):
+        """Kernel, float32 plain version, float64 plain version."""
+        k = fused_al_backward_cuda(prob.model, canon, X, U, lam, mu, dt,
+                                   prob.obj, rho, return_jacobians=True)
+        torch.cuda.synchronize()
+        p = fused_al_backward(prob.model, canon, X, U, lam, mu, dt, prob.obj,
+                              rho, return_jacobians=True)
+        p64 = fused_al_backward(m64["prob"].model, m64["canon"], X.double(),
+                                U.double(), lam.double(), mu.double(),
+                                m64["dt"], m64["prob"].obj, rho.double())
+        return k, p, p64
+
+    def compare(tag, k, p, p64):
+        """Fail flags, then K, d, dV on the problems that pass everywhere."""
+        check(torch.equal(k[4], p[4]),
+              f"K3 {tag}: fail flags differ from the plain version")
+        live = ~(k[4] | p[4] | p64[4])
+        log(f"K3 {tag}: fail kernel {int(k[4].sum())}, plain f32 "
+            f"{int(p[4].sum())}, plain f64 {int(p64[4].sum())} of {B}")
+        if not bool(live.any()):
+            return 0.0
+        sK = float(p64[0][live].abs().max())
+        sd = max(1e-3, float(p64[1][live].abs().max()))
+        eK, ed = (float((k[i] - p[i])[live].abs().max()) for i in (0, 1))
+        eK64, ed64 = (float((k[i] - p64[i])[live].abs().max()) for i in (0, 1))
+        pK64, pd64 = (float((p[i] - p64[i])[live].abs().max()) for i in (0, 1))
+        log(f"K3 {tag}: scale K {sK:.3e} d {sd:.3e} | kernel - plain f32: "
+            f"K {eK / sK:.2e} (tol {K3_K_TOL:g}) d {ed / sd:.2e} (tol "
+            f"{K3_D_TOL:g}) of scale | to plain f64: kernel K "
+            f"{eK64 / sK:.2e} d {ed64 / sd:.2e}, plain f32 K {pK64 / sK:.2e} "
+            f"d {pd64 / sd:.2e} (bar {K3_RATIO:g}x the plain f32's)")
+        check(eK < K3_K_TOL * sK, f"K3 {tag}: gains disagree")
+        check(ed < K3_D_TOL * sd, f"K3 {tag}: feedforward disagrees")
+        check(eK64 <= K3_RATIO * pK64, f"K3 {tag}: gains further from the "
+              "float64 plain version than the float32 plain version's")
+        for i in (2, 3):
+            e = float(((k[i] - p[i]).abs() / p[i].abs().clamp(min=1e-6))
+                      [live].max())
+            log(f"K3 {tag}: dV{i - 1} max rel err {e:.2e} (tol "
+                f"{K3_DV_TOL:g})")
+            check(e < K3_DV_TOL, f"K3 {tag}: dV{i - 1} disagrees")
+        return eK
+
+    # (a) benign duals, rho = 1, and the Jacobians of the in-kernel dual RK3
+    rho1 = torch.ones(B, device=dev)
+    k, p, p64 = three(ms["lam"], ms["mu"], rho1)
+    check(k[0].shape == (B, N - 1, 17, 13) and k[1].shape == (B, N - 1, 17),
+          "K3 output shapes")
+    worst = compare("(a) benign duals, rho = 1", k, p, p64)
+    check(not bool(k[4].any()), "K3 (a): a benign problem failed")
+    eA = float((k[5] - p[5]).abs().max())
+    eB = float((k[6] - p[6]).abs().max())
+    log(f"K3 Jacobians against jacobian_traj: max|dA| {eA:.2e}, max|dB| "
+        f"{eB:.2e} (tol {JAC_TOL:g})")
+    check(eA < JAC_TOL and eB < JAC_TOL, "K3 Jacobians disagree")
+
+    # (b) late-schedule duals: a penalty of 1e6..1e8 on every valid row
+    # (one value per row of the stack, as a schedule that multiplies by 25
+    # each round leaves them). At rho = 0 only the fail flags are compared
+    # (float32 is expected to fail where float64 does not: that is what the
+    # retry is for); then at the retry's jump rho = reg_noise_scale(mu)
+    rng = ms["rng"]
+    row_mu = torch.as_tensor(10.0 ** rng.uniform(6, 8, size=canon.P),
+                             dtype=torch.float32, device=dev)
+    mu_late = (row_mu * prob.constraints.mask).expand(B, N, -1).contiguous()
+    k, p, p64 = three(ms["lam"], mu_late, torch.zeros(B, device=dev))
+    check(torch.equal(k[4], p[4]), "K3 (b) rho = 0: fail flags differ")
+    log(f"K3 (b) late duals, rho = 0: fail kernel {int(k[4].sum())}, plain "
+        f"f32 {int(p[4].sum())}, plain f64 {int(p64[4].sum())} of {B}")
+    jump = reg_noise_scale(mu_late, torch.float32).contiguous()
+    k, p, p64 = three(ms["lam"], mu_late, jump)
+    worst = max(worst, compare(
+        f"(b) late duals, rho = {float(jump.min()):.3g}..."
+        f"{float(jump.max()):.3g}", k, p, p64))
+
+    # (c) problem 7 made indefinite (negative penalties on its slack rows
+    # at knot 40): the fail branch runs, gains there are zero
+    mu_bad = ms["mu"].clone()
+    r0, r1 = prob.constraints.row_slice("infeasible")
+    mu_bad[7, 40, r0:r1] = -1e3
+    k, p, p64 = three(ms["lam"], mu_bad, rho1)
+    check(k[4].nonzero().flatten().tolist() == [7]
+          and torch.equal(k[4], p[4]), "K3 (c): fail flags")
+    check(not bool(k[0][7, 40].any()) and not bool(k[1][7, 40].any()),
+          "K3 (c): gains left at the failed stage")
+    compare("(c) problem 7 indefinite at knot 40", k, p, p64)
+
+    args = (prob.model, canon, X, U, ms["lam"], ms["mu"], dt, prob.obj, rho1)
+    ms_k = cuda_time_ms(lambda: fused_al_backward_cuda(*args), reps=20)
+    plain_ms = cuda_time_ms(lambda: fused_al_backward(*args), reps=2,
+                            warmup=1)
+    # per knot (n = 13, m = 17, 17 dual directions through three dynamics
+    # evaluations of ~360 operations with their tangents, the stage and AL
+    # expansion, the Riccati products, the 17-pivot elimination with 14
+    # right-hand sides and the value update)
+    n_, m_, P = 13, 17, canon.P
+    per_knot = (17 * (3 * 360 + 100) + 2 * (n_ * n_ + m_ * m_ + 2 * m_ * n_)
+                + 14 * P
+                + mm(n_, n_, n_) + mm(n_, m_, n_) + mm(n_, 1, n_)
+                + mm(m_, 1, n_) + mm(n_, n_, n_) + mm(m_, m_, n_)
+                + mm(m_, n_, n_) + m_ * m_ * (m_ + n_ + 1)
+                + mm(m_, n_ + 1, m_) + mm(m_, 1, m_) + mm(m_, n_, m_)
+                + 3 * mm(n_, 1, m_) + 3 * mm(n_, n_, m_))
+    obj = prob.obj
+    bound_ms, bound_by = bound(
+        B * (N - 1) * per_knot,
+        nbytes(X, U, ms["lam"], ms["mu"], dt, obj.Q, obj.R, obj.H, obj.q,
+               obj.r, rho1, canon.row_i, canon.row_f)
+        + nbytes(k[0], k[1]) + 9 * B)
+    log(f"K3 time per sweep: kernel {ms_k:.4f} ms, plain version "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    report["kernels"].append(dict(
+        name="fused_al_backward", route="cuda",
+        source="trajopt_tpu_torch/csrc/fused_al_backward.cu",
+        replaces="trajopt_tpu/ops/pallas_al_fused.py:564", max_abs_err=worst,
+        ms=ms_k, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None))
+    return ms
+
+
+def phase_k4(report, ms):
+    import torch
+    from trajopt_tpu_torch.ops.canonical import canon_al_cost, pad_terminal
+    from trajopt_tpu_torch.ops.cost import total_cost
+    from trajopt_tpu_torch.ops.cuda_al_fused import (
+        fused_al_backward_cuda, fused_al_forward, fused_al_forward_cuda)
+
+    prob, canon, X, U, dt = ms["prob"], ms["canon"], ms["X"], ms["U"], ms["dt"]
+    lam, mu = ms["lam"], ms["mu"]
+    dev = X.device
+    rho = torch.ones(B, device=dev)
+    drho = torch.ones(B, device=dev)
+    K, d, dV1, dV2, fail = fused_al_backward_cuda(
+        prob.model, canon, X, U, lam, mu, dt, prob.obj, rho)
+    check(not bool(fail.any()), "K4 inputs: a backward sweep failed")
+    x0 = X[:, 0].contiguous()
+    J_prev = (total_cost(prob.obj, X, U, dt)
+              + canon_al_cost(canon, X, pad_terminal(U), lam,
+                              mu)).contiguous()
+    d = d.clone()
+    for lane in K4_DIVERGE:
+        d[lane] *= 1e6
+    J_prev[K4_EXHAUST] = -1e30
+    # The searches start at alpha0 = 2^-6 .. 2^-9, as a warm-started search
+    # would: from this set-up (a seed that is not a trajectory, plus noise)
+    # the full Newton step sends the quadrotor tumbling, and a float32
+    # rollout of a tumbling quadrotor amplifies rounding by orders of
+    # magnitude, in the kernel and in the plain version alike
+    alpha0 = (0.5 ** (6 + torch.arange(B, device=dev) % 4)).float()
+    args = (prob.model, canon, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
+            alpha0, lam, mu, dt, prob.obj, LS_OPTS)
+    Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args)
+    torch.cuda.synchronize()
+    Xp, Up, Jp, rp, drp, ap = fused_al_forward(*args)
+    check(Xk.shape == X.shape and Uk.shape == U.shape, "K4 output shapes")
+    same = ak == ap
+    share = float(same.float().mean())
+    # values are compared on the problems that took the same step, without
+    # the lanes whose feedforward was blown up: their accepted candidate
+    # follows a 1e6 x feedforward at alpha ~ 1e-6, which amplifies float32
+    # rounding past any tolerance (their steps and flags are checked below)
+    calm = same.clone()
+    calm[list(K4_DIVERGE)] = False
+    eJ = float(((Jk - Jp).abs() / Jp.abs().clamp(min=1.0))[calm].max())
+    eX = float((Xk - Xp)[calm].abs().max()
+               / max(1.0, float(Xp[calm].abs().max())))
+    eU = float((Uk - Up)[calm].abs().max()
+               / max(1.0, float(Up[calm].abs().max())))
+    wild = list(K4_DIVERGE)
+    log(f"K4: alpha equal on {int(same.sum())}/{B} problems (share "
+        f"{share:.3f}, bar {K4_ALPHA_SHARE}); on those J rel err {eJ:.2e} "
+        f"(tol {K4_J_TOL:g}), X {eX:.2e} and U {eU:.2e} of scale (tol "
+        f"{K4_X_TOL:g}); steps used {sorted(set(ak.tolist()))}; on the "
+        f"blown-up lanes {wild}: max|dX| "
+        f"{float((Xk - Xp)[wild].abs().max()):.2e}")
+    check(share >= K4_ALPHA_SHARE, "K4 takes other steps than the plain "
+          "version")
+    check(eJ < K4_J_TOL and eX < K4_X_TOL and eU < K4_X_TOL,
+          "K4 disagrees with the plain version")
+    # the forced branches: a diverging search still ends like the plain one,
+    # and the exhausted one restores X, U, J_prev and bumps rho
+    ex = K4_EXHAUST
+    for lane in K4_DIVERGE + (ex,):
+        check(float(ak[lane]) == float(ap[lane]),
+              f"K4 lane {lane}: step differs from the plain version")
+    check(float(ak[ex]) == 0.0 and torch.equal(Xk[ex], X[ex])
+          and torch.equal(Uk[ex], U[ex])
+          and float(Jk[ex]) == float(J_prev[ex]),
+          "K4 exhausted search did not restore its inputs")
+    check(torch.equal(rk[same], rp[same]) and torch.equal(drk[same], drp[same])
+          and float(rk[ex]) > 10,
+          "K4 rho bump differs from the plain version")
+    log(f"K4 branches: lanes {K4_DIVERGE} (diverging first candidates) took "
+        f"alpha {[float(ak[i]) for i in K4_DIVERGE]}; lane {ex} ran out: "
+        f"alpha 0, rho {float(rk[ex]):g}, drho {float(drk[ex]):g}")
+
+    ms_k = cuda_time_ms(lambda: fused_al_forward_cuda(*args), reps=10)
+    plain_ms = cuda_time_ms(lambda: fused_al_forward(*args), reps=1, warmup=0)
+    # candidates this run's data needs: one per halving down to the step
+    # used, all of them where the search ran out; per candidate and knot the
+    # gain product, the stage cost, the AL rows and the RK3 step
+    n_, m_, P = 13, 17, canon.P
+    cands = torch.where(ak > 0,
+                        torch.log2(alpha0 / ak.clamp(min=1e-30)).round() + 1,
+                        torch.full_like(ak, LS_OPTS[2] + 1.0))
+    per_knot = (mm(m_, 1, n_) + 2 * (n_ * n_ + m_ * m_ + m_ * n_) + 10 * P
+                + 3 * 120 + 100)
+    obj = prob.obj
+    bound_ms, bound_by = bound(
+        float(cands.sum()) * (N - 1) * per_knot,
+        nbytes(x0, X, U, K, d, lam, mu, dt, obj.Q, obj.R, obj.H, obj.q, obj.r,
+               obj.c, canon.row_i, canon.row_f, Xk, Uk) + 40 * B)
+    log(f"K4 time per line search ({float(cands.mean()):.2f} candidates a "
+        f"problem, {int(cands.max())} at most): kernel {ms_k:.4f} ms, plain "
+        f"version {plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    report["kernels"].append(dict(
+        name="fused_al_forward", route="cuda",
+        source="trajopt_tpu_torch/csrc/fused_al_forward.cu",
+        replaces="trajopt_tpu/ops/pallas_al_fused.py:828",
+        max_abs_err=float((Xk - Xp)[calm].abs().max()), ms=ms_k,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None))
+
+
+def maze_shares(c_max):
+    c = c_max.double().cpu().numpy()
+    return (float(np.mean(c < 1e-2)), float(np.mean(c < 1e-3)),
+            float(np.median(c)))
+
+
+def phase_maze(report):
+    import torch
+    from trajopt_tpu_torch.parallel.batch import (
+        solve_batch_queued_altro, solve_batch_queued_altro_retry)
+    from trajopt_tpu_torch.problems.zoo import quadrotor_maze
+    import trajopt_tpu_torch as tt
+
+    prob = quadrotor_maze(dtype=torch.float32)      # on the card by default
+    dev = prob.device
+    check(dev.type == "cuda", "quadrotor_maze() did not build on the card")
+    x0s_np = maze_starts(prob.x0.cpu(), MAZE_POOL)
+    x0s = torch.as_tensor(x0s_np, dtype=torch.float32, device=dev)
+    opts = maze_options()
+
+    # warm-up: one short round, not timed
+    warm = tt.ALTROOptions(R_inf=1e-8, opts_al=tt.ALOptions(
+        iterations=1, opts_uncon=tt.iLQROptions(iterations=2, fused=True)))
+    solve_batch_queued_altro(prob, warm, x0s[:B], lanes=B, infeasible=True)
+    torch.cuda.synchronize()
+
+    # the pass before the retry, for its three shares (not timed)
+    first = solve_batch_queued_altro(prob, opts, x0s, lanes=B,
+                                     infeasible=True)
+    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
-    res = one_round()
+    res, n_retried = solve_batch_queued_altro_retry(
+        prob, opts, x0s, lanes=B, infeasible=True, tol=1e-3)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = sqrt_sweep_cuda.launches - k1
-    k2 = rollout_closed_loop_cuda.launches - k2
+    launches = read_counts()
+    log(f"maze: launches {launches}")
+    record_launches(report, launches,
+                    ran=("fused_al_backward", "fused_al_forward"),
+                    idle=("sqrt_sweep", "rollout_closed_loop_quadrotor"))
+
+    check(res.X.shape == (MAZE_POOL, N, 13)
+          and res.U.shape == (MAZE_POOL, N - 1, 4), "maze output shapes")
+    check(bool(torch.isfinite(res.X).all()), "non-finite final states")
+    before, after = maze_shares(first.c_max), maze_shares(res.c_max)
+    its = res.iterations_total.float().mean().item()
+    total_its = int(res.iterations_total.sum())
+    k3, k4 = launches["fused_al_backward"], launches["fused_al_forward"]
+    log(f"maze: {MAZE_POOL} problems over {B} lanes in {wall:.3f} s = "
+        f"{MAZE_POOL / wall:.2f} solves/s with the retry | rounds "
+        f"{res.rounds}, host syncs {res.host_syncs} "
+        f"({res.host_syncs / res.rounds:.2f} per round), n_retried "
+        f"{n_retried}")
+    log(f"maze: before the retry c_max<1e-2 {before[0]:.4f}, c_max<1e-3 "
+        f"{before[1]:.4f}, median c_max {before[2]:.3e}; after it "
+        f"{after[0]:.4f}, {after[1]:.4f}, {after[2]:.3e} (gates "
+        f"{MAZE_GATES})")
+    log(f"maze: mean inner iterations {its:.2f} (of the kept solves), K3 "
+        f"sweeps per K4 line search {k3 / k4:.3f} (rho retries), "
+        f"{k4} batched iterations")
+    report["maze"] = dict(
+        solves_per_s=MAZE_POOL / wall, wall_s=wall, rounds=res.rounds,
+        host_syncs=res.host_syncs, n_retried=n_retried, before_retry=before,
+        after_retry=after, mean_iterations_total=its,
+        total_iterations=total_its)
+    check(after[0] >= MAZE_GATES[0], "maze: share with c_max < 1e-2 too low")
+    check(after[1] >= MAZE_GATES[1], "maze: share with c_max < 1e-3 too low")
+    check(after[2] < MAZE_GATES[2], "maze: median c_max too high")
+
+    maze_reference(res, x0s_np, opts)
+
+
+def maze_reference(res, x0s_np, opts):
+    """The problems ``MAZE_REF`` in float64 by the plain versions on the CPU
+    must agree in outcome (c_max < 1e-3) with the card's float32 solves."""
+    import torch
+    from trajopt_tpu_torch.parallel.batch import (
+        solve_batch_queued_altro_retry)
+    from trajopt_tpu_torch.problems.zoo import quadrotor_maze
+
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        one_round()
-    wall_prof = time.perf_counter() - t0
-    log(f"profile: one round of {iters} iterations on {B} lanes: "
-        f"{wall * 1e3:.1f} ms plain ({wall_prof * 1e3:.1f} ms profiled), "
-        f"K1 {k1} and K2 {k2} launches, {res.host_syncs} host syncs")
-    dev_evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev_evts:
-        log("profile: device time not measured (no device events traced)")
-        return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_evts)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    busy = (busy + hi - lo) / 1e3  # ms
-    by_name = {}
-    for e in dev_evts:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
-    total = sum(t for t, _ in by_name.values())
-    log(f"profile: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms plain "
-        f"wall = busy share {busy / (wall * 1e3):.3f}, idle share "
-        f"{1 - busy / (wall * 1e3):.3f}; {len(dev_evts)} device launches "
-        f"= {len(dev_evts) / iters:.0f} per iteration, "
-        f"{res.host_syncs / iters:.1f} host syncs per iteration")
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        log(f"profile:   {100 * t / total:5.1f}% of device time, {c:5d} x "
-            f"{1e3 * t / c:8.1f} us  {name[:90]}")
+    idx = list(MAZE_REF)
+    prob64 = quadrotor_maze(dtype=torch.float64, device="cpu")
+    ref, _ = solve_batch_queued_altro_retry(
+        prob64, opts, torch.as_tensor(x0s_np[idx]), lanes=len(idx),
+        infeasible=True, tol=1e-3)
+    ok_ref = (ref.c_max < 1e-3).tolist()
+    ok_gpu = (res.c_max[idx] < 1e-3).tolist()
+    log(f"reference: maze problems {idx} in float64 on the CPU "
+        f"({time.perf_counter() - t0:.1f} s): c_max {ref.c_max.tolist()} "
+        f"(card: {res.c_max[idx].tolist()}), inner iterations "
+        f"{ref.iterations_total.tolist()} (card: "
+        f"{res.iterations_total[idx].tolist()})")
+    check(ok_ref == ok_gpu, "the card disagrees in outcome with the CPU "
+          "plain versions")
+
+
+def phase_maze_profile(report):
+    """One maze AL round of 10 iLQR iterations on the first 128 problems."""
+    import torch
+    from trajopt_tpu_torch.parallel.batch import solve_batch_queued_altro
+    from trajopt_tpu_torch.problems.zoo import quadrotor_maze
+    import trajopt_tpu_torch as tt
+
+    prob = quadrotor_maze(dtype=torch.float32)
+    x0s = torch.as_tensor(maze_starts(prob.x0.cpu(), B), dtype=torch.float32,
+                          device=prob.device)
+    iters = 10
+    opts = tt.ALTROOptions(R_inf=1e-8, opts_al=tt.ALOptions(
+        iterations=1, opts_uncon=tt.iLQROptions(iterations=iters,
+                                                fused=True),
+        cost_tolerance_intermediate=0.0, penalty_initial=1.0,
+        penalty_scaling=25.0))
+
+    def one_round():
+        res = solve_batch_queued_altro(prob, opts, x0s, lanes=B,
+                                       infeasible=True)
+        torch.cuda.synchronize()
+        return res
+
+    profile_round("maze profile", one_round, iters,
+                  ("fused_al_backward", "fused_al_forward"))
 
 
 def main() -> int:
@@ -559,9 +1126,17 @@ def main() -> int:
             if lin is not None:
                 run("K2 vs twin", phase_k2, report, lin)
         if not failed:
-            run("slice", phase_slice, report)
+            run("slice 1", phase_slice, report)
         if not failed:
-            run("profile", phase_profile, report)
+            run("profile of slice 1", phase_profile, report)
+        if not failed:
+            maze = run("K3 vs plain version", phase_k3, report)
+            if maze is not None:
+                run("K4 vs plain version", phase_k4, report, maze)
+        if not failed:
+            run("slice 2 (maze)", phase_maze, report)
+        if not failed:
+            run("profile of slice 2", phase_maze_profile, report)
     if failed:
         log(json.dumps({k: v for k, v in report.items() if k != "smi"}))
         log("chip_smoke: failed phases", failed)

@@ -6,9 +6,9 @@ On a machine with an NVIDIA GPU and nvcc:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Small shapes (B=16, N=21) in float32, at the f32 tolerances of
-tests/test_pallas.py; chip_smoke.py repeats the comparison at the main
-path's shapes.
+Small shapes (B=16, N=21 for K1 and K2; B=16 on the N=101 maze stack for K3
+and K4) in float32, at the f32 tolerances of tests/test_pallas.py and of
+chip_smoke.py, which repeats the comparisons at the main paths' shapes.
 """
 import numpy as np
 import pytest
@@ -17,13 +17,21 @@ import torch
 from trajopt_tpu_torch.models import zoo
 from trajopt_tpu_torch.models.base import Model, discretize
 from trajopt_tpu_torch.models.quaternions import project_error_state
-from trajopt_tpu_torch.ops.cost import Expansion, cost_expansion
+from trajopt_tpu_torch.ops.canonical import (
+    canon_al_cost, canonical_stack, pad_terminal,
+)
+from trajopt_tpu_torch.ops.cost import Expansion, cost_expansion, total_cost
+from trajopt_tpu_torch.ops.cuda_al_fused import (
+    fused_al_backward, fused_al_backward_cuda, fused_al_forward,
+    fused_al_forward_cuda,
+)
 from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
 from trajopt_tpu_torch.ops.cuda_sqrt import (
     equilibrated_chol_upper, plain_chol_upper, sqrt_sweep, sqrt_sweep_cuda,
 )
 from trajopt_tpu_torch.ops.rollout import rollout, rollout_closed_loop
-from trajopt_tpu_torch.problems.zoo import quadrotor_line
+from trajopt_tpu_torch.problems.zoo import quadrotor_line, quadrotor_maze
+from trajopt_tpu_torch.solvers.altro import infeasible_problem
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -156,3 +164,137 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                  z(2, 3, 4, dt=f), z(2, 3, 4, 12, dt=f),
                                  z(2, 3, 4, dt=f), z(2, dt=f), 0.05,
                                  quat_slice=(3, 7))
+
+
+# ------------------------------------------------------------ K3 and K4
+
+LS_OPTS = (1e-8, 10.0, 20, 1e-8, 1.6, 10.0)   # iLQROptions' defaults
+
+
+@pytest.fixture(scope="module")
+def maze(cuda_device):
+    """The infeasible-start maze stack (N = 101, P = 89) with a batch of
+    inputs around the transform's seed and exercised duals."""
+    prob = infeasible_problem(
+        quadrotor_maze(dtype=torch.float32, device=cuda_device), 1e-8)
+    canon = canonical_stack(prob.constraints, 13, 17, dtype=torch.float32)
+    rng = np.random.default_rng(5)
+    Nm, P = prob.N, prob.constraints.P
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+
+    mask = prob.constraints.mask
+    return dict(
+        prob=prob, canon=canon,
+        X=(prob.X[None] + t(rng.normal(size=(B, Nm, 13)) * .05)).contiguous(),
+        U=(prob.U[None]
+           + t(rng.normal(size=(B, Nm - 1, 17)) * .02)).contiguous(),
+        lam=(t(rng.uniform(0.0, 0.5, size=(B, Nm, P))) * mask).contiguous(),
+        mu=(t(rng.uniform(0.5, 20.0, size=(B, Nm, P))) * mask).contiguous())
+
+
+def _backward(maze, fn, mu=None, **kw):
+    p = maze["prob"]
+    return fn(p.model, maze["canon"], maze["X"], maze["U"], maze["lam"],
+              maze["mu"] if mu is None else mu, p.dt_traj(), p.obj,
+              torch.ones(B, device=maze["X"].device), **kw)
+
+
+def test_fused_al_backward_kernel_matches_plain_version(maze):
+    """Benign duals, rho = 1: fail flags equal (none), K at 1e-2 and d at
+    1e-1 of scale (the float32 plain version is itself ~2e-3 and ~1e-2 from
+    float64 on this stack), dV at 1e-3, in-kernel Jacobians at 1e-5."""
+    before = fused_al_backward_cuda.launches
+    k = _backward(maze, fused_al_backward_cuda, return_jacobians=True)
+    torch.cuda.synchronize()
+    assert fused_al_backward_cuda.launches == before + 1
+    p = _backward(maze, fused_al_backward, return_jacobians=True)
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    assert (k[0] - p[0]).abs().max() < 1e-2 * p[0].abs().max()
+    assert (k[1] - p[1]).abs().max() < 1e-1 * p[1].abs().max()
+    torch.testing.assert_close(k[2], p[2], rtol=1e-3, atol=0)
+    torch.testing.assert_close(k[3], p[3], rtol=1e-3, atol=0)
+    torch.testing.assert_close(k[5], p[5], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k[6], p[6], rtol=0, atol=1e-5)
+
+
+def test_fused_al_backward_kernel_fail_branch(maze):
+    """Negative penalties on problem 7's slack rows at knot 40 make its
+    Quu indefinite: kernel and plain version fail exactly that problem, and
+    the kernel's gains at the failed stage are zero."""
+    mu = maze["mu"].clone()
+    r0, r1 = maze["prob"].constraints.row_slice("infeasible")
+    mu[7, 40, r0:r1] = -1e3
+    k = _backward(maze, fused_al_backward_cuda, mu=mu)
+    torch.cuda.synchronize()
+    p = _backward(maze, fused_al_backward, mu=mu)
+    assert k[4].nonzero().flatten().tolist() == [7]
+    assert torch.equal(k[4], p[4])
+    assert not bool(k[0][7, 40].any()) and not bool(k[1][7, 40].any())
+    live = ~k[4]
+    assert (k[0] - p[0])[live].abs().max() < 1e-2 * p[0][live].abs().max()
+
+
+def test_fused_al_forward_kernel_matches_plain_version(maze):
+    """Searches started at alpha0 = 2^-6..2^-9 (tame candidates), problem 5
+    with a blown-up feedforward (its first candidates diverge) and problem
+    11 with a cost no candidate can beat (its search runs out: restore and
+    rho bump): steps equal, J at 1e-3, X and U at 1e-4 of scale."""
+    p = maze["prob"]
+    dev = maze["X"].device
+    K, d, dV1, dV2, fail = _backward(maze, fused_al_backward_cuda)
+    assert not bool(fail.any())
+    X, U, lam, mu = (maze[k] for k in ("X", "U", "lam", "mu"))
+    dt = p.dt_traj()
+    J_prev = (total_cost(p.obj, X, U, dt)
+              + canon_al_cost(maze["canon"], X, pad_terminal(U), lam,
+                              mu)).contiguous()
+    d = d.clone()
+    d[5] *= 1e6
+    J_prev[11] = -1e30
+    alpha0 = (0.5 ** (6 + torch.arange(B, device=dev) % 4)).float()
+    ones = torch.ones(B, device=dev)
+    args = (p.model, maze["canon"], X[:, 0].contiguous(), X, U, K, d, dV1,
+            dV2, J_prev, ones, ones, alpha0, lam, mu, dt, p.obj, LS_OPTS)
+    before = fused_al_forward_cuda.launches
+    Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_al_forward_cuda.launches == before + 1
+    Xp, Up, Jp, rp, drp, ap = fused_al_forward(*args)
+    assert torch.equal(ak, ap) and torch.equal(rk, rp)
+    assert torch.equal(drk, drp)
+    assert float(ak[11]) == 0.0 and float(rk[11]) > 10.0
+    assert torch.equal(Xk[11], X[11]) and torch.equal(Uk[11], U[11])
+    assert float(Jk[11]) == float(J_prev[11])
+    calm = torch.ones(B, dtype=torch.bool, device=dev)
+    calm[5] = False
+    torch.testing.assert_close(Jk[calm], Jp[calm], rtol=1e-3, atol=1e-3)
+    assert (Xk - Xp)[calm].abs().max() < 1e-4 * Xp.abs().max()
+    assert (Uk - Up)[calm].abs().max() < 1e-4 * max(
+        1.0, float(Up[calm].abs().max()))
+
+
+def test_constrained_solve_outside_the_fused_path_raises_on_the_card(maze):
+    """No plain version stands in for a missing kernel: with fused_al off a
+    constrained pool solve on a CUDA tensor raises."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.parallel.batch import solve_batch_queued
+
+    p = maze["prob"]
+    opts = tt.ALOptions(opts_uncon=tt.iLQROptions(fused_al=False))
+    with pytest.raises(NotImplementedError, match="K5"):
+        solve_batch_queued(p, opts, maze["X"][:2, 0].contiguous(), lanes=2)
+
+
+def test_fused_al_wrappers_refuse_what_the_kernels_do_not_take(maze):
+    p = maze["prob"]
+    f64 = lambda t: t.double()  # noqa: E731
+    with pytest.raises(ValueError):
+        fused_al_backward_cuda(
+            p.model, maze["canon"], f64(maze["X"]), f64(maze["U"]),
+            f64(maze["lam"]), f64(maze["mu"]), p.dt_traj(), p.obj,
+            torch.ones(B, dtype=torch.float64, device=maze["X"].device))
+    base = quadrotor_maze(dtype=torch.float32, device=maze["X"].device)
+    with pytest.raises(NotImplementedError):   # no slack step: not the model
+        _backward(dict(maze, prob=base), fused_al_backward_cuda)

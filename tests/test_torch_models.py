@@ -152,7 +152,8 @@ def test_convert_round_trip_cost(quantity):
     """The JAX problem carried over by ``convert`` gives the same total
     cost and cost expansion on the same trajectories."""
     pj = jax_quadrotor_line(N=N, dtype=jnp.float64, distance=20.0)
-    prob = convert.problem_from_arrays(**convert.problem_arrays(pj))
+    prob = convert.problem_from_arrays(**convert.problem_arrays(pj),
+                                       device="cpu")
     assert (prob.N, prob.dt, prob.tf) == (N, float(pj.dt), float(pj.tf))
     rng = np.random.default_rng(5)
     X = np.asarray(pj.x0) + rng.normal(size=(3, N, 13))

@@ -42,8 +42,9 @@ def _pool(x0):
 def test_quadrotor_line_matches_jax_problem():
     """The port's zoo problem equals the JAX one carried over by convert."""
     pj = jax_quadrotor_line(N=N, dtype=jnp.float64, distance=DISTANCE)
-    mine = quadrotor_line(N=N, distance=DISTANCE)
-    carried = convert.problem_from_arrays(**convert.problem_arrays(pj))
+    mine = quadrotor_line(N=N, distance=DISTANCE, device="cpu")
+    carried = convert.problem_from_arrays(**convert.problem_arrays(pj),
+                                       device="cpu")
     for name in ("x0", "xf", "X", "U"):
         a, b = getattr(mine, name).numpy(), getattr(carried, name).numpy()
         assert np.array_equal(np.isnan(a), np.isnan(b)), name
@@ -65,7 +66,8 @@ def test_solve_batch_queued_matches_jax():
         iterations=25, error_state=True, bp_type="sqrt"))
     ref = jax_queued(pj, opts_j, jnp.asarray(x0s), lanes=LANES)
 
-    prob = convert.problem_from_arrays(**convert.problem_arrays(pj))
+    prob = convert.problem_from_arrays(**convert.problem_arrays(pj),
+                                       device="cpu")
     opts = tt.ALOptions(iterations=16, opts_uncon=tt.iLQROptions(
         iterations=25, error_state=True, bp_type="sqrt"))
     res = solve_batch_queued(prob, opts, torch.as_tensor(x0s), lanes=LANES)

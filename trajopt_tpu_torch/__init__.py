@@ -9,24 +9,43 @@ ported path are hand-written CUDA kernels for Hopper (``csrc/``), built by
 ``kernels/_build.py`` at first use; each has a plain PyTorch twin that runs
 on the CPU.
 
-Ported so far (slice 1): the quadrotor iLQR queued-pool path —
+Ported so far: the quadrotor iLQR queued-pool path (slice 1:
 ``problems.zoo.quadrotor_line`` solved by ``parallel.batch.
 solve_batch_queued`` with ``ALOptions(opts_uncon=iLQROptions(
-error_state=True, bp_type="sqrt"))``.
+error_state=True, bp_type="sqrt"))``) and the quadrotor_maze ALTRO AL stage
+(slice 2: ``problems.zoo.quadrotor_maze`` solved by ``parallel.batch.
+solve_batch_queued_altro_retry`` with ``iLQROptions(fused=True)``, every
+iteration the two fused AL kernels of ``ops/cuda_al_fused.py``).
+
+Constructors and entry points build on the current CUDA device unless told
+otherwise (``device="cpu"`` runs the kernels' plain versions).
 """
 from trajopt_tpu_torch.models.base import DiscreteModel, Model, discretize
+from trajopt_tpu_torch.ops.constraints import (
+    Constraint, ConstraintSet, ConstraintSetBuilder, bound_constraint,
+    goal_constraint, infeasible_constraint, obstacle_field_constraint,
+)
 from trajopt_tpu_torch.ops.cost import LQRObjective, Objective, QuadraticCost
 from trajopt_tpu_torch.parallel.batch import (
-    QueuedBatchResult, solve_batch_queued,
+    QueuedBatchResult, solve_batch_queued, solve_batch_queued_altro,
+    solve_batch_queued_altro_retry,
 )
-from trajopt_tpu_torch.problem import Problem, problem, update_problem
+from trajopt_tpu_torch.problem import (
+    Problem, initial_states, problem, update_problem,
+)
 from trajopt_tpu_torch.solvers.al import ALOptions
+from trajopt_tpu_torch.solvers.altro import ALTROOptions, infeasible_problem
 from trajopt_tpu_torch.solvers.ilqr import iLQROptions, ilqr_solve
 from trajopt_tpu_torch.utils.tree import precise, precise_context
 
 __all__ = [
-    "ALOptions", "DiscreteModel", "LQRObjective", "Model", "Objective",
-    "Problem", "QuadraticCost", "QueuedBatchResult", "discretize",
-    "iLQROptions", "ilqr_solve", "precise", "precise_context", "problem",
-    "solve_batch_queued", "update_problem",
+    "ALOptions", "ALTROOptions", "Constraint", "ConstraintSet",
+    "ConstraintSetBuilder", "DiscreteModel", "LQRObjective", "Model",
+    "Objective", "Problem", "QuadraticCost", "QueuedBatchResult",
+    "bound_constraint", "discretize", "goal_constraint", "iLQROptions",
+    "ilqr_solve", "infeasible_constraint", "infeasible_problem",
+    "initial_states", "obstacle_field_constraint", "precise",
+    "precise_context", "problem", "solve_batch_queued",
+    "solve_batch_queued_altro", "solve_batch_queued_altro_retry",
+    "update_problem",
 ]

@@ -1,10 +1,13 @@
-"""Problem carry-over from the JAX package.
+"""Problem and solver state carried over from the JAX package.
 
 The port never imports JAX. A problem built by ``trajopt_tpu`` is handed
 over as plain numpy arrays: ``problem_arrays`` reads them off any object
 with the JAX ``Problem``'s attributes (through ``np.asarray``), and
 ``problem_from_arrays`` builds the port's ``Problem`` from them, on the
-device and in the dtype asked for.
+device and in the dtype asked for. The constraint set travels as data too:
+per constraint its label, its canonical row kind with the parameters, the
+equality flags and the knots it applies at. ``state_arrays`` and
+``state_from_arrays`` do the same for a solver state (X, U, λ, μ).
 """
 from __future__ import annotations
 
@@ -13,47 +16,109 @@ import torch
 
 from trajopt_tpu_torch.models import zoo
 from trajopt_tpu_torch.models.base import discretize
-from trajopt_tpu_torch.ops.constraints import empty_constraints
+from trajopt_tpu_torch.ops.constraints import (
+    ConstraintSet, linear_rows_constraint, sphere_rows_constraint,
+)
 from trajopt_tpu_torch.ops.cost import Objective
 from trajopt_tpu_torch.problem import Problem
+from trajopt_tpu_torch.utils.device import resolve_device
 
 MODELS = {"quadrotor": zoo.quadrotor}
 OBJECTIVE_FIELDS = ("Q", "R", "H", "q", "r", "c")
+STATE_FIELDS = ("X", "U", "lam", "mu")
+
+
+def constraint_arrays(cs) -> list:
+    """The constraints of a JAX ``ConstraintSet`` as data, one dict per
+    constraint: label, applies, equality (p,), knots (N,) bool, term_rows
+    or None, and the canonical descriptor (kind 'sphere': coords, ctr, b;
+    kind 'linear': rows of (is_u, idx, sign), off). A constraint without a
+    descriptor (a custom function, the kuka FK rows) does not carry over."""
+    mask = np.asarray(cs.mask)
+    out = []
+    for con, (r0, r1) in zip(cs.cons, cs.slices):
+        canon = getattr(con, "canon", None)
+        if canon is None or canon[0] not in ("sphere", "linear"):
+            raise NotImplementedError(
+                f"constraint {con.label!r} has no sphere/linear descriptor "
+                "and does not carry over (ROADMAP Queue 1)")
+        d = dict(label=con.label, applies=con.applies,
+                 equality=np.asarray(con.equality, bool),
+                 knots=mask[:, r0:r1].any(axis=1), kind=canon[0],
+                 term_rows=getattr(con, "term_rows", None))
+        if canon[0] == "sphere":
+            d.update(coords=tuple(canon[1]), ctr=np.asarray(canon[2]),
+                     b=np.asarray(canon[3]))
+        else:
+            d.update(rows=tuple(canon[1]), off=np.asarray(canon[2]))
+        out.append(d)
+    return out
+
+
+def constraints_from_arrays(constraints, N: int, device=None) -> ConstraintSet:
+    """The port's ``ConstraintSet`` from :func:`constraint_arrays` data."""
+    entries = []
+    for d in constraints:
+        if d["kind"] == "sphere":
+            con = sphere_rows_constraint(d["coords"], d["ctr"], d["b"],
+                                         d["label"], applies=d["applies"])
+        else:
+            con = linear_rows_constraint(
+                d["rows"], d["off"], d["label"], equality=d["equality"],
+                applies=d["applies"], term_rows=d["term_rows"])
+        entries.append((con, d["knots"]))
+    return ConstraintSet.build(entries, N, device=device)
 
 
 def problem_arrays(prob) -> dict:
     """The data of a JAX ``Problem`` as numpy arrays: x0, xf, X, U, dt, tf,
-    N, the objective's Q, R, H, q, r, c, and the model and integrator
-    names. Only unconstrained problems carry over so far."""
-    if getattr(prob.constraints, "P", 0) > 0:
-        raise NotImplementedError("constraints do not carry over yet "
-                                  "(ROADMAP Queue 1, slice 2)")
+    N, the objective's Q, R, H, q, r, c, the model and integrator names,
+    and the constraint set (:func:`constraint_arrays`)."""
     out = {k: np.asarray(getattr(prob, k)) for k in ("x0", "xf", "X", "U")}
     out.update({k: np.asarray(getattr(prob.obj, k))
                 for k in OBJECTIVE_FIELDS})
     out.update(dt=float(np.asarray(prob.dt)), tf=float(np.asarray(prob.tf)),
                N=int(prob.N), model=prob.model.name,
-               integrator=prob.model.integrator)
+               integrator=prob.model.integrator,
+               constraints=constraint_arrays(prob.constraints))
     return out
 
 
 def problem_from_arrays(*, model, integrator, x0, xf, X, U, dt, tf, N, Q, R,
-                        H, q, r, c, dtype=torch.float64,
-                        device="cpu") -> Problem:
-    """The port's ``Problem`` from the arrays of :func:`problem_arrays`.
-    ``dt`` must be uniform (a scalar)."""
+                        H, q, r, c, constraints=(), dtype=torch.float64,
+                        device=None) -> Problem:
+    """The port's ``Problem`` from the arrays of :func:`problem_arrays`, on
+    ``device`` (None: the current CUDA device). ``dt`` must be uniform (a
+    scalar)."""
     if model not in MODELS:
         raise NotImplementedError(f"model {model!r} is not ported yet "
                                   "(ROADMAP Queue 1, the rest of the zoo)")
     if np.ndim(dt) != 0:
         raise NotImplementedError("per-interval dt does not carry over yet")
+    device = resolve_device(device)
 
     def tensor(a):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        # a copy: arrays read off JAX are read-only views
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     obj = Objective(Q=tensor(Q), R=tensor(R), H=tensor(H), q=tensor(q),
                     r=tensor(r), c=tensor(c))
     return Problem(x0=tensor(x0), xf=tensor(xf), X=tensor(X), U=tensor(U),
-                   obj=obj, constraints=empty_constraints(N, device=device),
+                   obj=obj,
+                   constraints=constraints_from_arrays(constraints, int(N),
+                                                       device=device),
                    dt=float(dt), tf=float(tf),
                    model=discretize(MODELS[model], integrator), N=int(N))
+
+
+def state_arrays(**state) -> dict:
+    """A solver state (any of X, U, lam, mu) as numpy arrays."""
+    return {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+            for k, v in state.items() if k in STATE_FIELDS}
+
+
+def state_from_arrays(dtype=torch.float64, device=None, **state) -> dict:
+    """Tensors on ``device`` from the numpy arrays of a solver state."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+            for k, v in state.items() if k in STATE_FIELDS}

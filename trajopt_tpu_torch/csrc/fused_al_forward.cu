@@ -1,0 +1,245 @@
+// Fused AL line search for the slack-augmented quadrotor (kernel K4).
+//
+// Replaces the TPU kernel trajopt_tpu/ops/pallas_al_fused.py::
+// _fused_al_forward_kernel (front end fused_al_forward_pallas). Per
+// problem, the whole backtracking line search of one iLQR iteration
+// (reference forwardpass!, forward_pass.jl:5-85): for each candidate step
+// α the closed-loop full-state rollout u = U + K(x − X) + αd through the
+// slack step x⁺ = rk3(x, u_base) + u_slack, with the divergence guard
+// (|x|, |u| < 1e8 and finite), the stage and terminal cost plus the AL cost
+// Σ λc + ½ c Iμ c of the canonical stack (canon.cuh), the ratio
+// z = (J_prev − J)/(−α(ΔV1 + αΔV2)), acceptance on lb < z ≤ ub or
+// J < J_prev, α halving, and after iterations_linesearch candidates the
+// restore of X, U, J_prev with the ρ bump. The plain version is
+// trajopt_tpu_torch/ops/cuda_al_fused.py::fused_al_forward.
+//
+// The exit is per problem. On the TPU a 128-lane tile runs until its
+// slowest lane is done; a lane's state changes only while it searches and
+// every lane starts at trip 0, so each problem's result depends on its own
+// trip count alone, and here each problem's warp simply leaves its loop.
+// A diverged candidate is abandoned at the knot where it dies (its result
+// is discarded anyway); every live candidate is written straight to the
+// outputs, because the search can only end on a live candidate or on the
+// restore.
+//
+// What bounds it on this card: latency. A candidate is a chain of N − 1
+// dependent RK3 steps, each behind a 17×13 gain product and the 89-row AL
+// cost; one candidate at B=128, N=101 reads about 21 MB (K, λ, μ), far from
+// the card's bandwidth for the time it takes.
+//
+// Design: one warp per problem rather than one thread (the design of the
+// rollout kernel K2), because a knot carries ~5× the work of K2's and the
+// 89 rows, the 17 gain rows and the cost's matrix rows split evenly over
+// lanes with coalesced reads of λ and μ. The state lives in registers,
+// identically on every lane (each lane runs the RK3 step, so the guard
+// needs no vote); lane a < 17 owns control a and broadcasts it by shuffle;
+// each lane keeps its own partial cost over the knots and the warp sums
+// once per candidate. n = 13 and m = 4 + 13 are compile-time constants.
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "canon.cuh"
+#include "quadrotor.cuh"
+
+namespace {
+
+using namespace trajopt;
+
+constexpr int NX = kQuadN;
+constexpr int MB = kQuadM;
+constexpr int NU = MB + NX;
+constexpr float kMaxValue = 1e8f;
+
+struct Args {
+  const float *x0, *X, *U, *K, *d, *dV1, *dV2, *Jprev, *rho, *drho, *alpha0;
+  const float *lam, *mu, *dt, *Q, *R, *H, *q, *r, *c;
+  const unsigned char* active;
+  float *Xout, *Uout, *scal;
+  int batch, N, ls_iters;
+  float ls_lb, ls_ub, reg_min, reg_factor, reg_fp, atol;
+};
+
+// z ← [x; u] for the row evaluation
+__device__ __forceinline__ void put_z(float* z, const float* x, float u_mine,
+                                      int lane) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+    if (lane == i) z[i] = x[i];
+  if (lane < NU) z[NX + lane] = u_mine;
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
+                                                              CanonTables tab) {
+  __shared__ float z[NX + NU];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int N = a.N, P = tab.P;
+  const size_t xoff = (size_t)b * N * NX, uoff = (size_t)b * (N - 1) * NU;
+  const float* Xb = a.X + xoff;
+  const float* Ub = a.U + uoff;
+  float* Xo = a.Xout + xoff;
+  float* Uo = a.Uout + uoff;
+
+  const float Jprev = a.Jprev[b], dV1 = a.dV1[b], dV2 = a.dV2[b];
+  float alpha = a.alpha0[b], rho = a.rho[b], drho = a.drho[b];
+  float J = INFINITY, zr = -1.0f;
+  bool done = false;
+  if (a.active && !a.active[b]) {   // not searched: hand the inputs back
+    done = true;
+    J = Jprev;
+    alpha = 0.0f;
+    for (int e = lane; e < N * NX; e += 32) Xo[e] = Xb[e];
+    for (int e = lane; e < (N - 1) * NU; e += 32) Uo[e] = Ub[e];
+  }
+
+  for (int it = 0;
+       ((zr <= a.ls_lb) || (zr > a.ls_ub)) && (J >= Jprev) && !done; ++it) {
+    if (it > a.ls_iters) {
+      // the search ran out (forward_pass.jl:22-37): restore and bump ρ
+      drho = fmaxf(drho * a.reg_factor, a.reg_factor);
+      rho = fmaxf(rho * drho, a.reg_min) + a.reg_fp;
+      alpha = 0.0f;
+      J = Jprev;
+      zr = 0.0f;
+      done = true;
+      for (int e = lane; e < N * NX; e += 32) Xo[e] = Xb[e];
+      for (int e = lane; e < (N - 1) * NU; e += 32) Uo[e] = Ub[e];
+      break;
+    }
+
+    float x[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = a.x0[(size_t)b * NX + i];
+    if (lane < NX) Xo[lane] = a.x0[(size_t)b * NX + lane];
+    float Jacc = 0.0f;
+    bool ok = true;
+    for (int k = 0; k < N - 1; ++k) {
+      const float dtv = a.dt[k];
+      // u = U + K (x − X) + α d: lane i < 17 computes control i
+      float u_mine = 0.0f;
+      if (lane < NU) {
+        const float* Kr = a.K + (uoff + (size_t)k * NU + lane) * NX;
+        float acc = Kr[0] * (x[0] - Xb[k * NX]);
+#pragma unroll
+        for (int c = 1; c < NX; ++c)
+          acc = acc + Kr[c] * (x[c] - Xb[k * NX + c]);
+        u_mine = Ub[k * NU + lane] + acc + alpha * a.d[uoff + k * NU + lane];
+      }
+      float u[NU];
+#pragma unroll
+      for (int i = 0; i < NU; ++i) u[i] = __shfl_sync(kFullMask, u_mine, i);
+      put_z(z, x, u_mine, lane);
+
+      // stage cost dt(½xᵀQx + ½uᵀRu + qᵀx + rᵀu + uᵀHx + c), split by rows
+      float part = 0.0f;
+      if (lane < NX) {
+        const float* Qr = a.Q + ((size_t)k * NX + lane) * NX;
+        float Qx = Qr[0] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) Qx = Qx + Qr[j] * x[j];
+        part = 0.5f * z[lane] * Qx + z[lane] * a.q[(size_t)k * NX + lane];
+      }
+      if (lane < NU) {
+        const float* Rr = a.R + ((size_t)k * NU + lane) * NU;
+        const float* Hr = a.H + ((size_t)k * NU + lane) * NX;
+        float Ru = Rr[0] * u[0];
+#pragma unroll
+        for (int j = 1; j < NU; ++j) Ru = Ru + Rr[j] * u[j];
+        float Hx = Hr[0] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) Hx = Hx + Hr[j] * x[j];
+        part = part + 0.5f * u_mine * Ru
+             + u_mine * a.r[(size_t)k * NU + lane] + u_mine * Hx;
+      }
+      if (lane == 0) part = part + a.c[k];
+      Jacc = Jacc + part * dtv;
+      Jacc = Jacc + canon_al_cost_lane(tab, z, a.lam + ((size_t)b * N + k) * P,
+                                       a.mu + ((size_t)b * N + k) * P, a.atol,
+                                       lane);
+
+      // slack step and the divergence guard
+      float xn[NX];
+      quad_rk3_step<float>(x, u, dtv, xn);
+      bool good = true;
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        xn[i] = xn[i] + u[MB + i];
+        good = good && fabsf(xn[i]) < kMaxValue && isfinite(xn[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < NU; ++i) good = good && fabsf(u[i]) < kMaxValue;
+      if (lane < NU) Uo[k * NU + lane] = u_mine;
+      __syncwarp();            // z is read; the next knot may overwrite it
+      if (!good) {
+        ok = false;
+        break;
+      }
+#pragma unroll
+      for (int i = 0; i < NX; ++i) {
+        x[i] = xn[i];
+        if (lane == i) Xo[(k + 1) * NX + i] = xn[i];
+      }
+    }
+
+    if (ok) {
+      // terminal cost ½xᵀQx + qᵀx + c and the AL rows at u = 0
+      put_z(z, x, 0.0f, lane);
+      float part = 0.0f;
+      if (lane < NX) {
+        const float* Qr = a.Q + ((size_t)(N - 1) * NX + lane) * NX;
+        float Qx = Qr[0] * x[0];
+#pragma unroll
+        for (int j = 1; j < NX; ++j) Qx = Qx + Qr[j] * x[j];
+        part = 0.5f * z[lane] * Qx + z[lane] * a.q[(size_t)(N - 1) * NX + lane];
+      }
+      if (lane == 0) part = part + a.c[N - 1];
+      Jacc = Jacc + part;
+      Jacc = Jacc + canon_al_cost_lane(
+          tab, z, a.lam + ((size_t)b * N + N - 1) * P,
+          a.mu + ((size_t)b * N + N - 1) * P, a.atol, lane);
+      __syncwarp();
+      const float Jc = warp_sum(Jacc);
+      const float expected = -alpha * (dV1 + alpha * dV2);
+      J = Jc;
+      zr = expected > 0.0f ? (Jprev - Jc) / expected : -1.0f;
+    }
+    alpha = alpha * 0.5f;
+  }
+
+  if (lane == 0) {
+    a.scal[b] = J;
+    a.scal[a.batch + b] = rho;
+    a.scal[2 * a.batch + b] = drho;
+    a.scal[3 * a.batch + b] = alpha * 2.0f;   // the step that was used
+  }
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes from ops/cuda_al_fused.py). Contiguous
+// float32, batch-first: x0 (B,13), X (B,N,13), U (B,N-1,17), K (B,N-1,17,13),
+// d (B,N-1,17), dV1, dV2, J_prev, rho, drho, alpha0 (B), lam, mu (B,N,P),
+// dt (N-1), Q (N,13,13), R (N,17,17), H (N,17,13), q (N,13), r (N,17), c (N),
+// the stack's row tables row_i (P,4) int32 and row_f (P,4), active (B) bytes
+// or null → Xout (B,N,13), Uout (B,N-1,17), scal (4,B) = J, rho, drho and
+// the step used. Returns the CUDA error of the launch (0 on success).
+extern "C" int trajopt_fused_al_forward_f32(
+    const float* x0, const float* X, const float* U, const float* K,
+    const float* d, const float* dV1, const float* dV2, const float* Jprev,
+    const float* rho, const float* drho, const float* alpha0,
+    const float* lam, const float* mu, const float* dt, const float* Q,
+    const float* R, const float* H, const float* q, const float* r,
+    const float* c, const int* row_i, const float* row_f,
+    const unsigned char* active, float* Xout, float* Uout, float* scal,
+    int batch, int N, int P, int ls_iters, float ls_lb, float ls_ub,
+    float reg_min, float reg_factor, float reg_fp, float atol, void* stream) {
+  if (batch <= 0 || N < 2 || P < 0) return (int)cudaErrorInvalidValue;
+  Args a{x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
+         R, H, q, r, c, active, Xout, Uout, scal, batch, N, ls_iters, ls_lb,
+         ls_ub, reg_min, reg_factor, reg_fp, atol};
+  trajopt::CanonTables tab{(const int4*)row_i, (const float4*)row_f, nullptr,
+                           nullptr, nullptr, P, 0};
+  fused_al_forward_kernel<<<batch, 32, 0, (cudaStream_t)stream>>>(a, tab);
+  return (int)cudaGetLastError();
+}

@@ -27,87 +27,16 @@
 // (ops/pallas_rollout.py:53-55).
 #include <cuda_runtime.h>
 
+#include "quadrotor.cuh"
+
 namespace {
 
-constexpr int kN = 13;
+using trajopt::quad_rk3_step;
+using trajopt::quat_mul;
+
+constexpr int kN = trajopt::kQuadN;
 constexpr int kNs = 12;
-constexpr int kM = 4;
-
-// quadrotor constants (models/zoo.py QUAD_PARAMS), folded in double
-constexpr float kMass = 0.5f;
-constexpr float kKf = 1.0f;
-constexpr float kKm = 0.0245f;
-constexpr float kJx = 0.0023f, kJy = 0.0023f, kJz = 0.004f;
-constexpr float kJzy = (float)(0.004 - 0.0023);
-constexpr float kJxz = (float)(0.0023 - 0.004);
-constexpr float kJyx = (float)(0.0023 - 0.0023);
-constexpr float kLkf = (float)(0.1750 * 1.0);
-constexpr float kG = -9.81f;
-
-__device__ __forceinline__ void quat_mul(float qw, float qx, float qy,
-                                         float qz, float pw, float px,
-                                         float py, float pz, float& w,
-                                         float& x, float& y, float& z) {
-  w = qw * pw - qx * px - qy * py - qz * pz;
-  x = qw * px + pw * qx + qy * pz - qz * py;
-  y = qw * py + pw * qy + qz * px - qx * pz;
-  z = qw * pz + pw * qz + qx * py - qy * px;
-}
-
-// continuous dynamics (quadrotor_dynamics_lanes)
-__device__ __forceinline__ void dynamics(const float* x, const float* u,
-                                         float* xd) {
-  const float qn =
-      1.0f / sqrtf(x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]);
-  const float qw = x[3] * qn, qx = x[4] * qn, qy = x[5] * qn, qz = x[6] * qn;
-  const float wx = x[10], wy = x[11], wz = x[12];
-
-  const float F = kKf * (u[0] + u[1] + u[2] + u[3]);
-  const float tx = kLkf * (u[1] - u[3]);
-  const float ty = kLkf * (u[2] - u[0]);
-  const float tz = kKm * (u[0] - u[1] + u[2] - u[3]);
-
-  float dqw, dqx, dqy, dqz;
-  quat_mul(qw, qx, qy, qz, 0.f, wx, wy, wz, dqw, dqx, dqy, dqz);
-
-  xd[0] = x[7];
-  xd[1] = x[8];
-  xd[2] = x[9];
-  xd[3] = 0.5f * dqw;
-  xd[4] = 0.5f * dqx;
-  xd[5] = 0.5f * dqy;
-  xd[6] = 0.5f * dqz;
-  xd[7] = 2.0f * (qx * qz + qw * qy) * F / kMass;
-  xd[8] = 2.0f * (qy * qz - qw * qx) * F / kMass;
-  xd[9] = (1.0f - 2.0f * (qx * qx + qy * qy)) * F / kMass + kG;
-  xd[10] = (tx - kJzy * wy * wz) / kJx;
-  xd[11] = (ty - kJxz * wz * wx) / kJy;
-  xd[12] = (tz - kJyx * wx * wy) / kJz;
-}
-
-// RK3 step with zero-order hold (quadrotor_step_lanes)
-__device__ __forceinline__ void rk3_step(const float* x, const float* u,
-                                         float dt, float* out) {
-  float k1[kN], k2[kN], k3[kN], xt[kN];
-  dynamics(x, u, k1);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    k1[i] = dt * k1[i];
-    xt[i] = x[i] + 0.5f * k1[i];
-  }
-  dynamics(xt, u, k2);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    k2[i] = dt * k2[i];
-    xt[i] = x[i] - k1[i] + 2.0f * k2[i];
-  }
-  dynamics(xt, u, k3);
-#pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    k3[i] = dt * k3[i];
-    out[i] = x[i] + (k1[i] + 4.0f * k2[i] + k3[i]) / 6.0f;
-  }
-}
+constexpr int kM = trajopt::kQuadM;
 
 // δx = state_diff(x, xr) with the cancellation-free quaternion error
 // (quadrotor_state_diff_lanes)
@@ -116,8 +45,8 @@ __device__ __forceinline__ void state_diff(const float* x, const float* xr,
   const float rw = xr[3], rx = xr[4], ry = xr[5], rz = xr[6];
   // dq = conj(q_ref) ⊗ (q − q_ref), scalar part += |q_ref|²
   float dw, ex, ey, ez;
-  quat_mul(rw, -rx, -ry, -rz, x[3] - rw, x[4] - rx, x[5] - ry, x[6] - rz,
-           dw, ex, ey, ez);
+  quat_mul<float>(rw, -rx, -ry, -rz, x[3] - rw, x[4] - rx, x[5] - ry,
+                  x[6] - rz, dw, ex, ey, ez);
   const float nrm = rw * rw + rx * rx + ry * ry + rz * rz;
   float den = nrm + dw;
   // sign-preserving floor at the 180°-error singularity
@@ -166,7 +95,7 @@ __global__ void rollout_quadrotor_kernel(
       for (int c = 1; c < kNs; ++c) acc = acc + Kk[i * kNs + c] * dx[c];
       u[i] = U[bk * kM + i] + acc + a * d[bk * kM + i];
     }
-    rk3_step(x, u, dt, xn);
+    quad_rk3_step<float>(x, u, dt, xn);
     bool good = true;
 #pragma unroll
     for (int i = 0; i < kN; ++i)

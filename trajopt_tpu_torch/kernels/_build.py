@@ -1,20 +1,21 @@
 """Build and load the port's CUDA kernels.
 
-Every ``trajopt_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one
-shared library with a plain C interface, at first use, for the Hopper
-target ``sm_90a``:
+Every ``trajopt_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` into a
+shared library of its own with a plain C interface, at first use, for the
+Hopper target ``sm_90a``; the compilers of all sources run side by side:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v \\
-         -o build/libtrajopt_kernels_<hash>.so csrc/*.cu
+         -o build/lib<source>_<hash>.so csrc/<source>.cu
 
-The library lands in ``build/`` at the root of the checkout, named by a hash
-of the sources and flags, so an edited kernel is rebuilt and an unchanged one
-is reused. nvcc's output, with ptxas's registers, shared memory and spills
-of every kernel, is kept beside it as ``libtrajopt_kernels_<hash>.log``.
-The library is loaded with ``ctypes``; every pointer and the stream are
-``c_void_p`` arguments. Nothing here runs at import time: this module imports
-on machines without ``nvcc`` or a card, and only :func:`load` needs them.
+The libraries land in ``build/`` at the root of the checkout, named by a
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited kernel is rebuilt and an unchanged one is reused. nvcc's output, with
+ptxas's registers, shared memory and spills of every kernel, is kept beside
+each as ``lib<source>_<hash>.log``. The libraries are loaded with
+``ctypes``; every pointer and the stream are ``c_void_p`` arguments. Nothing
+here runs at import time: this module imports on machines without ``nvcc``
+or a card, and only :func:`load` needs them.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
 import torch
@@ -35,14 +37,28 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry points and their argument types (see the csrc/*.cu sources)
+# C entry points by source file, and their argument types (see csrc/*.cu)
 SIGNATURES = {
-    # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m, stream
-    "trajopt_sqrt_sweep_f32": (_P,) * 12 + (_I,) * 4 + (_P,),
-    # x0, X, U, K, d, alpha, Xout, Uout, ok, batch, N, dt, max_state,
-    # max_control, stream
-    "trajopt_rollout_quadrotor_f32": (_P,) * 9 + (_I,) * 2 + (_F,) * 3
-    + (_P,),
+    "sqrt_sweep": {
+        # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m,
+        # stream
+        "trajopt_sqrt_sweep_f32": (_P,) * 12 + (_I,) * 4 + (_P,)},
+    "rollout_quadrotor": {
+        # x0, X, U, K, d, alpha, Xout, Uout, ok, batch, N, dt, max_state,
+        # max_control, stream
+        "trajopt_rollout_quadrotor_f32": (_P,) * 9 + (_I,) * 2 + (_F,) * 3
+        + (_P,)},
+    "fused_al_backward": {
+        # X, U, lam, mu, dt, Q, R, H, q, r, rho, row_i, row_f, groups,
+        # col_ptr, col_rows, K, d, dV, fail, Aout, Bout, batch, N, P, G,
+        # reg_state, atol, stream
+        "trajopt_fused_al_backward_f32": (_P,) * 22 + (_I,) * 5 + (_F, _P)},
+    "fused_al_forward": {
+        # x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
+        # R, H, q, r, c, row_i, row_f, active, Xout, Uout, scal, batch, N, P,
+        # ls_iters, ls_lb, ls_ub, reg_min, reg_factor, reg_fp, atol, stream
+        "trajopt_fused_al_forward_f32": (_P,) * 26 + (_I,) * 4 + (_F,) * 6
+        + (_P,)},
 }
 
 
@@ -50,12 +66,12 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libtrajopt_kernels_{h.hexdigest()[:16]}.so"
+    for f in [src, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -69,37 +85,54 @@ def _nvcc() -> str:
                        "toolkit (PATH or /usr/local/cuda/bin)")
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists,
-    and keep nvcc's report beside it (``.log``). Returns the library's
-    path; raises RuntimeError with nvcc's output on failure."""
-    out = library_path()
-    if out.exists():
-        return out
+def build() -> dict:
+    """Compile every source whose library does not exist yet, all at once
+    (one nvcc process per source), and keep nvcc's report beside each
+    library (``.log``). Returns {source stem: library path}; raises
+    RuntimeError with nvcc's output if a compile fails."""
+    libs = {src.stem: library_path(src) for src in _sources()}
+    todo = [src for src in _sources() if not libs[src.stem].exists()]
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    jobs = []
+    for src in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
+        jobs.append((src, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for src, tmp, cmd, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+            continue
+        libs[src.stem].with_suffix(".log").write_text(out)
+        os.replace(tmp, libs[src.stem])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return libs
 
 
 @functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """Build if needed, load the library once per process and declare the
-    argument types of every entry point."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+def load() -> types.SimpleNamespace:
+    """Build if needed, load the libraries once per process and return
+    their entry points, argument types declared, as one namespace."""
+    libs = build()
+    fns = {}
+    for stem, entries in SIGNATURES.items():
+        lib = ctypes.CDLL(str(libs[stem]))
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def check(err: int, name: str):

@@ -39,8 +39,11 @@ class Model:
 class DiscreteModel:
     """Discrete dynamics x_{k+1} = step(x_k, u_k, dt).
 
-    ``cuda_step`` names the CUDA step that the closed-loop rollout kernel
-    inlines for this model (``ops/cuda_rollout.py``), or is None.
+    ``cuda_step`` names the CUDA step that the kernels inline for this
+    model (``ops/cuda_rollout.py``, ``ops/cuda_al_fused.py``), or is None.
+    ``slack_m`` is the base model's control width when this is a
+    slack-augmented model of the infeasible-start transform
+    (``solvers/altro.py::infeasible_problem``), else None.
     """
 
     def __init__(self, step, n: int, m: int, model: Model | None = None,
@@ -53,6 +56,7 @@ class DiscreteModel:
         self.name = name
         self.quat_slice = getattr(model, "quat_slice", None)
         self.cuda_step = None
+        self.slack_m = None
         self._jac = torch.func.jacfwd(step, argnums=(0, 1))
 
     def __call__(self, x, u, dt):

@@ -17,6 +17,8 @@ import warnings
 import numpy as np
 import torch
 
+from trajopt_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Expansion:
@@ -114,8 +116,11 @@ class Objective:
         return cost_expansion(self, X, U, dt)
 
     @staticmethod
-    def from_costs(costs, dtype=torch.float64, device="cpu"):
-        """Stack a list of N QuadraticCost objects."""
+    def from_costs(costs, dtype=torch.float64, device=None):
+        """Stack a list of N QuadraticCost objects on ``device`` (None:
+        the current CUDA device)."""
+        device = resolve_device(device)
+
         def stack(name):
             return torch.as_tensor(
                 np.stack([np.asarray(getattr(ci, name)) for ci in costs]),
@@ -126,7 +131,7 @@ class Objective:
 
     @staticmethod
     def uniform(stage: QuadraticCost, terminal: QuadraticCost, N: int,
-                dtype=torch.float64, device="cpu"):
+                dtype=torch.float64, device=None):
         """Same stage cost at knots 0..N-2, terminal at N-1
         (reference src/objective.jl:20-27)."""
         m = stage.R.shape[0]
@@ -138,7 +143,7 @@ class Objective:
                                     device=device)
 
 
-def LQRObjective(Q, R, Qf, xf, N: int, dtype=torch.float64, device="cpu"):
+def LQRObjective(Q, R, Qf, xf, N: int, dtype=torch.float64, device=None):
     """(reference src/objective.jl:102-114)."""
     return Objective.uniform(LQRCost(Q, R, xf), LQRCostTerminal(Qf, xf), N,
                              dtype=dtype, device=device)

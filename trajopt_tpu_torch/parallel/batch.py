@@ -1,16 +1,20 @@
 """Queued batch solving.
 
-Counterpart of ``trajopt_tpu/parallel/batch.py::solve_batch_queued``: a pool
+Counterpart of ``trajopt_tpu/parallel/batch.py``'s ``solve_batch_queued``,
+``solve_batch_queued_altro`` and ``solve_batch_queued_altro_retry``: a pool
 of problems streams through a fixed number of lanes, one AL outer iteration
 per round, and a lane whose problem finishes takes the next problem from the
 front of the pool. The JAX package runs this as one compiled
 ``while_loop``; here the round loop is Python, the refill is a masked
 gather/scatter on the device, and only the loop tests read from the device.
+The port compiles nothing, so the jitted-program cache of the JAX package's
+retry function has no counterpart here.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from trajopt_tpu_torch.problem import Problem
@@ -96,3 +100,109 @@ def solve_batch_queued(prob: Problem, opts: ALOptions, x0s, lanes: int = 128,
         X=X_out[:Bp], U=U_out[:Bp], c_max=c_max_out[:Bp], J=J_out[:Bp],
         iterations_total=it_out[:Bp], rounds=rounds,
         host_syncs=syncs.count)
+
+
+def solve_batch_queued_altro(prob: Problem, opts, x0s, lanes: int = 128,
+                             infeasible: Optional[bool] = None,
+                             constraint_tolerance=None,
+                             mu_scale: float = 1.0) -> QueuedBatchResult:
+    """Streaming batched AL stage of ALTRO: applies the infeasible-start
+    slack transform and ALTRO's per-row penalty schedules, streams the pool
+    through :func:`solve_batch_queued`, strips the slack controls, and
+    re-scores ``c_max`` on the ORIGINAL constraints.
+
+    ``opts``: ALTROOptions. PN polish, the feasible re-solve and minimum
+    time are not applied here (they are single-solve polish stages). With
+    ``infeasible=None`` a finite state seed selects the transform.
+    ``mu_scale`` scales the initial penalties (the failed-lane retry of
+    :func:`solve_batch_queued_altro_retry`).
+    """
+    from trajopt_tpu_torch.solvers.altro import (
+        _penalty_rows, infeasible_problem,
+    )
+
+    n, m = prob.model.n, prob.model.m
+    if infeasible is None:
+        infeasible = bool(torch.isfinite(prob.X).all())
+    prob_t = infeasible_problem(prob, opts.R_inf) if infeasible else prob
+    mu0, sca = _penalty_rows(prob_t.constraints, opts, prob.U.dtype)
+    mu0 = mu0 * mu_scale
+    U0s = None
+    if infeasible:
+        # the transform seeds the slacks from the TEMPLATE x0's knot-0
+        # defect (u_slack[0] = X[1] − f(x0, u0)); re-derive it per problem
+        # so each seed trajectory is dynamically consistent at step 0
+        s0 = prob.X[1] - prob.model.step(
+            x0s, prob.U[0].expand(x0s.shape[0], m), prob.dt)
+        U0s = prob_t.U.expand((x0s.shape[0],) + prob_t.U.shape).clone()
+        U0s[:, 0, m:] = s0
+    res = solve_batch_queued(prob_t, opts.opts_al, x0s, lanes=lanes, U0s=U0s,
+                             constraint_tolerance=constraint_tolerance,
+                             mu_init=mu0[None, :], penalty_scaling=sca)
+    Xs = res.X[:, :, :n].contiguous()
+    Us = res.U[:, :, :m].contiguous()
+    c_max = prob.constraints.max_violation(prob.constraints.evaluate(Xs, Us))
+    return res._replace(X=Xs, U=Us, c_max=c_max)
+
+
+def solve_batch_queued_altro_retry(prob: Problem, opts, x0s,
+                                   lanes: int = 128,
+                                   infeasible: Optional[bool] = None,
+                                   constraint_tolerance=None,
+                                   tol: float = 1e-3,
+                                   mu_retry_scale: float = 4.0,
+                                   max_retries: int = 1):
+    """Queued-pool ALTRO solve, then a host-level re-solve of the problems
+    that did not reach ``c_max < tol`` under a scaled initial-penalty
+    schedule (mu0 × ``mu_retry_scale`` per trip).
+
+    About 6% of maze-pool problems fail under any one float32 rounding
+    pattern and solve under a perturbed iterate path: the failures are
+    chaotic, not hard. The retry pool holds exactly the failed problems,
+    cycled to fill the lanes, so it costs about (n_failed / Bp) of the main
+    pass. A retry result replaces the first one only where it reached
+    ``tol``. Returns (QueuedBatchResult, n_retried); ``rounds`` and
+    ``host_syncs`` add up over the passes.
+    """
+    def solve(xs, scale):
+        return solve_batch_queued_altro(
+            prob, opts, xs, lanes=lanes, infeasible=infeasible,
+            constraint_tolerance=constraint_tolerance, mu_scale=scale)
+
+    r = solve(x0s, 1.0)
+    n_retried = 0
+    for trip in range(1, max_retries + 1):
+        c = r.c_max.cpu().numpy()
+        fail = np.where(~(c < tol))[0]
+        if fail.size == 0:
+            break
+        n_retried += int(fail.size)
+        L = min(lanes, x0s.shape[0])
+        K = max(L, ((fail.size + L - 1) // L) * L)
+        pad = np.resize(fail, K)              # cycle failed idx into pads
+        r2 = solve(x0s[torch.as_tensor(pad, device=x0s.device)],
+                   float(mu_retry_scale ** trip))
+        r = r._replace(rounds=r.rounds + r2.rounds,
+                       host_syncs=r.host_syncs + r2.host_syncs)
+        # merge: keep the retry result where it solved a failed problem
+        c2 = r2.c_max.cpu().numpy()
+        took = {}
+        for row, pidx in enumerate(pad):
+            if c2[row] < tol and (pidx not in took
+                                  or c2[row] < c2[took[pidx]]):
+                took[pidx] = row
+        if not took:
+            continue
+        rows = torch.as_tensor(sorted(took.values()), device=x0s.device)
+        idxs = torch.as_tensor(pad, device=x0s.device)[rows]
+
+        def upd(a, b):
+            a = a.clone()
+            a[idxs] = b[rows]
+            return a
+
+        r = r._replace(
+            X=upd(r.X, r2.X), U=upd(r.U, r2.U),
+            c_max=upd(r.c_max, r2.c_max), J=upd(r.J, r2.J),
+            iterations_total=upd(r.iterations_total, r2.iterations_total))
+    return r, n_retried

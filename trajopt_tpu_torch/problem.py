@@ -14,8 +14,11 @@ import numpy as np
 import torch
 
 from trajopt_tpu_torch.models.base import DiscreteModel
-from trajopt_tpu_torch.ops.constraints import ConstraintSet, empty_constraints
+from trajopt_tpu_torch.ops.constraints import (
+    ConstraintSet, ConstraintSetBuilder, empty_constraints,
+)
 from trajopt_tpu_torch.ops.cost import Objective
+from trajopt_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +57,13 @@ class Problem:
 
 def problem(model: DiscreteModel, obj: Objective, constraints=None, x0=None,
             xf=None, N=None, dt=None, tf=None, U0=None, X0=None,
-            dtype=torch.float64, device="cpu") -> Problem:
+            dtype=torch.float64, device=None) -> Problem:
     """Build a Problem with reference time validation semantics
     (reference _validate_time, problem.jl:169-220): give two of (N, tf, dt).
+    ``constraints`` is a ConstraintSetBuilder or a compiled ConstraintSet;
+    everything lands on ``device`` (None: the current CUDA device).
     """
+    device = resolve_device(device)
     N, dt, tf = _validate_time(N, tf, dt, obj)
     n, m = model.n, model.m
 
@@ -81,8 +87,12 @@ def problem(model: DiscreteModel, obj: Objective, constraints=None, x0=None,
         X[0] = x0
     else:
         X = tensor(X0)
-    cs = empty_constraints(N, device=device) if constraints is None \
-        else constraints
+    if constraints is None:
+        cs = empty_constraints(N, device=device)
+    elif isinstance(constraints, ConstraintSetBuilder):
+        cs = constraints.stack(device=device)
+    else:
+        cs = constraints.to(device)
     return Problem(x0=x0, xf=xf, X=X, U=U, obj=obj, constraints=cs, dt=dt,
                    tf=tf, model=model, N=N)
 
@@ -105,6 +115,15 @@ def _validate_time(N, tf, dt, obj):
     if N is None or dt is None or tf is None:
         raise ValueError("must specify two of (N, tf, dt)")
     return N, float(dt), float(tf)
+
+
+def initial_states(prob: Problem, X0) -> Problem:
+    """(reference initial_states!, problem.jl:152-154). A finite state seed
+    asks ALTRO for the infeasible-start transform (reference
+    altro_methods.jl:100)."""
+    X = torch.as_tensor(np.asarray(X0), dtype=prob.X.dtype,
+                        device=prob.device)
+    return dataclasses.replace(prob, X=X)
 
 
 def update_problem(prob: Problem, **kwargs) -> Problem:

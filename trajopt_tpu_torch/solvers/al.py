@@ -3,10 +3,9 @@ pool solver (``parallel/batch.py::solve_batch_queued``).
 
 Counterpart of ``trajopt_tpu/solvers/al.py``: ``ALOptions``,
 ``ALLaneState``, ``al_cost_fns``, ``dual_update``, ``penalty_update`` and
-``al_lane_stepper``, batched over a leading lane dimension. Only the
-unconstrained arm (P = 0) of the stepper is ported; the constrained arm
-needs the constraint layer (ROADMAP Queue 1, slice 2), and ``al_solve`` is
-not ported yet.
+``al_lane_stepper``, batched over a leading lane dimension. ``al_solve``
+(the single-problem outer loop with its history) is not ported yet
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -19,8 +18,22 @@ from trajopt_tpu_torch.ops.constraints import ConstraintSet
 from trajopt_tpu_torch.ops.cost import Expansion
 from trajopt_tpu_torch.problem import Problem
 from trajopt_tpu_torch.solvers.ilqr import (
-    HostSyncs, iLQROptions, ilqr_solve, reg_noise_scale,
+    ALFusedMeta, HostSyncs, _fused_al_eligible, iLQROptions, ilqr_solve,
+    reg_noise_scale,
 )
+
+
+def _al_fused_canon(prob: Problem, opts: "ALOptions"):
+    """Canonical constraint stack for the fused AL iteration, built once
+    per stepper when the inner solver has ``fused`` or ``fused_al`` on
+    (``fused_al`` defaults to True) and every constraint is
+    data-representable (ops/canonical.py); None otherwise."""
+    if not (opts.opts_uncon.fused or opts.opts_uncon.fused_al):
+        return None
+    from trajopt_tpu_torch.ops.canonical import canonical_stack
+
+    return canonical_stack(prob.constraints, prob.model.n, prob.model.m,
+                           dtype=prob.U.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,10 +136,6 @@ def al_lane_stepper(prob: Problem, opts: ALOptions, constraint_tolerance=None,
     default) by one outer iteration and returns the others unchanged.
     """
     cs = prob.constraints
-    if cs.P > 0:
-        raise NotImplementedError(
-            "the constrained AL arm needs the constraint layer "
-            "(ROADMAP Queue 1, slice 2)")
     syncs = HostSyncs() if syncs is None else syncs
     dtype, dev = prob.U.dtype, prob.device
     dt_traj = prob.dt_traj()
@@ -140,6 +149,21 @@ def al_lane_stepper(prob: Problem, opts: ALOptions, constraint_tolerance=None,
         opts.penalty_initial if mu_init is None else mu_init, dtype=dtype,
         device=dev).expand(N, P) * cs.mask
     atol = opts.active_constraint_tolerance
+    unconstrained = P == 0
+    canon = None if unconstrained else _al_fused_canon(prob, opts)
+    meta0 = ALFusedMeta(objective=prob.obj, cs=cs, canon=canon, lam=None,
+                        mu=None, atol=atol)
+    if (not unconstrained and dev.type == "cuda" and not _fused_al_eligible(
+            prob.model, opts.opts_uncon, meta0, like=prob.U)):
+        # no plain version stands in for a kernel on the card
+        raise NotImplementedError(
+            "a constrained solve on a CUDA tensor runs only as the fused AL "
+            "iteration (float32, the slack-augmented quadrotor, a canonical "
+            "constraint stack, bp_type='scan', error_state=False, "
+            "fused_al=True): the phase-split constrained paths wait for the "
+            "plain Riccati kernel (ROADMAP Queue 2, K5), the full-state "
+            "ns = 13 rollout (K7b) and the other models' steps (K6), and "
+            "the constrained error-state path has not been run on the card")
 
     def init(x0s, U0s):
         L = x0s.shape[0]
@@ -156,25 +180,53 @@ def al_lane_stepper(prob: Problem, opts: ALOptions, constraint_tolerance=None,
             converged=torch.zeros(L, dtype=torch.bool, device=dev))
 
     def step(st: ALLaneState, active=None) -> ALLaneState:
-        # no duals/penalties to stitch tolerances around: every round runs
-        # at FINAL tolerances (al_solve's unconstrained plain-iLQR arm)
+        if unconstrained:
+            # no duals/penalties to stitch tolerances around: every round
+            # runs at FINAL tolerances (al_solve's unconstrained arm)
+            cost_tol = opts.cost_tolerance
+            grad_tol = opts.gradient_norm_tolerance
+        else:
+            # tolerance stitching (reference set_tolerances!, :39-50)
+            last = st.it == opts.iterations - 1
+            pick = lambda a, b: torch.where(  # noqa: E731
+                last, torch.full_like(st.J, a), torch.full_like(st.J, b))
+            cost_tol = pick(opts.cost_tolerance,
+                            opts.cost_tolerance_intermediate)
+            grad_tol = pick(opts.gradient_norm_tolerance,
+                            opts.gradient_norm_tolerance_intermediate)
         cost_fn, expansion_fn = al_cost_fns(prob.obj, cs, dt_traj, st.lam,
                                             st.mu, atol)
+        meta = None if canon is None else meta0._replace(lam=st.lam,
+                                                         mu=st.mu)
         res = ilqr_solve(prob.model, cost_fn, expansion_fn, st.x0, st.X,
-                         st.U, prob.dt, opts.opts_uncon,
-                         cost_tol=opts.cost_tolerance,
-                         grad_tol=opts.gradient_norm_tolerance,
+                         st.U, prob.dt, opts.opts_uncon, cost_tol=cost_tol,
+                         grad_tol=grad_tol, al_meta=meta,
                          reg_scale=reg_noise_scale(st.mu, dtype),
                          active=active, syncs=syncs)
         C = cs.evaluate(res.X, res.U)
         c_max_new = cs.max_violation(C)
-        # (P = 0: the "feedback" switch only chooses between empty updates)
-        lam = dual_update(cs, C, st.lam, st.mu, opts)
-        mu = penalty_update(cs, st.mu, scaling, opts)
-        # c_max is identically 0 without constraints: a lane is done only
-        # when the INNER solve converged by its own dJ/grad rules rather
-        # than being cut by the round boundary
-        converged = (c_max_new < ctol) & res.converged
+        if opts.outer_loop_update_type == "feedback":
+            # Bertsekas switch: good progress → dual step and mild penalty
+            # growth; a stall → hold the duals, grow the penalties
+            good = c_max_new <= opts.constraint_decrease_ratio * st.c_max
+            lam = torch.where(good[:, None, None],
+                              dual_update(cs, C, st.lam, st.mu, opts), st.lam)
+            sc = torch.where(good[:, None],
+                             torch.full_like(scaling, opts.penalty_scaling_no),
+                             scaling)
+            mu = penalty_update(cs, st.mu, sc[:, None, :], opts)
+        else:
+            lam = dual_update(cs, C, st.lam, st.mu, opts)
+            mu = penalty_update(cs, st.mu, scaling, opts)
+        converged = c_max_new < ctol
+        if unconstrained:
+            # c_max is identically 0: a lane is done only when the INNER
+            # solve converged by its own dJ/grad rules rather than being
+            # cut by the round boundary
+            converged = converged & res.converged
+        elif opts.kickout_max_penalty:
+            converged = converged | (mu.flatten(1).amax(-1)
+                                     >= opts.penalty_max)
         return ALLaneState(
             x0=st.x0, X=res.X, U=res.U, lam=lam, mu=mu, c_max=c_max_new,
             J=res.J, it=st.it + 1, it_total=st.it_total + res.iterations,

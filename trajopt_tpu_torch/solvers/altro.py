@@ -1,0 +1,165 @@
+"""ALTRO problem transforms for the batched AL stage.
+
+Counterpart of ``trajopt_tpu/solvers/altro.py`` (reference
+src/solvers/altro/): the options, the infeasible-start slack transform and
+ALTRO's per-row penalty schedules, which ``parallel/batch.py::
+solve_batch_queued_altro`` drives. ``altro_solve``, the minimum-time
+transform and the projected-Newton polish are not ported yet (ROADMAP
+Queue 1 #11); ``ALTROOptions`` keeps their fields so options carry across.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from trajopt_tpu_torch.models.base import DiscreteModel
+from trajopt_tpu_torch.ops.constraints import (
+    Constraint, ConstraintSet, infeasible_constraint,
+)
+from trajopt_tpu_torch.ops.cost import Objective
+from trajopt_tpu_torch.problem import Problem, update_problem
+from trajopt_tpu_torch.solvers.al import ALOptions
+
+
+@dataclasses.dataclass(frozen=True)
+class ALTROOptions:
+    """(reference ALTROSolverOptions, altro_solver.jl:6-65). Field for
+    field the JAX package's ``ALTROOptions``, with the same defaults."""
+
+    opts_al: ALOptions = ALOptions()
+    # infeasible start
+    constraint_tolerance_infeasible: float = 1e-5
+    R_inf: float = 1.0
+    dynamically_feasible_projection: bool = True
+    resolve_feasible_problem: bool = True
+    penalty_initial_infeasible: float = 1.0
+    penalty_scaling_infeasible: float = 10.0
+    # minimum time
+    R_minimum_time: float = 1.0
+    dt_max: float = 1.0
+    dt_min: float = 1e-3
+    penalty_initial_minimum_time_inequality: float = 1.0
+    penalty_initial_minimum_time_equality: float = 1.0
+    penalty_scaling_minimum_time_inequality: float = 1.0
+    penalty_scaling_minimum_time_equality: float = 1.0
+    # projected newton
+    projected_newton: bool = False
+    opts_pn: object = None
+    projected_newton_tolerance: float = 1e-3
+
+
+# ------------------------------------------------------------ constraint lift
+
+def lift_constraint(con: Constraint, n: int, m: int) -> Constraint:
+    """Re-target a constraint built for (n, m) onto an augmented problem
+    with extra trailing state/control dims (reference
+    update_constraint_set_jacobians, constraint_sets.jl:286-302). The
+    port's constraint kinds index x and u relative to whatever widths they
+    are called with (``ops/constraints.py``), and their canonical
+    descriptors are dimension-relative too, so the same object serves the
+    augmented problem."""
+    if con.canon is None:
+        raise NotImplementedError(
+            f"constraint {con.label!r} has no canonical descriptor: lifting "
+            "a custom constraint is not ported yet (ROADMAP Queue 1)")
+    return con
+
+
+def _lift_entries(cs: ConstraintSet, n: int, m: int):
+    """Lift every constraint of a stacked set onto augmented dims, keeping
+    the original knot masks."""
+    mask_np = cs.mask.cpu().numpy()
+    entries = []
+    for con, (r0, r1) in zip(cs.cons, cs.slices):
+        # per-knot mask from any row of the block (rows share knots except
+        # bound u-rows at the terminal knot, which term_rows re-handles)
+        kmask = mask_np[:, r0:r1].any(axis=1)
+        entries.append((lift_constraint(con, n, m), kmask))
+    return entries
+
+
+# ---------------------------------------------------------- infeasible start
+
+def infeasible_problem(prob: Problem, R_inf: float = 1.0) -> Problem:
+    """Augment with n slack controls that make the dynamics artificially
+    fully actuated (reference infeasible_problem, infeasible.jl:2-34 +
+    add_slack_controls, model.jl:761-779)."""
+    base = prob.model
+    n, m, N = base.n, base.m, prob.N
+    dtype, dev = prob.U.dtype, prob.device
+
+    def step(x, u, dt):
+        return base.step(x, u[..., :m], dt) + u[..., m:]
+
+    model_inf = DiscreteModel(step, n, m + n, model=base.model,
+                              integrator=base.integrator,
+                              name=base.name + "_infeasible")
+    model_inf.quat_slice = base.quat_slice
+    model_inf.slack_m = m
+    # the fused AL kernels (ops/cuda_al_fused.py) inline the base step and
+    # add the slack themselves
+    model_inf.cuda_step = base.cuda_step
+
+    # structured Jacobian: the slacks enter linearly with an identity
+    # block, so only the base step is differentiated (n + m tangents
+    # instead of 2n + m)
+    base_jac = base._jac
+
+    def jac_inf(x, u, dt):
+        A, Bm = base_jac(x, u[..., :m], dt)
+        return A, torch.cat([Bm, torch.eye(n, dtype=Bm.dtype,
+                                           device=Bm.device)], dim=-1)
+
+    model_inf._jac = jac_inf
+
+    # objective: R ← blkdiag(R, R_inf/dt · I)  (infeasible.jl:8-15)
+    obj = prob.obj
+    Rpad = torch.zeros((N, m + n, m + n), dtype=dtype, device=dev)
+    Rpad[:, :m, :m] = obj.R
+    Rpad[:-1, m:, m:] = (R_inf / prob.dt) * torch.eye(n, dtype=dtype,
+                                                      device=dev)
+    Hpad = torch.zeros((N, m + n, n), dtype=dtype, device=dev)
+    Hpad[:, :m, :] = obj.H
+    rpad = torch.zeros((N, m + n), dtype=dtype, device=dev)
+    rpad[:, :m] = obj.r
+    obj_inf = Objective(Q=obj.Q, R=Rpad, H=Hpad, q=obj.q, r=rpad, c=obj.c)
+
+    # constraints: lifted originals + u_inf = 0 equality (infeasible.jl:17-29)
+    entries = _lift_entries(prob.constraints, n, m)
+    kmask = np.zeros(N, bool)
+    kmask[: N - 1] = True
+    entries.append((infeasible_constraint(n, m), kmask))
+    cs_inf = ConstraintSet.build(entries, N, device=dev)
+
+    # slack seeding from state-trajectory defects (infeasible.jl:62-80)
+    Xc = torch.cat([prob.x0[None], prob.X[1:-1]], dim=0)
+    u_slack = prob.X[1:] - base.step(Xc, prob.U, prob.dt_traj()[:, None])
+    U_inf = torch.cat([prob.U, u_slack], dim=1)
+
+    return update_problem(prob, model=model_inf, obj=obj_inf,
+                          constraints=cs_inf, U=U_inf)
+
+
+# ------------------------------------------------------------ penalty rows
+
+def _penalty_rows(cs: ConstraintSet, opts: ALTROOptions, dtype):
+    """Per-row penalty_initial / penalty_scaling vectors (P,) with the
+    ALTRO-specific schedules for infeasible and min-time rows."""
+    P = cs.P
+    mu0 = np.full(P, float(opts.opts_al.penalty_initial))
+    sca = np.full(P, float(opts.opts_al.penalty_scaling))
+    for con, (r0, r1) in zip(cs.cons, cs.slices):
+        if con.label == "infeasible":
+            mu0[r0:r1] = opts.penalty_initial_infeasible
+            sca[r0:r1] = opts.penalty_scaling_infeasible
+        elif con.label == "min_time_bnd":
+            mu0[r0:r1] = opts.penalty_initial_minimum_time_inequality
+            sca[r0:r1] = opts.penalty_scaling_minimum_time_inequality
+        elif con.label == "min_time_eq":
+            mu0[r0:r1] = opts.penalty_initial_minimum_time_equality
+            sca[r0:r1] = opts.penalty_scaling_minimum_time_equality
+    dev = cs.mask.device
+    return (torch.as_tensor(mu0, dtype=dtype, device=dev),
+            torch.as_tensor(sca, dtype=dtype, device=dev))

@@ -9,15 +9,23 @@ which is what ``vmap`` of a ``while_loop`` does: the main iteration loop,
 the line search and the ρ-retry of the backward pass.
 
 Each loop test reads one boolean from the device; ``HostSyncs`` counts
-those reads. The backward pass runs on kernel K1 (``ops/cuda_sqrt.py``) and
-every line-search candidate on kernel K2 (``ops/cuda_rollout.py``); a
-tensor on the CPU runs their plain twins instead.
+those reads. Three iteration paths are ported:
 
-Ported so far: the error-state square-root path that the quadrotor
-benchmark runs (``bp_type='sqrt'``). The scan and parallel backward passes,
-the proximal step limit, time sharding and the live printing/plotting
-options raise ``NotImplementedError`` (ROADMAP Queues 1-2); the fused flags
-are inert, as they are in the JAX package with the square-root pass.
+- the error-state square-root path of the quadrotor benchmark
+  (``bp_type='sqrt'``): the backward pass on kernel K1
+  (``ops/cuda_sqrt.py``), every line-search candidate on kernel K2
+  (``ops/cuda_rollout.py``);
+- the fused AL path of the maze benchmark (``al_meta`` given and
+  ``_fused_al_eligible``): the backward pass is kernel K3 and the whole
+  line search kernel K4 (``ops/cuda_al_fused.py``), two launches per
+  iteration;
+- the scan backward pass (``bp_type='scan'``, ``ops/riccati.py``) with the
+  full-state rollout, on the CPU only: its kernels are still to port
+  (ROADMAP Queue 2, K5 and K7), and a CUDA tensor raises.
+
+A tensor on the CPU runs the kernels' plain versions instead. The
+parallel backward pass, the proximal step limit, time sharding and the live
+printing/plotting options raise ``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -26,11 +34,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from trajopt_tpu_torch.ops.cost import Expansion
+from trajopt_tpu_torch.ops import line_search as _ls
+from trajopt_tpu_torch.ops.cost import Expansion, Objective
+from trajopt_tpu_torch.ops.cuda_al_fused import (
+    cuda_model_supported, fused_al_backward_cuda, fused_al_forward_cuda,
+)
 from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
 from trajopt_tpu_torch.ops.cuda_sqrt import (  # noqa: F401  (re-export)
     SQRT_PIVOT_FLOOR_F32, SQRT_PIVOT_NEG_TOL, sqrt_sweep, sqrt_sweep_cuda,
 )
+from trajopt_tpu_torch.ops.line_search import HostSyncs  # noqa: F401
+from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout
 from trajopt_tpu_torch.utils.tree import precise
 
@@ -74,17 +88,36 @@ class iLQROptions:
 
 
 def _check_supported(opts: iLQROptions):
-    """Raise for the options whose code paths are not ported yet. The fused
-    flags need no check: the JAX package never takes a fused path with the
-    square-root backward pass."""
-    if not (opts.square_root or opts.bp_type == "sqrt"):
+    """Raise for the options whose code paths are not ported yet."""
+    sqrt = opts.square_root or opts.bp_type == "sqrt"
+    if not sqrt and opts.bp_type != "scan":
         raise NotImplementedError(
-            f"bp_type={opts.bp_type!r}: only the square-root backward pass "
-            "is ported (scan BP: ROADMAP Queue 2 K5; parallel: Queue 1 #13)")
+            f"bp_type={opts.bp_type!r}: the square-root and scan backward "
+            "passes are ported (parallel: ROADMAP Queue 1 #13)")
+    if opts.bp_reg_type not in ("control", "state"):
+        raise ValueError(f"bp_reg_type={opts.bp_reg_type!r}")
     for name, off in (("bp_step_limit", 0.0), ("verbose", False),
                       ("live_plotting", "off"), ("tp_mesh", None)):
         if getattr(opts, name) != off:
             raise NotImplementedError(f"iLQROptions.{name} is not ported yet")
+
+
+def _check_card_path(opts: iLQROptions, X0):
+    """A CUDA tensor outside the fused AL path needs kernels K1 and K2:
+    raise where the path would need a kernel that is still to port, and run
+    no plain version on the card in its place."""
+    if X0.device.type != "cuda":
+        return
+    if not (opts.square_root or opts.bp_type == "sqrt"):
+        raise NotImplementedError(
+            "bp_type='scan' on a CUDA tensor needs the plain Riccati kernel "
+            "(ROADMAP Queue 2, K5) or the fused kernels (K7a; K3 with "
+            "constraints): only bp_type='sqrt' with error_state=True and the "
+            "fused AL path run on the card")
+    if not opts.error_state:
+        raise NotImplementedError(
+            "error_state=False on a CUDA tensor needs the full-state "
+            "(ns = 13) closed-loop rollout kernel (ROADMAP Queue 1/2, K7b)")
 
 
 class ILQRResult(NamedTuple):
@@ -101,29 +134,13 @@ class ILQRResult(NamedTuple):
     converged: torch.Tensor
 
 
-class HostSyncs:
-    """Counts the device-to-host reads the solver's Python loops make: each
-    loop test waits for the device to finish and copies one boolean."""
-
-    def __init__(self):
-        self.count = 0
-
-    def any(self, mask: torch.Tensor) -> bool:
-        self.count += 1
-        return bool(mask.any())
-
-
-def _where(mask, a, b):
-    """Per-problem select over a leading batch dimension."""
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
+_where = _ls.where_rows
 
 
 def reg_increase(rho, drho, opts: iLQROptions):
     """(reference regularization_update! :increase, ilqr_methods.jl:164-171)."""
-    drho = torch.clamp(drho * opts.bp_reg_increase_factor,
-                       min=opts.bp_reg_increase_factor)
-    rho = torch.clamp(rho * drho, min=opts.bp_reg_min)
-    return rho, drho
+    return _ls.reg_increase(rho, drho, opts.bp_reg_increase_factor,
+                            opts.bp_reg_min)
 
 
 def reg_decrease(rho, drho, opts: iLQROptions):
@@ -145,24 +162,18 @@ def reg_noise_scale(mu, dtype):
     return (100.0 * eps) * (mu.flatten(-2).amax(-1) + 1.0)
 
 
-def backward_pass(A, B, exp: Expansion, rho, drho, opts: iLQROptions,
-                  reg_scale=None, active=None, syncs: HostSyncs | None = None):
-    """Batched sqrt Riccati sweep on kernel K1 with the reference's
-    per-problem ρ-retry (counterpart of ``_bp_batched_pallas``): every
-    attempt re-sweeps all problems, but only failing ones get ρ bumped, so
-    the others are re-swept at their own ρ; the attempts counter is shared.
-    Problems outside ``active`` do not keep the retry going.
-
-    A (B, N-1, n, n), B (B, N-1, n, m), exp batched, rho/drho (B,).
-    Returns (K, d, dV1, dV2, rho, drho).
-    """
+def _rho_retry(sweep, rho, drho, opts: iLQROptions, reg_scale=None,
+               active=None, syncs: HostSyncs | None = None):
+    """The reference's per-problem ρ retry around a batched sweep
+    ``sweep(rho) -> (K, d, dV1, dV2, fail)`` (counterpart of
+    ``_bp_batched_pallas`` and of the retry around the fused AL backward
+    kernel, trajopt_tpu ilqr.py:1063-1102): every attempt re-sweeps all
+    problems, but only failing ones get ρ bumped, to at least the
+    rounding-noise scale ``reg_scale``, so the others are re-swept at their
+    own ρ; the attempts counter is shared. Problems outside ``active`` do
+    not keep the retry going. Returns (K, d, dV1, dV2, rho, drho) with the
+    ρ decrease applied."""
     syncs = HostSyncs() if syncs is None else syncs
-    args = [t.contiguous() for t in (A, B, exp.x, exp.u, exp.xx, exp.uu,
-                                     exp.ux)]
-
-    def sweep(rho_v):
-        return sqrt_sweep_cuda(*args, rho_v.contiguous())
-
     K, d, v1, v2, fail = sweep(rho)
     jump = torch.zeros_like(rho) if reg_scale is None else reg_scale
     live = fail if active is None else fail & active
@@ -178,74 +189,58 @@ def backward_pass(A, B, exp: Expansion, rho, drho, opts: iLQROptions,
     return K, d, v1, v2, rho, drho
 
 
+def backward_pass(A, B, exp: Expansion, rho, drho, opts: iLQROptions,
+                  reg_scale=None, active=None, syncs: HostSyncs | None = None):
+    """Batched Riccati sweep with the ρ retry (:func:`_rho_retry`): the QR
+    square-root sweep on kernel K1 for ``bp_type='sqrt'``, the scan sweep
+    (``ops/riccati.py``, CPU tensors only) for ``bp_type='scan'``.
+
+    A (B, N-1, n, n), B (B, N-1, n, m), exp batched, rho/drho (B,).
+    Returns (K, d, dV1, dV2, rho, drho).
+    """
+    if opts.square_root or opts.bp_type == "sqrt":
+        args = [t.contiguous() for t in (A, B, exp.x, exp.u, exp.xx, exp.uu,
+                                         exp.ux)]
+
+        def sweep(rho_v):
+            return sqrt_sweep_cuda(*args, rho_v.contiguous())
+    else:
+        _check_card_path(opts, A)
+        reg_state = opts.bp_reg_type == "state"
+
+        def sweep(rho_v):
+            return scan_sweep(A, B, exp, rho_v, reg_state=reg_state)
+
+    return _rho_retry(sweep, rho, drho, opts, reg_scale, active, syncs)
+
+
+def _line_search_opts(opts: iLQROptions):
+    return (opts.line_search_lower_bound, opts.line_search_upper_bound,
+            opts.iterations_linesearch, opts.bp_reg_min,
+            opts.bp_reg_increase_factor, opts.bp_reg_fp)
+
+
 def forward_pass(model, cost_fn, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
                  dt, opts: iLQROptions, alpha0=None, active=None,
                  syncs: HostSyncs | None = None):
     """Batched backtracking line search (reference forwardpass!,
-    forward_pass.jl:5-85): per-problem α halving, divergence retry, and
-    restore + ρ bump once the search runs out. Each candidate is one launch
-    of kernel K2 over all problems; a problem leaves the search when its
-    own condition is met. Returns (X̄, Ū, J, rho, drho, alpha_used).
+    forward_pass.jl:5-85; the loop is ``ops/line_search.py``). Each
+    candidate is one launch of kernel K2 over all problems; a problem
+    leaves the search when its own condition is met. Returns
+    (X̄, Ū, J, rho, drho, alpha_used).
     """
-    syncs = HostSyncs() if syncs is None else syncs
+    _check_card_path(opts, X)
     qs = getattr(model, "quat_slice", None) if opts.error_state else None
-    Bz = X.shape[0]
-    dtype, dev = X.dtype, X.device
-    alpha = torch.ones(Bz, dtype=dtype, device=dev) if alpha0 is None \
-        else torch.as_tensor(alpha0, dtype=dtype, device=dev).expand(Bz)
-    it = torch.zeros(Bz, dtype=torch.int32, device=dev)
-    J = torch.full((Bz,), float("inf"), dtype=dtype, device=dev)
-    z = -torch.ones(Bz, dtype=dtype, device=dev)
-    expected = torch.zeros(Bz, dtype=dtype, device=dev)
-    Xb, Ub = X, U
-    done = torch.zeros(Bz, dtype=torch.bool, device=dev)
-    active = torch.ones(Bz, dtype=torch.bool, device=dev) if active is None \
-        else active
 
-    def searching():
-        s = ((z <= opts.line_search_lower_bound)
-             | (z > opts.line_search_upper_bound)) & (J >= J_prev)
-        return s & ~done & active
-
-    go = searching()
-    while syncs.any(go):
-        over = it > opts.iterations_linesearch
-
-        # exhausted branch (forward_pass.jl:22-37): restore & bump ρ
-        rho_o, drho_o = reg_increase(rho, drho, opts)
-        rho_o = rho_o + opts.bp_reg_fp
-
-        # normal branch: rollout at the current α
-        Xc, Uc, ok = rollout_closed_loop_cuda(
-            model, x0, X, U, K, d, alpha.contiguous(), dt,
+    def rollout_fn(alpha):
+        return rollout_closed_loop_cuda(
+            model, x0, X, U, K, d, alpha, dt,
             max_state_value=opts.max_state_value,
             max_control_value=opts.max_control_value, quat_slice=qs)
-        J_c = cost_fn(Xc, Uc)
-        expected_c = -alpha * (dV1 + alpha * dV2)
-        z_c = torch.where(expected_c > 0.0, (J_prev - J_c) / expected_c,
-                          -torch.ones_like(J_c))
 
-        # a diverged rollout keeps J = inf and just halves α
-        J_n = torch.where(ok, J_c, J)
-        z_n = torch.where(ok, z_c, z)
-        exp_n = torch.where(ok, expected_c, expected)
-        Xb_n = _where(ok, Xc, Xb)
-        Ub_n = _where(ok, Uc, Ub)
-
-        # exhausted vs normal, applied only where the search is running
-        zero = torch.zeros_like(alpha)
-        alpha = torch.where(go, torch.where(over, zero, alpha / 2.0), alpha)
-        it = torch.where(go, it + 1, it)
-        J = torch.where(go, torch.where(over, J_prev, J_n), J)
-        z = torch.where(go, torch.where(over, zero, z_n), z)
-        expected = torch.where(go, torch.where(over, zero, exp_n), expected)
-        Xb = _where(go, _where(over, X, Xb_n), Xb)
-        Ub = _where(go, _where(over, U, Ub_n), Ub)
-        rho = torch.where(go, torch.where(over, rho_o, rho), rho)
-        drho = torch.where(go, torch.where(over, drho_o, drho), drho)
-        done = torch.where(go, over, done)
-        go = searching()
-    return Xb, Ub, J, rho, drho, alpha * 2.0
+    return _ls.line_search(rollout_fn, cost_fn, X, U, dV1, dV2, J_prev, rho,
+                           drho, alpha0, *_line_search_opts(opts),
+                           active=active, syncs=syncs)
 
 
 def gradient_todorov(d, U):
@@ -277,24 +272,61 @@ def calculate_gradient(gradient_type, d, U, expansion_fn, X):
     return g.abs().amax(-1)
 
 
+class ALFusedMeta(NamedTuple):
+    """What the fused AL iteration (``ops/cuda_al_fused.py``) needs of a
+    constrained inner solve: the plain quadratic objective, the constraint
+    set, its canonical stack, and the current duals and penalties
+    (B, N, P), zero on invalid rows. The decorated cost and expansion they
+    imply must equal the closures the solver was called with
+    (``solvers/al.py`` builds both from the same data)."""
+
+    objective: object          # ops.cost.Objective
+    cs: object                 # ops.constraints.ConstraintSet
+    canon: object              # ops.canonical.CanonStack or None
+    lam: torch.Tensor
+    mu: torch.Tensor
+    atol: float
+
+
+def _fused_al_eligible(model, opts: iLQROptions, meta, like=None):
+    """Whether a constrained inner solve runs as the fused AL iteration.
+    The rules the JAX package shares (a canonical stack, a plain quadratic
+    objective, the scan backward pass on the full state, the default
+    limits), and for a CUDA tensor ``like`` the Hopper kernels' own:
+    float32 and the one model they carry. Nothing of the TPU dispatch
+    (batch % 128, VMEM budgets, chunking) applies."""
+    ok = ((opts.fused or opts.fused_al)
+          and meta is not None and meta.canon is not None
+          and isinstance(meta.objective, Objective)
+          and opts.bp_type == "scan" and not opts.square_root
+          and not opts.error_state and opts.bp_step_limit == 0.0
+          and opts.max_state_value == 1e8 and opts.max_control_value == 1e8)
+    if ok and like is not None and like.device.type == "cuda":
+        ok = like.dtype == torch.float32 and cuda_model_supported(model)
+    return ok
+
+
 @precise
 def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
                opts: iLQROptions = iLQROptions(), cost_tol=None,
                grad_tol=None, rho0=None, do_rollout: bool = True,
-               reg_scale=None, active=None,
-               syncs: HostSyncs | None = None) -> ILQRResult:
+               al_meta: Optional[ALFusedMeta] = None, reg_scale=None,
+               active=None, syncs: HostSyncs | None = None) -> ILQRResult:
     """Solve a batch of unconstrained (or AL-decorated) problems with iLQR
     (reference solve!, ilqr_methods.jl:3-45).
 
     ``cost_fn(X, U) -> J (B,)`` and ``expansion_fn(X, U) -> Expansion``
     define the objective for a batch X (B, N, n), U (B, N-1, m); x0 (B, n).
-    ``dt`` is the uniform step as a Python float (the rollout kernel takes
-    it as an argument) or a per-interval tensor for the CPU path.
+    ``dt`` is the uniform step as a Python float (the rollout kernel K2
+    takes it as an argument) or a per-interval tensor.
+    ``al_meta``: with it, an eligible solve (:func:`_fused_al_eligible`)
+    runs every iteration as the fused AL backward and forward programs.
     ``active`` (B,) bool: problems outside it are left as they are (the
     queued pool solver passes its idle lanes here). Convergence follows the
     reference rules, including the ``dJ_zero`` counter.
     """
     _check_supported(opts)
+    use_fused_al = _fused_al_eligible(model, opts, al_meta, like=X0)
     syncs = HostSyncs() if syncs is None else syncs
     dtype, dev = X0.dtype, X0.device
     Bz, Nm1, m = U0.shape
@@ -308,7 +340,8 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
 
     cost_tol = per_problem(cost_tol, opts.cost_tolerance)
     grad_tol = per_problem(grad_tol, opts.gradient_norm_tolerance)
-    dt_traj = torch.as_tensor(dt, dtype=dtype, device=dev).expand(Nm1)
+    dt_traj = torch.as_tensor(dt, dtype=dtype,
+                              device=dev).expand(Nm1).contiguous()
     active = torch.ones(Bz, dtype=torch.bool, device=dev) if active is None \
         else active
 
@@ -347,24 +380,49 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
         return (~converged & (it < opts.iterations)
                 & (J_prev < opts.max_cost_value) & active)
 
+    if use_fused_al:
+        canon, atol = al_meta.canon, al_meta.atol
+        lam_al, mu_al = al_meta.lam.contiguous(), al_meta.mu.contiguous()
+        obj_al = al_meta.objective
+        reg_state = opts.bp_reg_type == "state"
+        # the same scale-aware retry jump as the closure path gets from
+        # solvers/al.py
+        al_scale = reg_noise_scale(mu_al, dtype)
+
     go = running()
     while syncs.any(go):
-        A, B = model.jacobian_traj(X[:, :-1], U, dt_traj)
-        exp = expansion_fn(X, U)
-        if qs is not None:
-            A, B, exp = project_error_state(X, A, B, exp, qs)
-        K_n, d_n, dV1, dV2, rho_n, drho_n = backward_pass(
-            A, B, exp, rho, drho, opts, reg_scale=reg_scale, active=go,
-            syncs=syncs)
+        if use_fused_al:
+            def sweep(rho_v):
+                return fused_al_backward_cuda(
+                    model, canon, X, U, lam_al, mu_al, dt_traj, obj_al,
+                    rho_v.contiguous(), atol=atol, reg_state=reg_state)
+
+            K_n, d_n, dV1, dV2, rho_n, drho_n = _rho_retry(
+                sweep, rho, drho, opts, reg_scale=al_scale, active=go,
+                syncs=syncs)
+        else:
+            A, B = model.jacobian_traj(X[:, :-1], U, dt_traj)
+            exp = expansion_fn(X, U)
+            if qs is not None:
+                A, B, exp = project_error_state(X, A, B, exp, qs)
+            K_n, d_n, dV1, dV2, rho_n, drho_n = backward_pass(
+                A, B, exp, rho, drho, opts, reg_scale=reg_scale, active=go,
+                syncs=syncs)
         alpha0 = None
         if opts.line_search_warm_start:
             # grow from the last accepted step; reset to 1 after exhaustion
             alpha0 = torch.where(a_prev > 0.0,
                                  (2.0 * a_prev).clamp(2.0 ** -10, 1.0),
                                  torch.ones_like(a_prev))
-        Xn, Un, J, rho_n, drho_n, alpha = forward_pass(
-            model, cost_fn, x0, X, U, K_n, d_n, dV1, dV2, J_prev, rho_n,
-            drho_n, dt, opts, alpha0=alpha0, active=go, syncs=syncs)
+        if use_fused_al:
+            Xn, Un, J, rho_n, drho_n, alpha = fused_al_forward_cuda(
+                model, canon, x0, X, U, K_n, d_n, dV1, dV2, J_prev, rho_n,
+                drho_n, alpha0, lam_al, mu_al, dt_traj, obj_al,
+                _line_search_opts(opts), atol=atol, active=go, syncs=syncs)
+        else:
+            Xn, Un, J, rho_n, drho_n, alpha = forward_pass(
+                model, cost_fn, x0, X, U, K_n, d_n, dV1, dV2, J_prev, rho_n,
+                drho_n, dt, opts, alpha0=alpha0, active=go, syncs=syncs)
 
         dJ_n = (J - J_prev).abs()
         grad_n = calculate_gradient(opts.gradient_type, d_n, Un,
