@@ -6,9 +6,10 @@ On a machine with an NVIDIA GPU and nvcc:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Small shapes (B=16, N=21 for K1 and K2; B=16 on the N=101 maze stack for K3
-and K4) in float32, at the f32 tolerances of tests/test_pallas.py and of
-chip_smoke.py, which repeats the comparisons at the main paths' shapes.
+Small shapes (B=16, N=21 for K1, K2, K5, K7a and K7b; B=16 on the N=101 maze
+stack for K3 and K4) in float32, at the f32 tolerances of tests/test_pallas.py
+and of chip_smoke.py, which repeats the comparisons at the main paths'
+shapes.
 """
 import numpy as np
 import pytest
@@ -25,11 +26,17 @@ from trajopt_tpu_torch.ops.cuda_al_fused import (
     fused_al_backward, fused_al_backward_cuda, fused_al_forward,
     fused_al_forward_cuda,
 )
+from trajopt_tpu_torch.ops.cuda_fused import (
+    fused_backward, fused_backward_cuda, fused_forward, fused_forward_cuda,
+)
+from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
 from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
 from trajopt_tpu_torch.ops.cuda_sqrt import (
     equilibrated_chol_upper, plain_chol_upper, sqrt_sweep, sqrt_sweep_cuda,
 )
+from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout, rollout_closed_loop
+from trajopt_tpu_torch.problems import zoo as problems
 from trajopt_tpu_torch.problems.zoo import quadrotor_line, quadrotor_maze
 from trajopt_tpu_torch.solvers.altro import infeasible_problem
 
@@ -152,10 +159,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                                  z(2, 3, 4, 12), z(2, 3, 4), z(2), 0.05,
                                  quat_slice=(3, 7))
     f = torch.float32
-    with pytest.raises(ValueError):  # the kernel runs the error state only
+    # the full-state rollout (ns = 13) runs: level, with zero gains and zero
+    # thrust, the quadrotor falls freely and stays alive
+    hover = z(2, 4, 13, dt=f)
+    hover[..., 3] = 1.0
+    Xn, Un, ok = rollout_closed_loop_cuda(
+        quad, hover[:, 0].contiguous(), hover, z(2, 3, 4, dt=f),
+        z(2, 3, 4, 13, dt=f), z(2, 3, 4, dt=f), z(2, dt=f), 0.05,
+        quat_slice=None)
+    assert Xn.shape == (2, 4, 13) and bool(ok.all())
+    with pytest.raises(ValueError):     # gains of the error state's width
+        rollout_closed_loop_cuda(quad, z(2, 13, dt=f), z(2, 4, 13, dt=f),
+                                 z(2, 3, 4, dt=f), z(2, 3, 4, 12, dt=f),
+                                 z(2, 3, 4, dt=f), z(2, dt=f), 0.05,
+                                 quat_slice=None)
+    with pytest.raises(NotImplementedError):    # a per-interval dt
         rollout_closed_loop_cuda(quad, z(2, 13, dt=f), z(2, 4, 13, dt=f),
                                  z(2, 3, 4, dt=f), z(2, 3, 4, 13, dt=f),
-                                 z(2, 3, 4, dt=f), z(2, dt=f), 0.05,
+                                 z(2, 3, 4, dt=f), z(2, dt=f), z(3, dt=f),
                                  quat_slice=None)
     other = discretize(Model(zoo.quadrotor_dynamics, 13, 4, name="custom"),
                        "rk3")
@@ -276,15 +297,45 @@ def test_fused_al_forward_kernel_matches_plain_version(maze):
 
 
 def test_constrained_solve_outside_the_fused_path_raises_on_the_card(maze):
-    """No plain version stands in for a missing kernel: with fused_al off a
-    constrained pool solve on a CUDA tensor raises."""
+    """With fused_al off a constrained maze solve on a CUDA tensor no longer
+    raises: it runs phase-split on K5 (13, 17) and K2's slack instantiation,
+    and is held to the fused solve's outcome on 2 problems: c_max < 1e-3 on
+    both. What still has no kernel raises (a model without a CUDA step)."""
     import trajopt_tpu_torch as tt
-    from trajopt_tpu_torch.parallel.batch import solve_batch_queued
+    from trajopt_tpu_torch.parallel.batch import (
+        solve_batch_queued, solve_batch_queued_altro)
 
-    p = maze["prob"]
-    opts = tt.ALOptions(opts_uncon=tt.iLQROptions(fused_al=False))
-    with pytest.raises(NotImplementedError, match="K5"):
-        solve_batch_queued(p, opts, maze["X"][:2, 0].contiguous(), lanes=2)
+    base = quadrotor_maze(dtype=torch.float32, device=maze["X"].device)
+    rng = np.random.default_rng(0)
+    x0s = (base.x0[None] + torch.as_tensor(
+        np.concatenate([rng.normal(size=(2, 3)) * 0.05, np.zeros((2, 10))],
+                       axis=1), dtype=torch.float32,
+        device=base.device)).contiguous()
+    out = {}
+    for fused_al in (True, False):
+        opts = tt.ALTROOptions(R_inf=1e-8, opts_al=tt.ALOptions(
+            iterations=40, opts_uncon=tt.iLQROptions(iterations=10,
+                                                     fused_al=fused_al),
+            cost_tolerance=1e-5, cost_tolerance_intermediate=1e-3,
+            penalty_scaling=25.0))
+        k5, k2 = riccati_sweep_cuda.launches, rollout_closed_loop_cuda.launches
+        k3 = fused_al_backward_cuda.launches
+        out[fused_al] = solve_batch_queued_altro(base, opts, x0s, lanes=2,
+                                                 infeasible=True)
+        ran_split = (riccati_sweep_cuda.launches > k5
+                     and rollout_closed_loop_cuda.launches > k2)
+        assert ran_split == (not fused_al)
+        assert (fused_al_backward_cuda.launches > k3) == fused_al
+    assert riccati_sweep_cuda.launches_by["13x17"] > 0
+    assert rollout_closed_loop_cuda.launches_by["quadrotor_slack"] > 0
+    assert bool((out[True].c_max < 1e-3).all())
+    assert bool((out[False].c_max < 1e-3).all())
+
+    other = tt.update_problem(maze["prob"], model=discretize(
+        Model(zoo.quadrotor_dynamics, 13, 17, name="custom"), "rk3"))
+    with pytest.raises(NotImplementedError, match="K6"):
+        solve_batch_queued(other, tt.ALOptions(), maze["X"][:2, 0].contiguous(),
+                           lanes=2)
 
 
 def test_fused_al_wrappers_refuse_what_the_kernels_do_not_take(maze):
@@ -298,3 +349,243 @@ def test_fused_al_wrappers_refuse_what_the_kernels_do_not_take(maze):
     base = quadrotor_maze(dtype=torch.float32, device=maze["X"].device)
     with pytest.raises(NotImplementedError):   # no slack step: not the model
         _backward(dict(maze, prob=base), fused_al_backward_cuda)
+
+
+# ------------------------------------------------------ K5, K7a, K7b, K2
+
+MODEL_PROBLEMS = dict(quadrotor=lambda **kw: quadrotor_line(
+    N=101, distance=5.0, **kw), cartpole=problems.cartpole,
+    car=problems.parallel_park, pendulum=problems.pendulum,
+    doubleintegrator=problems.doubleintegrator)
+
+
+def _model_setup(name, device):
+    """Model ``name`` with its zoo problem's objective and dt, the horizon
+    cut to N = 21 (for the quadrotor: a goal 5 m away at dt = 0.05, the
+    recipe of tests/test_fused.py; at a coarser dt its float32 sweep fails
+    at any moderate rho): B perturbed starts, the control seed plus noise,
+    open-loop rollouts computed in float64, handed out in float32 with the
+    float64 originals."""
+    p64 = MODEL_PROBLEMS[name](dtype=torch.float64, device=device)
+    obj = type(p64.obj)(**{k: torch.cat([getattr(p64.obj, k)[:N - 1],
+                                         getattr(p64.obj, k)[-1:]])
+                           for k in ("Q", "R", "H", "q", "r", "c")})
+    rng = np.random.default_rng(7)
+    x0s = p64.x0[None] + torch.as_tensor(rng.normal(size=(B, p64.n)) * 0.02,
+                                         device=device)
+    U = p64.U[:N - 1][None] + torch.as_tensor(
+        rng.normal(size=(B, N - 1, p64.m)) * 0.02, device=device)
+    dtt = p64.dt_traj()[:N - 1].contiguous()
+    X = rollout(p64.model, x0s, U, dtt)
+    f32 = lambda t: t.float().contiguous()  # noqa: E731
+    return dict(model=p64.model, obj64=obj, obj=obj.to(dtype=torch.float32),
+                X64=X, U64=U, dt64=dtt, X=f32(X), U=f32(U), dtt=f32(dtt),
+                dt=p64.dt)
+
+
+def _close(a, b, b64, tol):
+    """|a − b| within ``tol`` of scale, or within three times b's own
+    distance from its float64 version ``b64`` where the conditioning is
+    worse (the bar of chip_smoke.py)."""
+    scale = float(b64.abs().max())
+    eps = float((b.double() - b64).abs().max())
+    assert float((a - b).abs().max()) <= max(tol * scale, 3.0 * eps)
+
+
+@pytest.mark.parametrize("name", ["quadrotor", "cartpole", "car"])
+def test_riccati_kernel_matches_plain_version(cuda_device, name):
+    """K5 at rho = 1, control and state regularization: fail flags equal
+    (none), K and d at 1e-3 of scale, ΔV at 1e-4 (or three times the plain
+    version's distance from float64)."""
+    ms = _model_setup(name, cuda_device)
+    A, Bm = ms["model"].jacobian_traj(ms["X64"][:, :-1], ms["U64"],
+                                      ms["dt64"])
+    e = cost_expansion(ms["obj64"], ms["X64"], ms["U64"], ms["dt64"])
+    ins64 = [A, Bm, e.x, e.u, e.xx, e.uu, e.ux]
+    ins = [t.float().contiguous() for t in ins64]
+    rho = torch.ones(B, device=cuda_device)
+    for reg_state in (False, True):
+        before = riccati_sweep_cuda.launches
+        k = riccati_sweep_cuda(*ins, rho, reg_state=reg_state)
+        torch.cuda.synchronize()
+        assert riccati_sweep_cuda.launches == before + 1
+        p = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]), rho,
+                       reg_state=reg_state)
+        p64 = scan_sweep(A, Bm, e, rho.double(), reg_state=reg_state)
+        assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+        for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
+            _close(k[i], p[i], p64[i], tol)
+
+
+def test_riccati_kernel_fail_branch(cuda_device):
+    """A negative definite control Hessian at one stage of problem 9: kernel
+    and plain version fail exactly that problem, and the kernel's gains at
+    the failed stage are zero."""
+    ms = _model_setup("cartpole", cuda_device)
+    A, Bm = ms["model"].jacobian_traj(ms["X64"][:, :-1], ms["U64"],
+                                      ms["dt64"])
+    e = cost_expansion(ms["obj64"], ms["X64"], ms["U64"], ms["dt64"])
+    ins = [t.float().contiguous() for t in (A, Bm, e.x, e.u, e.xx, e.uu,
+                                            e.ux)]
+    ins[5][9, 12] = -50.0
+    rho = torch.ones(B, device=cuda_device)
+    k = riccati_sweep_cuda(*ins, rho)
+    torch.cuda.synchronize()
+    p = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]), rho)
+    assert k[4].nonzero().flatten().tolist() == [9]
+    assert torch.equal(k[4], p[4])
+    assert not bool(k[0][9, 12].any()) and not bool(k[1][9, 12].any())
+    live = ~k[4]
+    assert (k[0] - p[0])[live].abs().max() < 1e-3 * p[0][live].abs().max()
+
+
+@pytest.mark.parametrize("name", ["quadrotor", "cartpole", "pendulum"])
+def test_fused_backward_kernel_matches_plain_version(cuda_device, name):
+    """K7a at rho = 1: no failure, K and d at 1e-3 of scale, ΔV at 1e-4 (or
+    three times the plain version's distance from float64), in-kernel
+    Jacobians at 1e-5."""
+    ms = _model_setup(name, cuda_device)
+    rho = torch.ones(B, device=cuda_device)
+    before = fused_backward_cuda.launches
+    k = fused_backward_cuda(ms["model"], ms["X"], ms["U"], ms["dtt"],
+                            ms["obj"], rho, return_jacobians=True)
+    torch.cuda.synchronize()
+    assert fused_backward_cuda.launches == before + 1
+    p = fused_backward(ms["model"], ms["X"], ms["U"], ms["dtt"], ms["obj"],
+                       rho, return_jacobians=True)
+    p64 = fused_backward(ms["model"], ms["X64"], ms["U64"], ms["dt64"],
+                         ms["obj64"], rho.double())
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
+        _close(k[i], p[i], p64[i], tol)
+    torch.testing.assert_close(k[5], p[5], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k[6], p[6], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["quadrotor", "cartpole"])
+def test_fused_forward_kernel_matches_plain_version(cuda_device, name):
+    """K7b with problem 5's feedforward blown up (its first candidates
+    diverge) and problem 11 given a cost no candidate can beat (its search
+    runs out: restore, alpha = 0, rho bump): alpha, rho and drho equal on
+    every problem, J at 1e-4, X at 1e-5 of scale."""
+    ms = _model_setup(name, cuda_device)
+    one = torch.ones(B, device=cuda_device)
+    K, d, v1, v2, fail = fused_backward_cuda(
+        ms["model"], ms["X"], ms["U"], ms["dtt"], ms["obj"], one)
+    assert not bool(fail.any())
+    d = d.clone()
+    d[5] *= 1e5
+    x0 = ms["X"][:, 0].contiguous()
+    assert not bool(rollout_closed_loop(ms["model"], x0, ms["X"], ms["U"], K,
+                                        d, one, ms["dt"])[2][5])
+    J_prev = total_cost(ms["obj"], ms["X"], ms["U"], ms["dtt"]).contiguous()
+    J_prev[11] = -1e30
+    args = (ms["model"], x0, ms["X"], ms["U"], K, d, v1, v2, J_prev, one, one,
+            None, ms["dtt"], ms["obj"], LS_OPTS)
+    before = fused_forward_cuda.launches
+    Xk, Uk, Jk, rk, drk, ak = fused_forward_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_forward_cuda.launches == before + 1
+    Xp, Up, Jp, rp, drp, ap = fused_forward(*args)
+    assert torch.equal(ak, ap) and torch.equal(rk, rp)
+    assert torch.equal(drk, drp)
+    assert 0.0 < float(ak[5]) < 1.0
+    assert float(ak[11]) == 0.0 and float(rk[11]) > 10.0
+    assert torch.equal(Xk[11], ms["X"][11]) and torch.equal(Uk[11],
+                                                             ms["U"][11])
+    assert float(Jk[11]) == float(J_prev[11])
+    calm = torch.ones(B, dtype=torch.bool, device=cuda_device)
+    calm[5] = False
+    torch.testing.assert_close(Jk[calm], Jp[calm], rtol=1e-4, atol=0)
+    assert (Xk - Xp)[calm].abs().max() < 1e-5 * max(
+        1.0, float(Xp[calm].abs().max()))
+
+
+@pytest.mark.parametrize("name", ["quadrotor", "cartpole", "car", "pendulum",
+                                  "doubleintegrator"])
+def test_full_state_rollout_kernel_matches_plain_version(cuda_device, name):
+    """K2 on the full state (``quat_slice=None``) for each model, on the
+    gains of K7a at rho = 1: ok masks equal, X and U at 1e-5 of scale."""
+    ms = _model_setup(name, cuda_device)
+    one = torch.ones(B, device=cuda_device)
+    K, d, _, _, _ = fused_backward_cuda(ms["model"], ms["X"], ms["U"],
+                                        ms["dtt"], ms["obj"], one)
+    alpha = (0.5 ** (torch.arange(B, device=cuda_device) % 4)).float()
+    ins = (ms["model"], ms["X"][:, 0].contiguous(), ms["X"], ms["U"], K, d,
+           alpha, ms["dt"])
+    before = rollout_closed_loop_cuda.launches_by[name]
+    Xk, Uk, okk = rollout_closed_loop_cuda(*ins)
+    torch.cuda.synchronize()
+    assert rollout_closed_loop_cuda.launches_by[name] == before + 1
+    Xp, Up, okp = rollout_closed_loop(*ins)
+    assert torch.equal(okk, okp) and bool(okk.any())
+    assert (Xk - Xp)[okk].abs().max() < 1e-5 * max(
+        1.0, float(Xp[okk].abs().max()))
+    assert (Uk - Up)[okk].abs().max() < 1e-5 * max(
+        1.0, float(Up[okk].abs().max()))
+
+
+def test_slice3_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """float64 on the card is a ValueError; a shape with no instantiation
+    and a model without a CUDA step are NotImplementedErrors that name the
+    ROADMAP entry."""
+    ms = _model_setup("cartpole", cuda_device)
+    z = lambda *s, dt=torch.float32: torch.zeros(  # noqa: E731
+        s, dtype=dt, device=cuda_device)
+    rho64 = torch.ones(B, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError):
+        fused_backward_cuda(ms["model"], ms["X64"], ms["U64"], ms["dt64"],
+                            ms["obj64"], rho64)
+    with pytest.raises(ValueError):
+        riccati_sweep_cuda(*(z(*s, dt=torch.float64) for s in (
+            (2, 3, 4, 4), (2, 3, 4, 1), (2, 4, 4), (2, 3, 1), (2, 4, 4, 4),
+            (2, 3, 1, 1), (2, 3, 1, 4), (2,))))
+    with pytest.raises(NotImplementedError, match="K6"):
+        riccati_sweep_cuda(z(2, 3, 5, 5), z(2, 3, 5, 2), z(2, 4, 5),
+                           z(2, 3, 2), z(2, 4, 5, 5), z(2, 3, 2, 2),
+                           z(2, 3, 2, 5), z(2))
+    rk4 = discretize(zoo.cartpole, "rk4")
+    with pytest.raises(NotImplementedError, match="K6"):
+        fused_backward_cuda(rk4, ms["X"], ms["U"], ms["dtt"], ms["obj"],
+                            torch.ones(B, device=cuda_device))
+    with pytest.raises(NotImplementedError, match="K6"):
+        fused_forward_cuda(rk4, ms["X"][:, 0].contiguous(), ms["X"], ms["U"],
+                           z(B, N - 1, 1, 4), z(B, N - 1, 1), z(B), z(B),
+                           z(B), z(B), z(B), None, ms["dtt"], ms["obj"],
+                           LS_OPTS)
+
+
+def test_default_options_solve_on_the_card(cuda_device):
+    """``iLQROptions()`` (scan, full state) and ``iLQROptions(fused=True)``
+    through ``solve_batch`` in float32 on the card for the pendulum: the
+    constrained solve reaches c_max < 1e-3 on K5 and K2, the unconstrained
+    fused one runs on K7a and K7b alone and agrees with the phase-split one;
+    float64 on the card raises."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.constraints import empty_constraints
+    from trajopt_tpu_torch.parallel.batch import solve_batch
+
+    prob = problems.pendulum(dtype=torch.float32, device=cuda_device)
+    rng = np.random.default_rng(0)
+    x0s = torch.as_tensor(rng.normal(size=(8, 2)) * 0.02, dtype=torch.float32,
+                          device=cuda_device)
+    k5 = riccati_sweep_cuda.launches_by["2x1"]
+    res = solve_batch(prob, tt.ALOptions(), x0s)
+    assert riccati_sweep_cuda.launches_by["2x1"] > k5
+    assert bool((res.c_max < 1e-3).all())
+    assert float((res.X[:, -1] - prob.xf).norm(dim=-1).max()) < 5e-3
+
+    free = tt.update_problem(prob, constraints=empty_constraints(
+        prob.N, device=cuda_device))
+    k5 = riccati_sweep_cuda.launches
+    k7 = fused_backward_cuda.launches_by["pendulum"]
+    fused = solve_batch(free, tt.ALOptions(
+        opts_uncon=tt.iLQROptions(fused=True)), x0s)
+    assert riccati_sweep_cuda.launches == k5
+    assert fused_backward_cuda.launches_by["pendulum"] > k7
+    split = solve_batch(free, tt.ALOptions(), x0s)
+    torch.testing.assert_close(fused.J, split.J, rtol=1e-2, atol=1e-4)
+
+    prob64 = problems.pendulum(dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError):
+        solve_batch(prob64, tt.ALOptions(), x0s.double())

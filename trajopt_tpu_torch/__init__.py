@@ -9,7 +9,11 @@ ported path are hand-written CUDA kernels for Hopper (``csrc/``), built by
 ``kernels/_build.py`` at first use; each has a plain PyTorch twin that runs
 on the CPU.
 
-Ported so far: the quadrotor iLQR queued-pool path (slice 1:
+Ported so far: the library's default path (slice 3: ``al_solve`` and
+``parallel.batch.solve_batch`` with ``iLQROptions()``, the scan backward
+pass on the full state, and its ``fused=True`` variant, for the quadrotor,
+cartpole, car, pendulum and double integrator), the quadrotor iLQR
+queued-pool path (slice 1:
 ``problems.zoo.quadrotor_line`` solved by ``parallel.batch.
 solve_batch_queued`` with ``ALOptions(opts_uncon=iLQROptions(
 error_state=True, bp_type="sqrt"))``) and the quadrotor_maze ALTRO AL stage
@@ -27,25 +31,25 @@ from trajopt_tpu_torch.ops.constraints import (
 )
 from trajopt_tpu_torch.ops.cost import LQRObjective, Objective, QuadraticCost
 from trajopt_tpu_torch.parallel.batch import (
-    QueuedBatchResult, solve_batch_queued, solve_batch_queued_altro,
-    solve_batch_queued_altro_retry,
+    QueuedBatchResult, solve_batch, solve_batch_queued,
+    solve_batch_queued_altro, solve_batch_queued_altro_retry,
 )
 from trajopt_tpu_torch.problem import (
     Problem, initial_states, problem, update_problem,
 )
-from trajopt_tpu_torch.solvers.al import ALOptions
+from trajopt_tpu_torch.solvers.al import ALOptions, ALResult, al_solve
 from trajopt_tpu_torch.solvers.altro import ALTROOptions, infeasible_problem
 from trajopt_tpu_torch.solvers.ilqr import iLQROptions, ilqr_solve
 from trajopt_tpu_torch.utils.tree import precise, precise_context
 
 __all__ = [
-    "ALOptions", "ALTROOptions", "Constraint", "ConstraintSet",
+    "ALOptions", "ALResult", "ALTROOptions", "Constraint", "ConstraintSet",
     "ConstraintSetBuilder", "DiscreteModel", "LQRObjective", "Model",
-    "Objective", "Problem", "QuadraticCost", "QueuedBatchResult",
+    "Objective", "Problem", "QuadraticCost", "QueuedBatchResult", "al_solve",
     "bound_constraint", "discretize", "goal_constraint", "iLQROptions",
     "ilqr_solve", "infeasible_constraint", "infeasible_problem",
     "initial_states", "obstacle_field_constraint", "precise",
-    "precise_context", "problem", "solve_batch_queued",
+    "precise_context", "problem", "solve_batch", "solve_batch_queued",
     "solve_batch_queued_altro", "solve_batch_queued_altro_retry",
     "update_problem",
 ]

@@ -7,7 +7,8 @@ with the JAX ``Problem``'s attributes (through ``np.asarray``), and
 device and in the dtype asked for. The constraint set travels as data too:
 per constraint its label, its canonical row kind with the parameters, the
 equality flags and the knots it applies at. ``state_arrays`` and
-``state_from_arrays`` do the same for a solver state (X, U, λ, μ).
+``state_from_arrays`` do the same for a solver state (X, U, λ, μ), and
+``result_arrays`` hands an ``ALResult`` back as numpy arrays.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from trajopt_tpu_torch.ops.cost import Objective
 from trajopt_tpu_torch.problem import Problem
 from trajopt_tpu_torch.utils.device import resolve_device
 
-MODELS = {"quadrotor": zoo.quadrotor}
+MODELS = {m.name: m for m in (zoo.quadrotor, zoo.pendulum,
+                              zoo.doubleintegrator, zoo.car, zoo.cartpole)}
 OBJECTIVE_FIELDS = ("Q", "R", "H", "q", "r", "c")
 STATE_FIELDS = ("X", "U", "lam", "mu")
 
@@ -122,3 +124,12 @@ def state_from_arrays(dtype=torch.float64, device=None, **state) -> dict:
     device = resolve_device(device)
     return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
             for k, v in state.items() if k in STATE_FIELDS}
+
+
+def result_arrays(res) -> dict:
+    """An ``ALResult`` (of either package) as numpy arrays, the history's
+    entries under ``history_<name>``."""
+    out = {k: v for k, v in res._asdict().items() if k != "history"}
+    out.update({f"history_{k}": v for k, v in res.history.items()})
+    return {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+            for k, v in out.items()}

@@ -1,7 +1,9 @@
-// The quaternion quadrotor's dynamics and RK3 step, shared by the kernels
-// that inline them: the closed-loop rollout (rollout_quadrotor.cu), the
-// fused AL backward sweep (fused_al_backward.cu) and the fused AL line
-// search (fused_al_forward.cu).
+// The quaternion quadrotor's dynamics and RK3 step, and the dual numbers of
+// the forward-mode Jacobians, shared by the kernels that inline them: the
+// fused AL backward sweep (fused_al_backward.cu) and line search
+// (fused_al_forward.cu) directly, and through the model traits of
+// models.cuh the closed-loop rollout (rollout.cu) and the fused backward
+// sweep and line search (fused_backward.cu, fused_forward.cu).
 //
 // Counterpart of quadrotor_dynamics_lanes / quadrotor_step_lanes in
 // trajopt_tpu/ops/pallas_rollout.py. Templated on the scalar type: float
@@ -80,6 +82,16 @@ __device__ __forceinline__ float tsqrt(float a) { return sqrtf(a); }
 __device__ __forceinline__ Dual tsqrt(Dual a) {
   const float s = sqrtf(a.v);
   return Dual(s, a.d / (2.0f * s));
+}
+// sinf and cosf, never the fast intrinsics: a line-search decision can hinge
+// on the last bits of a rollout
+__device__ __forceinline__ float tsin(float a) { return sinf(a); }
+__device__ __forceinline__ Dual tsin(Dual a) {
+  return Dual(sinf(a.v), cosf(a.v) * a.d);
+}
+__device__ __forceinline__ float tcos(float a) { return cosf(a); }
+__device__ __forceinline__ Dual tcos(Dual a) {
+  return Dual(cosf(a.v), -(sinf(a.v) * a.d));
 }
 
 template <class T>

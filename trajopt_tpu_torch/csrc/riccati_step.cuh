@@ -3,9 +3,9 @@
 // Counterpart of the loop body of _fused_al_backward_kernel
 // (trajopt_tpu/ops/pallas_al_fused.py:464-500) and of _riccati_kernel
 // (ops/pallas_riccati.py); the plain version is ops/riccati.py::scan_sweep.
-// Used by the fused AL backward kernel (fused_al_backward.cu); the plain
-// Riccati kernel still to port takes A, B and the expansion from memory
-// and calls the same step.
+// Used by the fused AL backward kernel (fused_al_backward.cu), the fused
+// backward kernel (fused_backward.cu) and the plain Riccati kernel
+// (riccati_sweep.cu), which takes A, B and the expansion from memory.
 //
 //   Qx = lx + AᵀSx        Qxx = lxx + AᵀSxxA     Qux = lux + BᵀSxxA
 //   Qu = lu + BᵀSx        Quu = luu + BᵀSxxB

@@ -43,10 +43,23 @@ SIGNATURES = {
         # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m,
         # stream
         "trajopt_sqrt_sweep_f32": (_P,) * 12 + (_I,) * 4 + (_P,)},
-    "rollout_quadrotor": {
-        # x0, X, U, K, d, alpha, Xout, Uout, ok, batch, N, dt, max_state,
-        # max_control, stream
-        "trajopt_rollout_quadrotor_f32": (_P,) * 9 + (_I,) * 2 + (_F,) * 3
+    "rollout": {
+        # x0, X, U, K, d, alpha, Xout, Uout, ok, batch, N, model,
+        # error_state, dt, max_state, max_control, stream
+        "trajopt_rollout_f32": (_P,) * 9 + (_I,) * 4 + (_F,) * 3 + (_P,)},
+    "riccati_sweep": {
+        # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m,
+        # reg_state, stream
+        "trajopt_riccati_sweep_f32": (_P,) * 12 + (_I,) * 5 + (_P,)},
+    "fused_backward": {
+        # X, U, dt, Q, R, H, q, r, rho, K, d, dV, fail, Aout, Bout, batch, N,
+        # model, reg_state, stream
+        "trajopt_fused_backward_f32": (_P,) * 15 + (_I,) * 4 + (_P,)},
+    "fused_forward": {
+        # x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, dt, Q, R, H, q,
+        # r, c, active, Xout, Uout, scal, batch, N, model, ls_iters, ls_lb,
+        # ls_ub, reg_min, reg_factor, reg_fp, stream
+        "trajopt_fused_forward_f32": (_P,) * 22 + (_I,) * 4 + (_F,) * 5
         + (_P,)},
     "fused_al_backward": {
         # X, U, lam, mu, dt, Q, R, H, q, r, rho, row_i, row_f, groups,
@@ -133,6 +146,13 @@ def load() -> types.SimpleNamespace:
             fn.restype = ctypes.c_int
             fns[name] = fn
     return types.SimpleNamespace(**fns)
+
+
+def stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as the C entry points
+    take it."""
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
 
 
 def check(err: int, name: str):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS
 from trajopt_tpu_torch.ops.integration import INTEGRATORS
 
 
@@ -40,7 +41,7 @@ class DiscreteModel:
     """Discrete dynamics x_{k+1} = step(x_k, u_k, dt).
 
     ``cuda_step`` names the CUDA step that the kernels inline for this
-    model (``ops/cuda_rollout.py``, ``ops/cuda_al_fused.py``), or is None.
+    model (``ops/cuda_models.py``, ``csrc/models.cuh``), or is None.
     ``slack_m`` is the base model's control width when this is a
     slack-augmented model of the infeasible-start transform
     (``solvers/altro.py::infeasible_problem``), else None.
@@ -83,8 +84,8 @@ def discretize(model: Model, integrator: str = "rk3") -> DiscreteModel:
     step = INTEGRATORS[integrator](model.dynamics)
     dmodel = DiscreteModel(step, model.n, model.m, model=model,
                            integrator=integrator, name=model.name)
-    # the closed-loop rollout kernel (csrc/rollout_quadrotor.cu) carries the
-    # quadrotor's RK3 step; the other models' CUDA steps are ROADMAP K6
-    if (model.name, integrator) == ("quadrotor", "rk3"):
-        dmodel.cuda_step = "quadrotor_rk3"
+    # the kernels inline the RK3 step of these models (csrc/models.cuh): the
+    # pairs the JAX package registers a scalar lane step for
+    if f"{model.name}_{integrator}" in CUDA_STEPS:
+        dmodel.cuda_step = f"{model.name}_{integrator}"
     return dmodel

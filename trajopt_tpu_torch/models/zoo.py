@@ -1,15 +1,82 @@
 """Analytic dynamics models.
 
-Counterpart of ``trajopt_tpu/models/zoo.py``. Only the quaternion quadrotor
-is ported so far (ROADMAP Queue 1, "the rest of the zoo"). Every function
-takes states with any leading batch dimensions and works under
-``torch.func.vmap``/``jacfwd``.
+Counterpart of ``trajopt_tpu/models/zoo.py``: the quaternion quadrotor and
+the four models whose scalar lane step the JAX package ships (pendulum,
+double integrator, car, cartpole); the rest of the zoo is ROADMAP Queue 1.
+Every function takes states with any leading batch dimensions and works
+under ``torch.func.vmap``/``jacfwd``.
+
+Every component is taken as a width-1 slice, never a 0-d index: under
+``torch.func.jacfwd`` a Python float times a 0-d element is promoted to
+float64, which breaks float32 solves. Each function keeps the order of
+operations of its CUDA counterpart in ``csrc/models.cuh``.
 """
 from __future__ import annotations
 
 import torch
 
 from trajopt_tpu_torch.models.base import Model
+
+# ---------------------------------------------------------------- pendulum
+# reference dynamics/pendulum.jl:3-14
+
+
+def pendulum_dynamics(x, u):
+    m, b, lc, I_, g = 1.0, 0.1, 0.5, 0.25, 9.81
+    th, w = x[..., 0:1], x[..., 1:2]
+    return torch.cat(
+        [w, (u[..., 0:1] - m * g * lc * torch.sin(th) - b * w) / I_], dim=-1)
+
+
+pendulum = Model(pendulum_dynamics, 2, 1, name="pendulum")
+
+# ------------------------------------------------------- double integrator
+# reference dynamics/double_integrator.jl:1-9
+
+
+def double_integrator_dynamics(x, u):
+    return torch.cat([x[..., 1:2], u[..., 0:1]], dim=-1)
+
+
+doubleintegrator = Model(double_integrator_dynamics, 2, 1,
+                         name="doubleintegrator")
+
+# --------------------------------------------------------------------- car
+# reference dynamics/car.jl:3-11 (Dubins/unicycle kinematics)
+
+
+def car_dynamics(x, u):
+    th, v = x[..., 2:3], u[..., 0:1]
+    return torch.cat([v * torch.cos(th), v * torch.sin(th), u[..., 1:2]],
+                     dim=-1)
+
+
+car = Model(car_dynamics, 3, 2, name="car")
+
+# ---------------------------------------------------------------- cartpole
+# reference dynamics/cartpole.jl:9-40 (manipulator equations). The 2x2
+# mass-matrix solve is written as an explicit inverse, as the JAX package's
+# lane step does (ops/pallas_rollout.py::cartpole_dynamics_lanes).
+
+
+def cartpole_dynamics(x, u):
+    mc, mp, l, g = 1.0, 0.2, 0.5, 9.81
+    th, v, w = x[..., 1:2], x[..., 2:3], x[..., 3:4]
+    s, c = torch.sin(th), torch.cos(th)
+    # H = [[mc+mp, mp l c], [mp l c, mp l^2]]
+    h11 = mc + mp
+    h12 = mp * l * c
+    h22 = mp * l * l
+    det = h11 * h22 - h12 * h12
+    # rhs = B u - C qd - G  with C qd = [-mp w l s * w, 0], G = [0, mp g l s]
+    r1 = u[..., 0:1] + mp * w * l * s * w
+    r2 = -mp * g * l * s
+    vd = (h22 * r1 - h12 * r2) / det
+    wd = (h11 * r2 - h12 * r1) / det
+    return torch.cat([v, w, vd, wd], dim=-1)
+
+
+cartpole = Model(cartpole_dynamics, 4, 1, name="cartpole")
 
 # -------------------------------------------------- quadrotor (quaternion)
 # reference dynamics/quadrotor.jl:1-73 + dynamics/quaternions.jl.
@@ -43,9 +110,6 @@ def quat_rotate(q, r):
 
 
 def quadrotor_dynamics(x, u, params=None):
-    # Every component is taken as a width-1 slice, never a 0-d index:
-    # under torch.func.jacfwd a Python float times a 0-d element is
-    # promoted to float64, which breaks float32 solves.
     p = QUAD_PARAMS if params is None else params
     q = x[..., 3:7]
     q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)

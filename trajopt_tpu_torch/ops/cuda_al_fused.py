@@ -124,11 +124,6 @@ def _check_common(fn, model, canon, X, U, lam, mu, dt_traj, obj):
     return Bz, N, P
 
 
-def _stream(dev):
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
-
-
 def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
                            obj: Objective, rho, atol=0.0, reg_state=False,
                            return_jacobians=False):
@@ -160,7 +155,7 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
         fail.data_ptr(), Aout.data_ptr() if return_jacobians else None,
         Bout.data_ptr() if return_jacobians else None,
         Bz, N, P, canon.groups.shape[0], int(bool(reg_state)), float(atol),
-        _stream(X.device))
+        _build.stream(X.device))
     _build.check(err, "trajopt_fused_al_backward_f32")
     fused_al_backward_cuda.launches += 1
     out = (K, d, dV[0], dV[1], fail)
@@ -221,7 +216,7 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
         Uout.data_ptr(), scal.data_ptr(), Bz, N, P, int(ls_iters),
         float(ls_lb), float(ls_ub),
         float(reg_min), float(reg_factor), float(reg_fp), float(atol),
-        _stream(dev))
+        _build.stream(dev))
     _build.check(err, "trajopt_fused_al_forward_f32")
     fused_al_forward_cuda.launches += 1
     return Xout, Uout, scal[0], scal[1], scal[2], scal[3]

@@ -2,8 +2,9 @@
 
 Counterpart of the loop inside ``trajopt_tpu/solvers/ilqr.py::forward_pass``
 (reference forwardpass!, forward_pass.jl:5-85), written once for
-``solvers/ilqr.py::forward_pass`` and for the plain version of the fused AL
-forward kernel (``ops/cuda_al_fused.py::fused_al_forward``). The JAX
+``solvers/ilqr.py::forward_pass`` and for the plain versions of the fused
+forward kernels (``ops/cuda_fused.py::fused_forward``,
+``ops/cuda_al_fused.py::fused_al_forward``). The JAX
 ``while_loop`` becomes a Python loop with a per-problem mask; every loop
 test reads one boolean from the device, and ``HostSyncs`` counts those
 reads.

@@ -3,9 +3,10 @@
 Counterpart of ``trajopt_tpu/solvers/ilqr.py::_backward_pass_impl``'s
 ``_scan_sweep`` (reference _backwardpass!, backward_pass.jl:9-85), which is
 also what the plain Riccati TPU kernel ``ops/pallas_riccati.py`` computes.
-It sets the semantics of the Riccati step inside the fused AL backward
-kernel (``csrc/fused_al_backward.cu``) and of the plain Riccati kernel still
-to port (ROADMAP Queue 2, K5), and runs on the CPU.
+It is the plain version of the Riccati kernel K5 (``csrc/riccati_sweep.cu``,
+wrapper ``ops/cuda_riccati.py``), sets the semantics of the Riccati step
+inside the fused backward kernels (``csrc/fused_backward.cu``,
+``csrc/fused_al_backward.cu``), and runs on the CPU.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
-"""Queued batch solving.
+"""Batch and queued batch solving.
 
-Counterpart of ``trajopt_tpu/parallel/batch.py``'s ``solve_batch_queued``,
-``solve_batch_queued_altro`` and ``solve_batch_queued_altro_retry``: a pool
+Counterpart of ``trajopt_tpu/parallel/batch.py``'s ``solve_batch`` (the
+whole AL solve for a batch of starts in one call) and of
+``solve_batch_queued``, ``solve_batch_queued_altro`` and
+``solve_batch_queued_altro_retry``: a pool
 of problems streams through a fixed number of lanes, one AL outer iteration
 per round, and a lane whose problem finishes takes the next problem from the
 front of the pool. The JAX package runs this as one compiled
@@ -18,8 +20,25 @@ import numpy as np
 import torch
 
 from trajopt_tpu_torch.problem import Problem
-from trajopt_tpu_torch.solvers.al import ALLaneState, ALOptions, al_lane_stepper
+from trajopt_tpu_torch.solvers.al import (
+    ALLaneState, ALOptions, ALResult, al_lane_stepper, al_solve_batch,
+)
 from trajopt_tpu_torch.solvers.ilqr import HostSyncs
+
+
+def solve_batch(prob: Problem, opts: ALOptions, x0s, U0s=None,
+                syncs: HostSyncs | None = None) -> ALResult:
+    """Solve the same problem from a batch of initial states x0s (B, n),
+    optionally with a batch of control seeds U0s (B, N-1, m): every problem
+    runs its whole AL solve in the one call, until the slowest is done.
+    Returns an ALResult with a leading problem dimension on every field.
+    ``syncs`` counts the device-to-host reads of the loop tests."""
+    Bz = x0s.shape[0]
+    if U0s is None:
+        U0s = prob.U.expand((Bz,) + prob.U.shape)
+    X0s = prob.X.expand((Bz,) + prob.X.shape).clone()
+    X0s[:, 0] = x0s
+    return al_solve_batch(prob, opts, x0s, X0s, U0s, syncs=syncs)
 
 
 class QueuedBatchResult(NamedTuple):

@@ -1,9 +1,11 @@
 """Problem zoo.
 
-Counterpart of ``trajopt_tpu/problems/zoo.py``: the unconstrained
-``quadrotor_line`` and ``quadrotor_maze`` are ported (ROADMAP Queue 1: the
-rest of the zoo comes after). Every factory builds on ``device``; None is
-the current CUDA device, and the CPU is asked for with ``device="cpu"``.
+Counterpart of ``trajopt_tpu/problems/zoo.py``: ``doubleintegrator``,
+``pendulum``, ``cartpole``, ``parallel_park``, ``car_3obs``, the
+unconstrained ``quadrotor_line`` and ``quadrotor_maze`` are ported (ROADMAP
+Queue 1: the rest of the zoo comes after). Every factory builds on
+``device``; None is the current CUDA device, and the CPU is asked for with
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -13,12 +15,99 @@ import torch
 from trajopt_tpu_torch.models import zoo as dynamics
 from trajopt_tpu_torch.models.base import discretize
 from trajopt_tpu_torch.ops.constraints import (
-    ConstraintSetBuilder, bound_constraint, obstacle_field_constraint,
+    ConstraintSetBuilder, bound_constraint, goal_constraint,
+    obstacle_field_constraint,
 )
 from trajopt_tpu_torch.ops.cost import LQRObjective
 from trajopt_tpu_torch.problem import initial_states, problem
 from trajopt_tpu_torch.utils.device import resolve_device
 from trajopt_tpu_torch.utils.interp import interp_rows
+
+
+def _bounded_goal_problem(model, Q, R, Qf, xf, N, u_bnd, U0, dtype, device,
+                          **time):
+    """LQR objective, a control box and a goal constraint: the shape of
+    the doubleintegrator, pendulum and cartpole problems."""
+    device = resolve_device(device)
+    model_d = discretize(model, "rk3")
+    n, m = model.n, model.m
+    obj = LQRObjective(np.eye(n) * Q, np.eye(m) * R, np.eye(n) * Qf, xf, N,
+                       dtype=dtype, device=device)
+    cons = ConstraintSetBuilder(N)
+    cons.add(bound_constraint(n, m, u_min=-u_bnd, u_max=u_bnd))
+    cons.add(goal_constraint(xf))
+    return problem(model_d, obj, constraints=cons, x0=np.zeros(n), xf=xf,
+                   N=N, U0=U0, dtype=dtype, device=device, **time)
+
+
+def doubleintegrator(dtype=torch.float64, device=None):
+    """(reference problems/doubleintegrator.jl): N=21, dt=0.1, u∈[−1.5,1.5]."""
+    N = 21
+    U0 = 0.001 * np.random.default_rng(0).random((N - 1, 1))
+    return _bounded_goal_problem(
+        dynamics.doubleintegrator, 1.0, 1e-1, 1.0, np.array([1.0, 0.0]), N,
+        1.5, U0, dtype, device, dt=0.1)
+
+
+def pendulum(dtype=torch.float64, device=None):
+    """(reference problems/pendulum.jl): N=31, dt=0.15, swing-up, u∈[−3,3]."""
+    N = 31
+    return _bounded_goal_problem(
+        dynamics.pendulum, 1e-3, 1e-3, 1e-3, np.array([np.pi, 0.0]), N, 3.0,
+        np.ones((N - 1, 1)), dtype, device, dt=0.15)
+
+
+def cartpole(dtype=torch.float64, device=None):
+    """(reference problems/cartpole.jl): N=101, tf=5, swing-up, u∈[−3,3]."""
+    N = 101
+    return _bounded_goal_problem(
+        dynamics.cartpole, 1e-2, 1e-1, 100.0,
+        np.array([0.0, np.pi, 0.0, 0.0]), N, 3.0, np.full((N - 1, 1), 0.01),
+        dtype, device, tf=5.0)
+
+
+def parallel_park(dtype=torch.float64, device=None):
+    """(reference problems/parallel_park.jl): car, N=51, state box + goal."""
+    device = resolve_device(device)
+    model_d = discretize(dynamics.car, "rk3")
+    n, m, N = 3, 2, 51
+    xf = np.array([0.0, 1.0, 0.0])
+    obj = LQRObjective(np.eye(n) * 1e-2, np.eye(m) * 1e-2, np.eye(n) * 100.0,
+                       xf, N, dtype=dtype, device=device)
+    u_bnd = 2.0
+    bnd1 = bound_constraint(n, m, u_min=-u_bnd, u_max=u_bnd, label="bnd1")
+    bnd2 = bound_constraint(n, m, x_min=[-0.25, -0.001, -np.inf],
+                            x_max=[0.25, 1.001, np.inf],
+                            u_min=-u_bnd, u_max=u_bnd, label="bnd2")
+    cons = ConstraintSetBuilder(N)
+    cons.add(bnd1, knots=[0])
+    cons.add(bnd2, knots=range(1, N - 1))
+    cons.add(goal_constraint(xf))
+    return problem(model_d, obj, constraints=cons, x0=np.zeros(n), xf=xf,
+                   N=N, dt=0.06, U0=np.ones((N - 1, m)), dtype=dtype,
+                   device=device)
+
+
+# (reference problems/car_3obs.jl:12-20)
+CAR_3OBS_CIRCLES = [(0.25, 0.25, 0.1), (0.5, 0.5, 0.1), (0.75, 0.75, 0.1)]
+
+
+def car_3obs(dtype=torch.float64, device=None):
+    """(reference problems/car_3obs.jl): 3 circular obstacles on the
+    diagonal."""
+    device = resolve_device(device)
+    model_d = discretize(dynamics.car, "rk3")
+    n, m, N = 3, 2, 101
+    xf = np.array([1.0, 1.0, 0.0])
+    obj = LQRObjective(np.eye(n), np.eye(m) * 1e-1, np.eye(n) * 100.0, xf, N,
+                       dtype=dtype, device=device)
+    cons = ConstraintSetBuilder(N)
+    cons.add(obstacle_field_constraint(CAR_3OBS_CIRCLES, label="obs"),
+             knots=range(1, N - 1))
+    cons.add(goal_constraint(xf))
+    return problem(model_d, obj, constraints=cons, x0=np.zeros(n), xf=xf,
+                   N=N, dt=0.05, U0=np.full((N - 1, m), 0.01), dtype=dtype,
+                   device=device)
 
 
 def quadrotor_line(N=101, dtype=torch.float64, device=None,

@@ -1,11 +1,18 @@
-"""Augmented Lagrangian outer loop: the per-lane stepper of the queued
-pool solver (``parallel/batch.py::solve_batch_queued``).
+"""Augmented Lagrangian outer loop: ``al_solve`` and the per-lane stepper
+of the queued pool solver (``parallel/batch.py::solve_batch_queued``).
 
-Counterpart of ``trajopt_tpu/solvers/al.py``: ``ALOptions``,
-``ALLaneState``, ``al_cost_fns``, ``dual_update``, ``penalty_update`` and
-``al_lane_stepper``, batched over a leading lane dimension. ``al_solve``
-(the single-problem outer loop with its history) is not ported yet
-(ROADMAP Queue 1).
+Counterpart of ``trajopt_tpu/solvers/al.py``: ``ALOptions``, ``ALResult``,
+``ALLaneState``, ``al_cost_fns``, ``dual_update``, ``penalty_update``,
+``al_lane_stepper`` and ``al_solve``, batched over a leading problem
+dimension.
+
+Which kernels a solve on a CUDA tensor runs on follows from what it is, not
+from a fallback. An unconstrained ``al_solve`` with ``fused=True`` runs on
+K7a and K7b. A constrained solve with a canonical stack on the
+slack-augmented quadrotor runs on K3 and K4 (``fused_al``, the default).
+Every other solve is phase-split: the Jacobians, the cost expansion and the
+AL terms of ``al_cost_fns`` as torch ops, the backward pass on K5 (or K1
+with ``bp_type='sqrt'``), the line search's rollouts on K2.
 """
 from __future__ import annotations
 
@@ -16,11 +23,12 @@ import torch
 
 from trajopt_tpu_torch.ops.constraints import ConstraintSet
 from trajopt_tpu_torch.ops.cost import Expansion
+from trajopt_tpu_torch.ops.line_search import where_rows
 from trajopt_tpu_torch.problem import Problem
 from trajopt_tpu_torch.solvers.ilqr import (
-    ALFusedMeta, HostSyncs, _fused_al_eligible, iLQROptions, ilqr_solve,
-    reg_noise_scale,
+    ALFusedMeta, HostSyncs, iLQROptions, ilqr_solve, reg_noise_scale,
 )
+from trajopt_tpu_torch.utils.tree import precise
 
 
 def _al_fused_canon(prob: Problem, opts: "ALOptions"):
@@ -61,6 +69,46 @@ class ALOptions:
     active_constraint_tolerance: float = 0.0
     kickout_max_penalty: bool = False
     verbose: bool = False
+
+
+class ALResult(NamedTuple):
+    """Result of :func:`al_solve`. ``history`` holds the per-outer-iteration
+    stats (reference stats dicts, augmented_lagrangian_methods.jl:79-97):
+    ``cost``, ``c_max``, ``penalty_max``, ``gradient`` and
+    ``iterations_inner`` with a trailing axis of ``opts.iterations`` entries
+    (zero past the last outer iteration run), and ``iterations``, the outer
+    iterations run."""
+
+    X: torch.Tensor
+    U: torch.Tensor
+    lam: torch.Tensor
+    mu: torch.Tensor
+    C: torch.Tensor
+    c_max: torch.Tensor
+    J: torch.Tensor
+    iterations: torch.Tensor
+    iterations_total: torch.Tensor
+    gradient: torch.Tensor
+    history: dict
+
+
+def _empty_history(batch: int, iterations: int, dtype, device):
+    z = torch.zeros((batch, iterations), dtype=dtype, device=device)
+    return {"cost": z, "c_max": z.clone(), "penalty_max": z.clone(),
+            "gradient": z.clone(),
+            "iterations_inner": torch.zeros((batch, iterations),
+                                            dtype=torch.int32, device=device)}
+
+
+def _record_history(hist, at, it, J, c_max, penalty_max, inner, grad):
+    """Write one outer iteration's stats into column ``it`` (B,) of the
+    problems ``at`` (B,) bool."""
+    col = torch.nn.functional.one_hot(
+        it.long(), hist["cost"].shape[1]).bool() & at[:, None]
+    new = dict(cost=J, c_max=c_max, penalty_max=penalty_max, gradient=grad,
+               iterations_inner=inner)
+    return {k: torch.where(col, new[k][:, None].to(hist[k].dtype), hist[k])
+            for k in hist}
 
 
 def al_cost_fns(obj, cs: ConstraintSet, dt_traj, lam, mu, tol=0.0):
@@ -153,17 +201,6 @@ def al_lane_stepper(prob: Problem, opts: ALOptions, constraint_tolerance=None,
     canon = None if unconstrained else _al_fused_canon(prob, opts)
     meta0 = ALFusedMeta(objective=prob.obj, cs=cs, canon=canon, lam=None,
                         mu=None, atol=atol)
-    if (not unconstrained and dev.type == "cuda" and not _fused_al_eligible(
-            prob.model, opts.opts_uncon, meta0, like=prob.U)):
-        # no plain version stands in for a kernel on the card
-        raise NotImplementedError(
-            "a constrained solve on a CUDA tensor runs only as the fused AL "
-            "iteration (float32, the slack-augmented quadrotor, a canonical "
-            "constraint stack, bp_type='scan', error_state=False, "
-            "fused_al=True): the phase-split constrained paths wait for the "
-            "plain Riccati kernel (ROADMAP Queue 2, K5), the full-state "
-            "ns = 13 rollout (K7b) and the other models' steps (K6), and "
-            "the constrained error-state path has not been run on the card")
 
     def init(x0s, U0s):
         L = x0s.shape[0]
@@ -233,3 +270,82 @@ def al_lane_stepper(prob: Problem, opts: ALOptions, constraint_tolerance=None,
             gradient=res.gradient, converged=converged)
 
     return init, step
+
+
+@precise
+def al_solve_batch(prob: Problem, opts: ALOptions, x0s, X0s, U0s,
+                   constraint_tolerance=None, mu_init=None,
+                   penalty_scaling=None,
+                   syncs: HostSyncs | None = None) -> ALResult:
+    """:func:`al_solve` for a batch of problems that share ``prob`` and
+    differ in the start x0s (B, n) and the seeds X0s (B, N, n),
+    U0s (B, N-1, m): what ``vmap(al_solve)`` is in the JAX package. Each
+    problem runs its own outer loop; one that has converged, or has used up
+    its iterations, is frozen while the others go on. Every field of the
+    result, the history included, has a leading problem dimension."""
+    cs = prob.constraints
+    syncs = HostSyncs() if syncs is None else syncs
+    dtype, dev = prob.U.dtype, prob.device
+    Bz = x0s.shape[0]
+    x0s, X0s, U0s = x0s.contiguous(), X0s.contiguous(), U0s.contiguous()
+
+    if not cs.is_constrained:
+        # unconstrained: plain iLQR (reference
+        # augmented_lagrangian_methods.jl:33-36); the objective rides along,
+        # which is what makes the solve eligible for the fused iteration
+        dt_traj = prob.dt_traj()
+        res = ilqr_solve(
+            prob.model, lambda X, U: prob.obj.total(X, U, dt_traj),
+            lambda X, U: prob.obj.expansion(X, U, dt_traj), x0s, X0s, U0s,
+            prob.dt, opts.opts_uncon, cost_tol=opts.cost_tolerance,
+            grad_tol=opts.gradient_norm_tolerance, objective=prob.obj,
+            syncs=syncs)
+        zp = torch.zeros((Bz, prob.N, 0), dtype=dtype, device=dev)
+        zero = torch.zeros(Bz, dtype=dtype, device=dev)
+        one = torch.ones(Bz, dtype=torch.int32, device=dev)
+        hist = {"cost": res.J[:, None], "c_max": zero[:, None],
+                "penalty_max": zero[:, None],
+                "gradient": res.gradient[:, None],
+                "iterations_inner": res.iterations[:, None],
+                "iterations": one}
+        return ALResult(X=res.X, U=res.U, lam=zp, mu=zp, C=zp, c_max=zero,
+                        J=res.J, iterations=one,
+                        iterations_total=res.iterations,
+                        gradient=res.gradient, history=hist)
+
+    init, step = al_lane_stepper(prob, opts, constraint_tolerance, mu_init,
+                                 penalty_scaling, syncs=syncs)
+    st = init(x0s, U0s)._replace(X=X0s)
+    hist = _empty_history(Bz, opts.iterations, dtype, dev)
+    go = ~st.converged & (st.it < opts.iterations)
+    while syncs.any(go):
+        new = step(st, go)
+        hist = _record_history(
+            hist, go, st.it, new.J, new.c_max, new.mu.flatten(1).amax(-1),
+            new.it_total - st.it_total, new.gradient)
+        st = ALLaneState(*(where_rows(go, a, b) for a, b in zip(new, st)))
+        go = ~st.converged & (st.it < opts.iterations)
+    hist["iterations"] = st.it
+    return ALResult(X=st.X, U=st.U, lam=st.lam, mu=st.mu,
+                    C=cs.evaluate(st.X, st.U), c_max=st.c_max, J=st.J,
+                    iterations=st.it, iterations_total=st.it_total,
+                    gradient=st.gradient, history=hist)
+
+
+def al_solve(prob: Problem, opts: ALOptions = ALOptions(),
+             constraint_tolerance=None, mu_init=None,
+             penalty_scaling=None) -> ALResult:
+    """AL solve of one problem (reference solve!,
+    augmented_lagrangian_methods.jl:2-31): a batch of one through
+    :func:`al_solve_batch`, the leading dimension taken off the result.
+
+    ``mu_init`` / ``penalty_scaling`` may be (P,) row vectors, so that the
+    infeasible and minimum-time rows of ALTRO get their own penalty schedule
+    (reference altro_solver.jl:26-53 options).
+    """
+    res = al_solve_batch(prob, opts, prob.x0[None], prob.X[None],
+                         prob.U[None], constraint_tolerance, mu_init,
+                         penalty_scaling)
+    return res._replace(
+        **{k: getattr(res, k)[0] for k in res._fields if k != "history"},
+        history={k: v[0] for k, v in res.history.items()})

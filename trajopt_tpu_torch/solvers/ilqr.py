@@ -9,23 +9,25 @@ which is what ``vmap`` of a ``while_loop`` does: the main iteration loop,
 the line search and the ρ-retry of the backward pass.
 
 Each loop test reads one boolean from the device; ``HostSyncs`` counts
-those reads. Three iteration paths are ported:
+those reads. Four iteration paths are ported:
 
-- the error-state square-root path of the quadrotor benchmark
-  (``bp_type='sqrt'``): the backward pass on kernel K1
-  (``ops/cuda_sqrt.py``), every line-search candidate on kernel K2
-  (``ops/cuda_rollout.py``);
+- the phase-split path, the default: Jacobians and the cost expansion as
+  torch ops, the backward pass on kernel K5 (``bp_type='scan'``,
+  ``ops/cuda_riccati.py``) or K1 (``bp_type='sqrt'``, ``ops/cuda_sqrt.py``),
+  every line-search candidate on kernel K2 (``ops/cuda_rollout.py``), on
+  the full state or, with ``error_state``, the quadrotor's error state;
+- the fused path (``fused=True``, ``objective`` given and
+  ``_fused_eligible``): the backward pass is kernel K7a and the whole line
+  search kernel K7b (``ops/cuda_fused.py``), two launches per iteration;
 - the fused AL path of the maze benchmark (``al_meta`` given and
-  ``_fused_al_eligible``): the backward pass is kernel K3 and the whole
-  line search kernel K4 (``ops/cuda_al_fused.py``), two launches per
-  iteration;
-- the scan backward pass (``bp_type='scan'``, ``ops/riccati.py``) with the
-  full-state rollout, on the CPU only: its kernels are still to port
-  (ROADMAP Queue 2, K5 and K7), and a CUDA tensor raises.
+  ``_fused_al_eligible``): kernels K3 and K4 (``ops/cuda_al_fused.py``).
 
-A tensor on the CPU runs the kernels' plain versions instead. The
-parallel backward pass, the proximal step limit, time sharding and the live
-printing/plotting options raise ``NotImplementedError`` (ROADMAP Queue 1).
+A tensor on the CPU runs the kernels' plain versions instead; on a CUDA
+tensor no plain version stands in for a kernel: a model without a CUDA step
+(``ops/cuda_models.py``), float64, or a per-interval ``dt`` on the
+phase-split path raises. The parallel backward pass, the proximal step
+limit, time sharding and the live printing/plotting options raise
+``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -39,12 +41,16 @@ from trajopt_tpu_torch.ops.cost import Expansion, Objective
 from trajopt_tpu_torch.ops.cuda_al_fused import (
     cuda_model_supported, fused_al_backward_cuda, fused_al_forward_cuda,
 )
+from trajopt_tpu_torch.ops.cuda_fused import (
+    fused_backward_cuda, fused_forward_cuda,
+)
+from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS, cuda_model
+from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
 from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
 from trajopt_tpu_torch.ops.cuda_sqrt import (  # noqa: F401  (re-export)
     SQRT_PIVOT_FLOOR_F32, SQRT_PIVOT_NEG_TOL, sqrt_sweep, sqrt_sweep_cuda,
 )
 from trajopt_tpu_torch.ops.line_search import HostSyncs  # noqa: F401
-from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout
 from trajopt_tpu_torch.utils.tree import precise
 
@@ -102,22 +108,19 @@ def _check_supported(opts: iLQROptions):
             raise NotImplementedError(f"iLQROptions.{name} is not ported yet")
 
 
-def _check_card_path(opts: iLQROptions, X0):
-    """A CUDA tensor outside the fused AL path needs kernels K1 and K2:
-    raise where the path would need a kernel that is still to port, and run
-    no plain version on the card in its place."""
+def _check_card_path(model, X0, dt):
+    """On a CUDA tensor the phase-split path runs on kernels K5 or K1 and
+    K2: raise before the first iteration for what they do not take (a model
+    without a CUDA step, a per-interval ``dt`` tensor), so that no plain
+    version runs on the card in a kernel's place."""
     if X0.device.type != "cuda":
         return
-    if not (opts.square_root or opts.bp_type == "sqrt"):
+    cuda_model(model, "ilqr_solve", slack_ok=True)
+    if torch.is_tensor(dt):
         raise NotImplementedError(
-            "bp_type='scan' on a CUDA tensor needs the plain Riccati kernel "
-            "(ROADMAP Queue 2, K5) or the fused kernels (K7a; K3 with "
-            "constraints): only bp_type='sqrt' with error_state=True and the "
-            "fused AL path run on the card")
-    if not opts.error_state:
-        raise NotImplementedError(
-            "error_state=False on a CUDA tensor needs the full-state "
-            "(ns = 13) closed-loop rollout kernel (ROADMAP Queue 1/2, K7b)")
+            "a per-interval dt tensor on a CUDA tensor: the rollout kernel "
+            "K2 takes one uniform dt (ROADMAP Queue 1, the minimum-time "
+            "transform); the fused path (fused=True) takes dt per knot")
 
 
 class ILQRResult(NamedTuple):
@@ -192,24 +195,24 @@ def _rho_retry(sweep, rho, drho, opts: iLQROptions, reg_scale=None,
 def backward_pass(A, B, exp: Expansion, rho, drho, opts: iLQROptions,
                   reg_scale=None, active=None, syncs: HostSyncs | None = None):
     """Batched Riccati sweep with the ρ retry (:func:`_rho_retry`): the QR
-    square-root sweep on kernel K1 for ``bp_type='sqrt'``, the scan sweep
-    (``ops/riccati.py``, CPU tensors only) for ``bp_type='scan'``.
+    square-root sweep on kernel K1 for ``bp_type='sqrt'``, the standard
+    sweep on kernel K5 for ``bp_type='scan'`` (``reg_state`` from
+    ``bp_reg_type``).
 
     A (B, N-1, n, n), B (B, N-1, n, m), exp batched, rho/drho (B,).
     Returns (K, d, dV1, dV2, rho, drho).
     """
+    args = [t.contiguous() for t in (A, B, exp.x, exp.u, exp.xx, exp.uu,
+                                     exp.ux)]
     if opts.square_root or opts.bp_type == "sqrt":
-        args = [t.contiguous() for t in (A, B, exp.x, exp.u, exp.xx, exp.uu,
-                                         exp.ux)]
-
         def sweep(rho_v):
             return sqrt_sweep_cuda(*args, rho_v.contiguous())
     else:
-        _check_card_path(opts, A)
         reg_state = opts.bp_reg_type == "state"
 
         def sweep(rho_v):
-            return scan_sweep(A, B, exp, rho_v, reg_state=reg_state)
+            return riccati_sweep_cuda(*args, rho_v.contiguous(),
+                                      reg_state=reg_state)
 
     return _rho_retry(sweep, rho, drho, opts, reg_scale, active, syncs)
 
@@ -229,7 +232,6 @@ def forward_pass(model, cost_fn, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
     leaves the search when its own condition is met. Returns
     (X̄, Ū, J, rho, drho, alpha_used).
     """
-    _check_card_path(opts, X)
     qs = getattr(model, "quat_slice", None) if opts.error_state else None
 
     def rollout_fn(alpha):
@@ -306,10 +308,29 @@ def _fused_al_eligible(model, opts: iLQROptions, meta, like=None):
     return ok
 
 
+def _fused_eligible(model, opts: iLQROptions, objective, like=None):
+    """Whether an unconstrained solve runs as the fused iteration (kernels
+    K7a and K7b). The rules the JAX package shares (``fused``, a plain
+    quadratic objective, a model whose step the kernels carry, the scan
+    backward pass on the full state, the default limits), and for a CUDA
+    tensor ``like`` the Hopper kernels' own: float32. Nothing of the TPU
+    dispatch (batch % 128, VMEM budgets, chunking) applies."""
+    ok = (opts.fused and isinstance(objective, Objective)
+          and getattr(model, "cuda_step", None) in CUDA_STEPS
+          and getattr(model, "slack_m", None) is None
+          and opts.bp_type == "scan" and not opts.square_root
+          and not opts.error_state
+          and opts.max_state_value == 1e8 and opts.max_control_value == 1e8)
+    if ok and like is not None and like.device.type == "cuda":
+        ok = like.dtype == torch.float32
+    return ok
+
+
 @precise
 def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
                opts: iLQROptions = iLQROptions(), cost_tol=None,
                grad_tol=None, rho0=None, do_rollout: bool = True,
+               objective: Optional[Objective] = None,
                al_meta: Optional[ALFusedMeta] = None, reg_scale=None,
                active=None, syncs: HostSyncs | None = None) -> ILQRResult:
     """Solve a batch of unconstrained (or AL-decorated) problems with iLQR
@@ -319,6 +340,11 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
     define the objective for a batch X (B, N, n), U (B, N-1, m); x0 (B, n).
     ``dt`` is the uniform step as a Python float (the rollout kernel K2
     takes it as an argument) or a per-interval tensor.
+    ``objective``: the plain quadratic ``Objective`` whose total and
+    expansion (with this ``dt``) equal ``cost_fn`` and ``expansion_fn``.
+    With it, an eligible solve (:func:`_fused_eligible`) runs every
+    iteration as the fused backward and forward programs; its ρ retry
+    escalates without the rounding-noise jump of ``reg_scale``.
     ``al_meta``: with it, an eligible solve (:func:`_fused_al_eligible`)
     runs every iteration as the fused AL backward and forward programs.
     ``active`` (B,) bool: problems outside it are left as they are (the
@@ -326,7 +352,10 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
     reference rules, including the ``dJ_zero`` counter.
     """
     _check_supported(opts)
+    use_fused = _fused_eligible(model, opts, objective, like=X0)
     use_fused_al = _fused_al_eligible(model, opts, al_meta, like=X0)
+    if not (use_fused or use_fused_al):
+        _check_card_path(model, X0, dt)
     syncs = HostSyncs() if syncs is None else syncs
     dtype, dev = X0.dtype, X0.device
     Bz, Nm1, m = U0.shape
@@ -365,7 +394,7 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
     if qs is not None:
         from trajopt_tpu_torch.models.quaternions import project_error_state
 
-    X, U = X0, U0
+    X, U = X0.contiguous(), U0.contiguous()     # the kernels' layout
     K = torch.zeros((Bz, Nm1, m, ns), dtype=dtype, device=dev)
     d = torch.zeros((Bz, Nm1, m), dtype=dtype, device=dev)
     J_prev = J0
@@ -380,18 +409,26 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
         return (~converged & (it < opts.iterations)
                 & (J_prev < opts.max_cost_value) & active)
 
+    reg_state = opts.bp_reg_type == "state"
     if use_fused_al:
         canon, atol = al_meta.canon, al_meta.atol
         lam_al, mu_al = al_meta.lam.contiguous(), al_meta.mu.contiguous()
         obj_al = al_meta.objective
-        reg_state = opts.bp_reg_type == "state"
         # the same scale-aware retry jump as the closure path gets from
         # solvers/al.py
         al_scale = reg_noise_scale(mu_al, dtype)
 
     go = running()
     while syncs.any(go):
-        if use_fused_al:
+        if use_fused:
+            def sweep(rho_v):
+                return fused_backward_cuda(
+                    model, X, U, dt_traj, objective, rho_v.contiguous(),
+                    reg_state=reg_state)
+
+            K_n, d_n, dV1, dV2, rho_n, drho_n = _rho_retry(
+                sweep, rho, drho, opts, active=go, syncs=syncs)
+        elif use_fused_al:
             def sweep(rho_v):
                 return fused_al_backward_cuda(
                     model, canon, X, U, lam_al, mu_al, dt_traj, obj_al,
@@ -414,7 +451,12 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
             alpha0 = torch.where(a_prev > 0.0,
                                  (2.0 * a_prev).clamp(2.0 ** -10, 1.0),
                                  torch.ones_like(a_prev))
-        if use_fused_al:
+        if use_fused:
+            Xn, Un, J, rho_n, drho_n, alpha = fused_forward_cuda(
+                model, x0, X, U, K_n, d_n, dV1, dV2, J_prev, rho_n, drho_n,
+                alpha0, dt_traj, objective, _line_search_opts(opts),
+                active=go, syncs=syncs)
+        elif use_fused_al:
             Xn, Un, J, rho_n, drho_n, alpha = fused_al_forward_cuda(
                 model, canon, x0, X, U, K_n, d_n, dV1, dV2, J_prev, rho_n,
                 drho_n, alpha0, lam_al, mu_al, dt_traj, obj_al,
