@@ -7,7 +7,7 @@ On a machine with an NVIDIA GPU and nvcc:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Small shapes (B=16, N=21 for K1, K2, K5, K7a and K7b; B=16 on the N=101 maze
-stack for K3 and K4) in float32, at the f32 tolerances of tests/test_pallas.py
+stack and on each other model's own stack for K3 and K4) in float32, at the f32 tolerances of tests/test_pallas.py
 and of chip_smoke.py, which repeats the comparisons at the main paths'
 shapes.
 """
@@ -346,9 +346,191 @@ def test_fused_al_wrappers_refuse_what_the_kernels_do_not_take(maze):
             p.model, maze["canon"], f64(maze["X"]), f64(maze["U"]),
             f64(maze["lam"]), f64(maze["mu"]), p.dt_traj(), p.obj,
             torch.ones(B, dtype=torch.float64, device=maze["X"].device))
+    # the plain quadrotor has its own instantiation, but this stack is
+    # compiled for the slack-augmented widths
     base = quadrotor_maze(dtype=torch.float32, device=maze["X"].device)
-    with pytest.raises(NotImplementedError):   # no slack step: not the model
+    with pytest.raises(ValueError, match="canonical stack"):
         _backward(dict(maze, prob=base), fused_al_backward_cuda)
+    other = discretize(Model(zoo.quadrotor_dynamics, 13, 17, name="custom"),
+                       "rk3")
+    with pytest.raises(NotImplementedError, match="K6"):
+        fused_al_backward_cuda(
+            other, maze["canon"], maze["X"], maze["U"], maze["lam"],
+            maze["mu"], p.dt_traj(), p.obj,
+            torch.ones(B, device=maze["X"].device))
+
+
+# ------------------------------- K3 and K4 for the other instantiations
+
+def _line_seeded(prob):
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.utils.interp import interp_rows
+
+    ends = np.stack([prob.x0.cpu().numpy(), prob.xf.cpu().numpy()], axis=1)
+    return tt.initial_states(prob, interp_rows(prob.N, prob.tf, ends))
+
+
+def _al_setup(name, slack, device):
+    """Inputs of K3 and K4 for one (model, slack) pair at B = 16 on the
+    problem's own stack: ``car_escape`` (P = 177, 180 with slacks),
+    ``cartpole``, ``pendulum`` (with slacks from a line seed) or the maze
+    without the transform; float64 and float32 copies."""
+    factory = dict(car=problems.car_escape, cartpole=problems.cartpole,
+                   pendulum=problems.pendulum, quadrotor=quadrotor_maze)[name]
+    out = {}
+    rng = np.random.default_rng(9)
+    for dtype in (torch.float64, torch.float32):
+        prob = factory(dtype=dtype, device=device)
+        if slack:
+            if not bool(torch.isfinite(prob.X).all()):
+                prob = _line_seeded(prob)
+            prob = infeasible_problem(prob, 1e-1 if name == "car" else 1.0)
+        out[dtype] = prob
+    p64 = out[torch.float64]
+    n, m, Nk, P = p64.n, p64.m, p64.N, p64.constraints.P
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    U = p64.U[None] + t(rng.normal(size=(B, Nk - 1, m)) * 0.02)
+    if slack:
+        X = p64.X[None] + t(rng.normal(size=(B, Nk, n)) * 0.05)
+    else:
+        if name == "quadrotor":
+            U = p64.U.expand(B, -1, -1)
+        X = rollout(p64.model, p64.x0[None]
+                    + t(rng.normal(size=(B, n)) * 0.02), U, p64.dt_traj())
+    mask = p64.constraints.mask
+    # the plain quadrotor gets a thousandth of the duals: 44 active cylinder
+    # rows tens of metres away at μ ~ 10 make gains whose float32 rollouts
+    # are chaotic in kernel and plain version alike
+    scale = 1e-3 if name == "quadrotor" else 1.0
+    lam = t(rng.uniform(0.0, 0.5, size=(B, Nk, P)) * scale) * mask
+    mu = t(rng.uniform(0.5, 20.0, size=(B, Nk, P)) * scale) * mask
+    data64 = [a.contiguous() for a in (X, U, lam, mu)]
+    return dict(
+        p64=p64, p32=out[torch.float32], data64=data64,
+        data=[a.float().contiguous() for a in data64],
+        canon64=canonical_stack(p64.constraints, n, m, dtype=torch.float64),
+        canon=canonical_stack(out[torch.float32].constraints, n, m,
+                              dtype=torch.float32))
+
+
+AL_CASES = [("car", True), ("car", False), ("cartpole", True),
+            ("pendulum", False), ("quadrotor", False)]
+
+
+@pytest.mark.parametrize("name,slack", AL_CASES)
+def test_fused_al_kernels_match_plain_versions_for_every_model(
+        cuda_device, name, slack):
+    """K3 and K4 of one instantiation against their plain versions, B = 16,
+    float32, benign duals, rho = 1: no failure, K and d at 2e-3 of scale
+    (tests/test_fused_al.py:261-267) or three times the float32 plain
+    version's own distance from float64, dV at 1e-3, Jacobians at 1e-5 with
+    the identity slack columns; then the line search on those gains, lane 5
+    with a blown-up feedforward and lane 11 running out: steps, rho and drho
+    equal, J at 1e-3, X at 1e-4 of scale (or three times the float32 plain
+    version's distance from float64). The launch counts move under the
+    instantiation's label."""
+    st = _al_setup(name, slack, cuda_device)
+    p32, p64, canon = st["p32"], st["p64"], st["canon"]
+    X, U, lam, mu = st["data"]
+    label = name + ("_slack" if slack else "")
+    n, m = p32.n, p32.m
+    ones = torch.ones(B, device=cuda_device)
+    dt = p32.dt_traj()
+    before = fused_al_backward_cuda.launches_by[label]
+    k = fused_al_backward_cuda(p32.model, canon, X, U, lam, mu, dt, p32.obj,
+                               ones, return_jacobians=True)
+    torch.cuda.synchronize()
+    assert fused_al_backward_cuda.launches_by[label] == before + 1
+    p = fused_al_backward(p32.model, canon, X, U, lam, mu, dt, p32.obj, ones,
+                          return_jacobians=True)
+    X64, U64, lam64, mu64 = st["data64"]
+    q = fused_al_backward(p64.model, st["canon64"], X64, U64, lam64, mu64,
+                          p64.dt_traj(), p64.obj, ones.double())
+    assert k[0].shape == (B, p32.N - 1, m, n)
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i in (0, 1):
+        _close(k[i], p[i], q[i], 2e-3)
+    torch.testing.assert_close(k[2], p[2], rtol=1e-3, atol=1e-6)
+    torch.testing.assert_close(k[5], p[5], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k[6], p[6], rtol=0, atol=1e-5)
+    assert k[6].shape[-1] == m
+
+    K, d, dV1, dV2 = k[0], k[1].clone(), k[2], k[3]
+    quad = name == "quadrotor"
+    d[5] *= 1e6 if quad else 1e5
+    J_prev = (total_cost(p32.obj, X, U, dt) + canon_al_cost(
+        canon, X, pad_terminal(U), lam, mu)).contiguous()
+    J_prev[11] = -1e30
+    alpha0 = (0.5 ** (6 + torch.arange(B, device=cuda_device) % 4)).float() \
+        if quad else ones
+    args = (p32.model, canon, X[:, 0].contiguous(), X, U, K, d, dV1, dV2,
+            J_prev, ones, ones, alpha0, lam, mu, dt, p32.obj, LS_OPTS)
+    before = fused_al_forward_cuda.launches_by[label]
+    Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_al_forward_cuda.launches_by[label] == before + 1
+    Xp, Up, Jp, rp, drp, ap = fused_al_forward(*args)
+    same = ak == ap
+    assert float(same.float().mean()) >= 0.9
+    assert torch.equal(rk[same], rp[same])
+    assert torch.equal(drk[same], drp[same])
+    assert float(ak[11]) == 0.0 and float(rk[11]) > 10.0
+    assert torch.equal(Xk[11], X[11]) and torch.equal(Uk[11], U[11])
+    # the same search by the plain version in float64: where the gains are
+    # stiff (|K| ~ 1e2 on the car_escape stack without slacks) float32
+    # rounding of the state is amplified, and the bars widen to three times
+    # the float32 plain version's own distance from float64
+    args64 = (p64.model, st["canon64"]) + tuple(
+        a.double() for a in args[2:-3]) + (p64.dt_traj(), p64.obj, LS_OPTS)
+    Xq, _, Jq, _, _, aq = fused_al_forward(*args64)
+    calm = same & (aq == ap.double())
+    calm[5] = False
+    assert int(calm.sum()) >= B // 2
+    eJ = float(((Jp.double() - Jq).abs() / Jq.abs().clamp(min=1.0))[calm].max())
+    eX = float((Xp.double() - Xq)[calm].abs().max())
+    scale = max(1.0, float(Xp[calm].abs().max()))
+    assert float(((Jk - Jp).abs() / Jp.abs().clamp(min=1.0))[calm].max()) \
+        < max(1e-3, 3.0 * eJ)
+    assert float((Xk - Xp)[calm].abs().max()) < max(1e-4 * scale, 3.0 * eX)
+
+
+def test_altro_solve_on_the_card(cuda_device):
+    """``altro_solve`` on the line-seeded pendulum in float32 on the card:
+    the AL stage on K3/K4 of the slack pendulum, the projection on K5 (2, 1)
+    and K2, the re-solve on K3/K4 of the pendulum; the goal within 5e-3 and
+    c_max < 1e-3. Then the float64 polish of that result by ``pn_solve`` on
+    the card, which launches no kernel: violation below 1e-6."""
+    import trajopt_tpu_torch as tt
+
+    prob = _line_seeded(problems.pendulum(dtype=torch.float32,
+                                          device=cuda_device))
+    counts = lambda: (  # noqa: E731
+        fused_al_backward_cuda.launches_by["pendulum_slack"],
+        fused_al_forward_cuda.launches_by["pendulum_slack"],
+        fused_al_backward_cuda.launches_by["pendulum"],
+        fused_al_forward_cuda.launches_by["pendulum"],
+        riccati_sweep_cuda.launches_by["2x1"],
+        rollout_closed_loop_cuda.launches_by["pendulum"])
+    before = counts()
+    res = tt.altro_solve(prob, tt.ALTROOptions(
+        opts_al=tt.ALOptions(), resolve_feasible_problem=True))
+    assert all(b > a for a, b in zip(before, counts()))
+    assert rollout_closed_loop_cuda.launches_by["pendulum"] == before[5] + 1
+    assert float(res.c_max) < 1e-3
+    assert float((res.X[-1] - prob.xf).norm()) < 5e-3
+
+    p64 = problems.pendulum(dtype=torch.float64, device=cuda_device)
+    before = counts()
+    pol = tt.pn_solve(tt.update_problem(p64, X=res.X.double(),
+                                        U=res.U.double()))
+    assert counts() == before
+    assert pol.X.dtype == torch.float64 and float(pol.viol) <= 1e-6
+    assert float(pol.c_max) <= 1e-6
+    with pytest.raises(NotImplementedError, match="#11"):
+        tt.altro_solve(prob, tt.ALTROOptions(), minimum_time=True)
 
 
 # ------------------------------------------------------ K5, K7a, K7b, K2
@@ -558,9 +740,10 @@ def test_slice3_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 def test_default_options_solve_on_the_card(cuda_device):
     """``iLQROptions()`` (scan, full state) and ``iLQROptions(fused=True)``
     through ``solve_batch`` in float32 on the card for the pendulum: the
-    constrained solve reaches c_max < 1e-3 on K5 and K2, the unconstrained
-    fused one runs on K7a and K7b alone and agrees with the phase-split one;
-    float64 on the card raises."""
+    constrained solve reaches c_max < 1e-3 on K3 and K4 alone (``fused_al``
+    is on by default), with ``fused_al=False`` on K5 and K2; the
+    unconstrained fused one runs on K7a and K7b alone and agrees with the
+    phase-split one; float64 on the card raises."""
     import trajopt_tpu_torch as tt
     from trajopt_tpu_torch.ops.constraints import empty_constraints
     from trajopt_tpu_torch.parallel.batch import solve_batch
@@ -570,10 +753,18 @@ def test_default_options_solve_on_the_card(cuda_device):
     x0s = torch.as_tensor(rng.normal(size=(8, 2)) * 0.02, dtype=torch.float32,
                           device=cuda_device)
     k5 = riccati_sweep_cuda.launches_by["2x1"]
+    k3 = fused_al_backward_cuda.launches_by["pendulum"]
     res = solve_batch(prob, tt.ALOptions(), x0s)
-    assert riccati_sweep_cuda.launches_by["2x1"] > k5
+    assert riccati_sweep_cuda.launches_by["2x1"] == k5
+    assert fused_al_backward_cuda.launches_by["pendulum"] > k3
     assert bool((res.c_max < 1e-3).all())
     assert float((res.X[:, -1] - prob.xf).norm(dim=-1).max()) < 5e-3
+    k3 = fused_al_backward_cuda.launches_by["pendulum"]
+    res = solve_batch(prob, tt.ALOptions(
+        opts_uncon=tt.iLQROptions(fused_al=False)), x0s)
+    assert riccati_sweep_cuda.launches_by["2x1"] > k5
+    assert fused_al_backward_cuda.launches_by["pendulum"] == k3
+    assert bool((res.c_max < 1e-3).all())
 
     free = tt.update_problem(prob, constraints=empty_constraints(
         prob.N, device=cuda_device))

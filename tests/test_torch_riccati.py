@@ -28,7 +28,7 @@ from trajopt_tpu.solvers.ilqr import _backward_pass_impl
 from trajopt_tpu.solvers.ilqr import iLQROptions as JaxILQROptions
 
 from trajopt_tpu_torch.ops.cost import Expansion
-from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS, QUADROTOR_SLACK
+from trajopt_tpu_torch.ops.cuda_models import CUDA_MODELS
 from trajopt_tpu_torch.ops.cuda_riccati import SHAPES, riccati_sweep_cuda
 from trajopt_tpu_torch.solvers.ilqr import backward_pass, iLQROptions
 
@@ -149,8 +149,10 @@ def test_scan_backward_pass_matches_jax_f64(reg_type):
 
 
 def test_riccati_wrapper_takes_the_ported_shapes():
-    """Every (n, m) a ported model produces has an instantiation, with the
-    slack-augmented quadrotor (13, 17) and the error state (12, 4)."""
-    for cm in list(CUDA_STEPS.values()) + [QUADROTOR_SLACK]:
+    """Every (n, m) a ported model produces has an instantiation, with or
+    without the slack controls (the quadrotor's (13, 17), the car's (3, 5),
+    ...), and the error state (12, 4)."""
+    assert len(CUDA_MODELS) == 10
+    for cm in CUDA_MODELS.values():
         assert (cm.n, cm.m) in SHAPES
-    assert (12, 4) in SHAPES
+    assert (12, 4) in SHAPES and (13, 17) in SHAPES and (3, 5) in SHAPES

@@ -9,7 +9,13 @@ ported path are hand-written CUDA kernels for Hopper (``csrc/``), built by
 ``kernels/_build.py`` at first use; each has a plain PyTorch twin that runs
 on the CPU.
 
-Ported so far: the library's default path (slice 3: ``al_solve`` and
+Ported so far: the whole ALTRO solve (slice 4: ``altro_solve`` with the
+infeasible-start transform, the fused AL stages, ``tvlqr_projection``, the
+feasible re-solve and the projected-Newton polish ``pn_solve`` /
+``parallel.batch.pn_polish_batch``, on ``problems.zoo.car_escape``; the
+fused AL kernels now serve every model with a CUDA step, with or without
+slack controls, so the default constrained solve runs fused), the library's
+default path (slice 3: ``al_solve`` and
 ``parallel.batch.solve_batch`` with ``iLQROptions()``, the scan backward
 pass on the full state, and its ``fused=True`` variant, for the quadrotor,
 cartpole, car, pendulum and double integrator), the quadrotor iLQR
@@ -31,19 +37,28 @@ from trajopt_tpu_torch.ops.constraints import (
 )
 from trajopt_tpu_torch.ops.cost import LQRObjective, Objective, QuadraticCost
 from trajopt_tpu_torch.parallel.batch import (
-    QueuedBatchResult, solve_batch, solve_batch_queued,
+    QueuedBatchResult, pn_polish_batch, solve_batch, solve_batch_queued,
     solve_batch_queued_altro, solve_batch_queued_altro_retry,
 )
 from trajopt_tpu_torch.problem import (
     Problem, initial_states, problem, update_problem,
 )
 from trajopt_tpu_torch.solvers.al import ALOptions, ALResult, al_solve
-from trajopt_tpu_torch.solvers.altro import ALTROOptions, infeasible_problem
-from trajopt_tpu_torch.solvers.ilqr import iLQROptions, ilqr_solve
+from trajopt_tpu_torch.solvers.altro import (
+    ALTROOptions, ALTROResult, altro_solve, infeasible_problem,
+)
+from trajopt_tpu_torch.solvers.ilqr import (
+    iLQROptions, ilqr_solve, tvlqr_projection,
+)
+from trajopt_tpu_torch.solvers.projected_newton import (
+    PNOptions, PNResult, pn_solve,
+)
 from trajopt_tpu_torch.utils.tree import precise, precise_context
 
 __all__ = [
-    "ALOptions", "ALResult", "ALTROOptions", "Constraint", "ConstraintSet",
+    "ALOptions", "ALResult", "ALTROOptions", "ALTROResult", "Constraint",
+    "ConstraintSet", "PNOptions", "PNResult", "altro_solve", "pn_polish_batch",
+    "pn_solve", "tvlqr_projection",
     "ConstraintSetBuilder", "DiscreteModel", "LQRObjective", "Model",
     "Objective", "Problem", "QuadraticCost", "QueuedBatchResult", "al_solve",
     "bound_constraint", "discretize", "goal_constraint", "iLQROptions",

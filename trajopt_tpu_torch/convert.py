@@ -8,9 +8,16 @@ device and in the dtype asked for. The constraint set travels as data too:
 per constraint its label, its canonical row kind with the parameters, the
 equality flags and the knots it applies at. ``state_arrays`` and
 ``state_from_arrays`` do the same for a solver state (X, U, λ, μ), and
-``result_arrays`` hands an ``ALResult`` back as numpy arrays.
+``result_arrays`` hands an ``ALResult`` back as numpy arrays. Options travel
+as nested dicts of plain values: ``options_dict`` reads them off the JAX
+package's option dataclasses (``ALTROOptions`` with its ``ALOptions``,
+``iLQROptions`` and ``PNOptions``), ``altro_options_from_dict`` builds the
+port's. ``PROBLEMS`` names the ported zoo problems (``car_escape`` among
+them) as the JAX package's ``problems.zoo.PROBLEMS`` does.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -22,10 +29,19 @@ from trajopt_tpu_torch.ops.constraints import (
 )
 from trajopt_tpu_torch.ops.cost import Objective
 from trajopt_tpu_torch.problem import Problem
+from trajopt_tpu_torch.problems import zoo as problems_zoo
+from trajopt_tpu_torch.solvers.al import ALOptions
+from trajopt_tpu_torch.solvers.altro import ALTROOptions
+from trajopt_tpu_torch.solvers.ilqr import iLQROptions
+from trajopt_tpu_torch.solvers.projected_newton import PNOptions
 from trajopt_tpu_torch.utils.device import resolve_device
 
 MODELS = {m.name: m for m in (zoo.quadrotor, zoo.pendulum,
                               zoo.doubleintegrator, zoo.car, zoo.cartpole)}
+# the ported zoo problems under the JAX package's names
+PROBLEMS = {name: getattr(problems_zoo, name) for name in (
+    "doubleintegrator", "pendulum", "cartpole", "parallel_park", "car_3obs",
+    "car_escape", "quadrotor_maze")}
 OBJECTIVE_FIELDS = ("Q", "R", "H", "q", "r", "c")
 STATE_FIELDS = ("X", "U", "lam", "mu")
 
@@ -133,3 +149,26 @@ def result_arrays(res) -> dict:
     out.update({f"history_{k}": v for k, v in res.history.items()})
     return {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
             for k, v in out.items()}
+
+
+def options_dict(opts) -> dict:
+    """An options dataclass (of either package) as a dict of plain values,
+    nested options as nested dicts, None kept."""
+    out = {}
+    for f in dataclasses.fields(opts):
+        v = getattr(opts, f.name)
+        out[f.name] = options_dict(v) if dataclasses.is_dataclass(v) else v
+    return out
+
+
+def altro_options_from_dict(d: dict) -> ALTROOptions:
+    """The port's ``ALTROOptions`` from :func:`options_dict` data: nested
+    ``opts_al`` (with its ``opts_uncon``) and ``opts_pn`` rebuilt as the
+    port's dataclasses. An option the port does not have raises
+    ``TypeError``."""
+    d = dict(d)
+    al = dict(d.pop("opts_al", None) or {})
+    uncon = iLQROptions(**(al.pop("opts_uncon", None) or {}))
+    pn = d.pop("opts_pn", None)
+    return ALTROOptions(opts_al=ALOptions(opts_uncon=uncon, **al),
+                        opts_pn=None if pn is None else PNOptions(**pn), **d)

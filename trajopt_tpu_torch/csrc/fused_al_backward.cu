@@ -1,57 +1,59 @@
-// Fused AL backward sweep for the slack-augmented quadrotor (kernel K3).
+// Fused AL backward sweep (kernel K3), for every model of models.cuh with
+// or without the slack controls of the infeasible-start transform.
 //
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_al_fused.py::
 // _fused_al_backward_kernel (front end fused_al_backward_pallas). Per
-// problem, backward over the knots: the discrete-step Jacobians A and
-// B = [B_base | I] (the slack controls of the infeasible-start model enter
-// linearly), the quadratic stage expansion, the Gauss-Newton AL expansion
-// of the canonical constraint stack with its active set (canon.cuh), and
-// the Riccati step with the equilibrated PD solve of the 17×17 Quu_reg
-// against [Qux_reg | Qu] (riccati_step.cuh, posdef_solve.cuh). A, B and the
-// expansion never reach device memory. A failed stage writes zero gains,
-// sets the problem's fail flag, and the sweep goes on. The plain version is
+// problem, backward over the knots: the discrete-step Jacobians A and B (with
+// slacks B = [B_base | I]: the slack controls enter linearly), the quadratic
+// stage expansion, the Gauss-Newton AL expansion of the canonical constraint
+// stack with its active set (canon.cuh), and the Riccati step with the
+// equilibrated PD solve of Quu_reg against [Qux_reg | Qu] (riccati_step.cuh,
+// posdef_solve.cuh). A, B and the expansion never reach device memory. A
+// failed stage writes zero gains, sets the problem's fail flag, and the
+// sweep goes on. The plain version is
 // trajopt_tpu_torch/ops/cuda_al_fused.py::fused_al_backward.
 //
 // The TPU kernel linearizes its step with jax.linearize; here the Jacobians
-// come from forward-mode dual numbers through the templated RK3 step
-// (quadrotor.cuh), one tangent direction per lane: 13 state directions and
-// 4 base-control directions fill 17 lanes of the warp, and the 13 slack
-// columns are the identity and are never differentiated.
+// come from forward-mode dual numbers through the model's templated RK3 step
+// (models.cuh), one tangent direction per lane: n state and m_base control
+// directions fill n + m_base lanes of the warp (17 for the quadrotor, 3 for
+// the pendulum), and the n slack columns are the identity and are never
+// differentiated (_step_jac_cols of the TPU kernel takes the same shortcut).
 //
-// What bounds it on this card: latency, not bytes or operations. One
-// launch at B=128, N=101, P=89 moves about 23 MB (λ, μ and the gains K
-// dominate) and does about 0.8 GFLOP, microseconds of either at the
-// card's rates; but each problem is a chain of 100 dependent knots, each a
-// chain of small dependent products and a 17-pivot elimination.
+// What bounds it on this card: latency, not bytes or operations. One launch
+// for the slack-augmented quadrotor at B=128, N=101, P=89 moves about 23 MB
+// (λ, μ and the gains K dominate) and does about 0.8 GFLOP, microseconds of
+// either at the card's rates; but each problem is a chain of N − 1 dependent
+// knots, each a chain of small dependent products and an m-pivot elimination.
 //
-// Design: one warp per problem (one block of 32 threads), the knot loop
-// inside the kernel, every matrix of the step in shared memory (about
-// 15 KB), the lanes splitting the entries of each product. 128 problems put
-// one warp on each of 128 SMs, so nothing hides the chain's latency yet;
-// packing several problems into one block, or several warps on one
-// problem's products, is later work. n = 13, m_base = 4 and m = 17 are
-// compile-time constants; P, the stack's tables, N and the batch are
-// arguments.
+// Design: one warp per problem (one block of 32 threads) whatever the
+// model, the knot loop inside the kernel, every matrix of the step in shared
+// memory (about 15 KB for the slack-augmented quadrotor), the lanes
+// splitting the entries of each product. 128 problems put one warp on each
+// of 128 SMs, so nothing hides the chain's latency yet; packing several
+// problems into one block, or several warps on one problem's products, is
+// later work. The model and the slack flag are template parameters, so n,
+// m_base and m are compile-time constants, one instantiation per (model,
+// slack) pair; P, the stack's tables, N and the batch are arguments.
 #include <cuda_runtime.h>
 
 #include "canon.cuh"
-#include "quadrotor.cuh"
+#include "models.cuh"
 #include "riccati_step.cuh"
 
 namespace {
 
 using namespace trajopt;
 
-constexpr int NX = kQuadN;          // 13
-constexpr int MB = kQuadM;          // 4 base controls
-constexpr int NU = MB + NX;         // 17 with the slacks
-
+template <int NX, int NU>
 struct Shared {
   RiccatiWork<NX, NU> w;
   float z[NX + NU];
   float alx[NX], alu[NU], alxx[NX * NX], aluu_d[NU];
 };
 
+// M: the base model's trait; Slack: NX slack controls after its MB controls
+template <class M, bool Slack>
 __global__ void __launch_bounds__(32) fused_al_backward_kernel(
     const float* __restrict__ X, const float* __restrict__ U,
     const float* __restrict__ lam, const float* __restrict__ mu,
@@ -62,7 +64,8 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
     float* __restrict__ d, float* __restrict__ dV,
     unsigned char* __restrict__ fail_out, float* __restrict__ Aout,
     float* __restrict__ Bout, int batch, int N, int reg_state, float atol) {
-  __shared__ Shared s;
+  constexpr int NX = M::NX, MB = M::NU, NU = Slack ? MB + NX : MB;
+  __shared__ Shared<NX, NU> s;
   extern __shared__ float dyn[];       // g and Iμ of the P rows
   float* g_s = dyn;
   float* imu_s = dyn + tab.P;
@@ -87,9 +90,11 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
     w.Sx[lane] = acc + q[(size_t)(N - 1) * NX + lane] + s.alx[lane];
   }
   for (int e = lane; e < NX * NX; e += 32) w.Sxx[e] = QN[e] + s.alxx[e];
-  // the slack columns of B are the identity, once and for all
-  for (int e = lane; e < NX * NX; e += 32)
-    w.B[(e / NX) * NU + MB + e % NX] = (e / NX == e % NX) ? 1.0f : 0.0f;
+  if constexpr (Slack) {
+    // the slack columns of B are the identity, once and for all
+    for (int e = lane; e < NX * NX; e += 32)
+      w.B[(e / NX) * NU + MB + e % NX] = (e / NX == e % NX) ? 1.0f : 0.0f;
+  }
   __syncwarp();
 
   float dV1 = 0.0f, dV2 = 0.0f;
@@ -102,8 +107,9 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
     if (lane < NX + NU) s.z[lane] = lane < NX ? xk[lane] : uk[lane - NX];
     __syncwarp();
 
-    // Jacobians: lane j < 17 pushes tangent e_j of [x; u_base] through
-    // the RK3 step; row i of its result is A[i][j] or B_base[i][j − 13]
+    // Jacobians: lane j < n + m_base pushes tangent e_j of [x; u_base]
+    // through the RK3 step; row i of its result is A[i][j] or
+    // B_base[i][j − n]
     if (lane < NX + MB) {
       Dual xd[NX], ud[MB], out[NX];
 #pragma unroll
@@ -111,7 +117,7 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
 #pragma unroll
       for (int i = 0; i < MB; ++i)
         ud[i] = Dual(s.z[NX + i], lane == NX + i ? 1.f : 0.f);
-      quad_rk3_step<Dual>(xd, ud, dtv, out);
+      M::template step<Dual>(xd, ud, dtv, out);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         if (lane < NX) {
@@ -174,30 +180,60 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
   }
 }
 
+template <class M, bool Slack>
+int launch(const float* X, const float* U, const float* lam, const float* mu,
+           const float* dt, const float* Q, const float* R, const float* H,
+           const float* q, const float* r, const float* rho,
+           const CanonTables& tab, float* K, float* d, float* dV,
+           unsigned char* fail, float* Aout, float* Bout, int batch, int N,
+           int reg_state, float atol, cudaStream_t stream) {
+  const size_t dyn = 2 * (size_t)tab.P * sizeof(float);
+  fused_al_backward_kernel<M, Slack><<<batch, 32, dyn, stream>>>(
+      X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, K, d, dV, fail, Aout, Bout,
+      batch, N, reg_state, atol);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry point (bound with ctypes from ops/cuda_al_fused.py). Contiguous
-// float32, batch-first: X (B,N,13), U (B,N-1,17), lam, mu (B,N,P), dt (N-1),
-// Q (N,13,13), R (N,17,17), H (N,17,13), q (N,13), r (N,17), rho (B); the
-// stack's tables row_i (P,4) int32, row_f (P,4), groups (G,6) int32,
-// col_ptr (31) int32, col_rows int32 → K (B,N-1,17,13), d (B,N-1,17),
-// dV (2,B), fail (B) bytes, and where Aout/Bout are not null the in-kernel
-// Jacobians A (B,N-1,13,13), B_base (B,N-1,13,4). Returns the CUDA error of
-// the launch (0 on success).
+// float32, batch-first, for the model `model` (models.cuh ModelId, plus
+// kModelSlack for its slack-augmented form) with n states, m_base base
+// controls and m = m_base or m_base + n controls: X (B,N,n), U (B,N-1,m),
+// lam, mu (B,N,P), dt (N-1), Q (N,n,n), R (N,m,m), H (N,m,n), q (N,n),
+// r (N,m), rho (B); the stack's tables row_i (P,4) int32, row_f (P,4),
+// groups (G,6) int32, col_ptr (n+m+1) int32, col_rows int32 →
+// K (B,N-1,m,n), d (B,N-1,m), dV (2,B), fail (B) bytes, and where Aout/Bout
+// are not null the in-kernel Jacobians A (B,N-1,n,n), B_base (B,N-1,n,m_base).
+// Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue for a model that has no instantiation.
 extern "C" int trajopt_fused_al_backward_f32(
     const float* X, const float* U, const float* lam, const float* mu,
     const float* dt, const float* Q, const float* R, const float* H,
     const float* q, const float* r, const float* rho, const int* row_i,
     const float* row_f, const int* groups, const int* col_ptr,
     const int* col_rows, float* K, float* d, float* dV, unsigned char* fail,
-    float* Aout, float* Bout, int batch, int N, int P, int G, int reg_state,
-    float atol, void* stream) {
+    float* Aout, float* Bout, int batch, int N, int P, int G, int model,
+    int reg_state, float atol, void* stream) {
   if (batch <= 0 || N < 2 || P < 0) return (int)cudaErrorInvalidValue;
   trajopt::CanonTables tab{(const int4*)row_i, (const float4*)row_f, groups,
                            col_ptr, col_rows, P, G};
-  const size_t dyn = 2 * (size_t)P * sizeof(float);
-  fused_al_backward_kernel<<<batch, 32, dyn, (cudaStream_t)stream>>>(
-      X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, K, d, dV, fail, Aout, Bout,
-      batch, N, reg_state, atol);
-  return (int)cudaGetLastError();
+#define TRAJOPT_AL_BACKWARD(M)                                               \
+  case kModel##M:                                                            \
+    return launch<M, false>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, K, d, \
+                            dV, fail, Aout, Bout, batch, N, reg_state, atol, \
+                            (cudaStream_t)stream);                           \
+  case kModelSlack + kModel##M:                                              \
+    return launch<M, true>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, K, d,  \
+                           dV, fail, Aout, Bout, batch, N, reg_state, atol,  \
+                           (cudaStream_t)stream)
+  switch (model) {
+    TRAJOPT_AL_BACKWARD(Quadrotor);
+    TRAJOPT_AL_BACKWARD(Cartpole);
+    TRAJOPT_AL_BACKWARD(Car);
+    TRAJOPT_AL_BACKWARD(Pendulum);
+    TRAJOPT_AL_BACKWARD(DoubleIntegrator);
+  }
+#undef TRAJOPT_AL_BACKWARD
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
-// Fused AL line search for the slack-augmented quadrotor (kernel K4).
+// Fused AL line search (kernel K4), for every model of models.cuh with or
+// without the slack controls of the infeasible-start transform.
 //
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_al_fused.py::
 // _fused_al_forward_kernel (front end fused_al_forward_pallas). Per
 // problem, the whole backtracking line search of one iLQR iteration
 // (reference forwardpass!, forward_pass.jl:5-85): for each candidate step
 // α the closed-loop full-state rollout u = U + K(x − X) + αd through the
-// slack step x⁺ = rk3(x, u_base) + u_slack, with the divergence guard
+// model's step (with slacks x⁺ = rk3(x, u_base) + u_slack), with the
+// divergence guard
 // (|x|, |u| < 1e8 and finite), the stage and terminal cost plus the AL cost
 // Σ λc + ½ c Iμ c of the canonical stack (canon.cuh), the ratio
 // z = (J_prev − J)/(−α(ΔV1 + αΔV2)), acceptance on lb < z ≤ ub or
@@ -23,31 +25,30 @@
 // restore.
 //
 // What bounds it on this card: latency. A candidate is a chain of N − 1
-// dependent RK3 steps, each behind a 17×13 gain product and the 89-row AL
-// cost; one candidate at B=128, N=101 reads about 21 MB (K, λ, μ), far from
-// the card's bandwidth for the time it takes.
+// dependent RK3 steps, each behind an m×n gain product and the P-row AL
+// cost; one candidate of the slack-augmented quadrotor (17×13, P = 89) at
+// B=128, N=101 reads about 21 MB (K, λ, μ), far from the card's bandwidth
+// for the time it takes.
 //
 // Design: one warp per problem rather than one thread (the design of the
-// rollout kernel K2), because a knot carries ~5× the work of K2's and the
-// 89 rows, the 17 gain rows and the cost's matrix rows split evenly over
-// lanes with coalesced reads of λ and μ. The state lives in registers,
-// identically on every lane (each lane runs the RK3 step, so the guard
-// needs no vote); lane a < 17 owns control a and broadcasts it by shuffle;
-// each lane keeps its own partial cost over the knots and the warp sums
-// once per candidate. n = 13 and m = 4 + 13 are compile-time constants.
+// rollout kernel K2), because a knot carries several times the work of K2's
+// and the P rows (89 to 180), the gain rows and the cost's matrix rows split
+// evenly over lanes with coalesced reads of λ and μ. The state lives in
+// registers, identically on every lane (each lane runs the RK3 step, so the
+// guard needs no vote); lane a < m owns control a and broadcasts it by
+// shuffle; each lane keeps its own partial cost over the knots and the warp
+// sums once per candidate. The model and the slack flag are template
+// parameters, so n, m_base and m are compile-time constants.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "canon.cuh"
-#include "quadrotor.cuh"
+#include "models.cuh"
 
 namespace {
 
 using namespace trajopt;
 
-constexpr int NX = kQuadN;
-constexpr int MB = kQuadM;
-constexpr int NU = MB + NX;
 constexpr float kMaxValue = 1e8f;
 
 struct Args {
@@ -60,6 +61,7 @@ struct Args {
 };
 
 // z ← [x; u] for the row evaluation
+template <int NX, int NU>
 __device__ __forceinline__ void put_z(float* z, const float* x, float u_mine,
                                       int lane) {
 #pragma unroll
@@ -69,8 +71,12 @@ __device__ __forceinline__ void put_z(float* z, const float* x, float u_mine,
   __syncwarp();
 }
 
+// M: the base model's trait; Slack: NX slack controls after its MB controls
+template <class M, bool Slack>
 __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
                                                               CanonTables tab) {
+  constexpr int NX = M::NX, MB = M::NU, NU = Slack ? MB + NX : MB;
+  static_assert(NU <= 32, "one lane per control");
   __shared__ float z[NX + NU];
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
@@ -116,7 +122,7 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
     bool ok = true;
     for (int k = 0; k < N - 1; ++k) {
       const float dtv = a.dt[k];
-      // u = U + K (x − X) + α d: lane i < 17 computes control i
+      // u = U + K (x − X) + α d: lane i < m computes control i
       float u_mine = 0.0f;
       if (lane < NU) {
         const float* Kr = a.K + (uoff + (size_t)k * NU + lane) * NX;
@@ -129,7 +135,7 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
       float u[NU];
 #pragma unroll
       for (int i = 0; i < NU; ++i) u[i] = __shfl_sync(kFullMask, u_mine, i);
-      put_z(z, x, u_mine, lane);
+      put_z<NX, NU>(z, x, u_mine, lane);
 
       // stage cost dt(½xᵀQx + ½uᵀRu + qᵀx + rᵀu + uᵀHx + c), split by rows
       float part = 0.0f;
@@ -158,13 +164,13 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
                                        a.mu + ((size_t)b * N + k) * P, a.atol,
                                        lane);
 
-      // slack step and the divergence guard
+      // the step (the base controls lead u) and the divergence guard
       float xn[NX];
-      quad_rk3_step<float>(x, u, dtv, xn);
+      M::template step<float>(x, u, dtv, xn);
       bool good = true;
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
-        xn[i] = xn[i] + u[MB + i];
+        if constexpr (Slack) xn[i] = xn[i] + u[MB + i];
         good = good && fabsf(xn[i]) < kMaxValue && isfinite(xn[i]);
       }
 #pragma unroll
@@ -184,7 +190,7 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
 
     if (ok) {
       // terminal cost ½xᵀQx + qᵀx + c and the AL rows at u = 0
-      put_z(z, x, 0.0f, lane);
+      put_z<NX, NU>(z, x, 0.0f, lane);
       float part = 0.0f;
       if (lane < NX) {
         const float* Qr = a.Q + ((size_t)(N - 1) * NX + lane) * NX;
@@ -218,12 +224,15 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
 }  // namespace
 
 // C entry point (bound with ctypes from ops/cuda_al_fused.py). Contiguous
-// float32, batch-first: x0 (B,13), X (B,N,13), U (B,N-1,17), K (B,N-1,17,13),
-// d (B,N-1,17), dV1, dV2, J_prev, rho, drho, alpha0 (B), lam, mu (B,N,P),
-// dt (N-1), Q (N,13,13), R (N,17,17), H (N,17,13), q (N,13), r (N,17), c (N),
-// the stack's row tables row_i (P,4) int32 and row_f (P,4), active (B) bytes
-// or null → Xout (B,N,13), Uout (B,N-1,17), scal (4,B) = J, rho, drho and
-// the step used. Returns the CUDA error of the launch (0 on success).
+// float32, batch-first, for the model `model` (models.cuh ModelId, plus
+// kModelSlack for its slack-augmented form) with n states and m controls:
+// x0 (B,n), X (B,N,n), U (B,N-1,m), K (B,N-1,m,n), d (B,N-1,m), dV1, dV2,
+// J_prev, rho, drho, alpha0 (B), lam, mu (B,N,P), dt (N-1), Q (N,n,n),
+// R (N,m,m), H (N,m,n), q (N,n), r (N,m), c (N), the stack's row tables
+// row_i (P,4) int32 and row_f (P,4), active (B) bytes or null →
+// Xout (B,N,n), Uout (B,N-1,m), scal (4,B) = J, rho, drho and the step used.
+// Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue for a model that has no instantiation.
 extern "C" int trajopt_fused_al_forward_f32(
     const float* x0, const float* X, const float* U, const float* K,
     const float* d, const float* dV1, const float* dV2, const float* Jprev,
@@ -232,14 +241,31 @@ extern "C" int trajopt_fused_al_forward_f32(
     const float* R, const float* H, const float* q, const float* r,
     const float* c, const int* row_i, const float* row_f,
     const unsigned char* active, float* Xout, float* Uout, float* scal,
-    int batch, int N, int P, int ls_iters, float ls_lb, float ls_ub,
-    float reg_min, float reg_factor, float reg_fp, float atol, void* stream) {
+    int batch, int N, int P, int model, int ls_iters, float ls_lb,
+    float ls_ub, float reg_min, float reg_factor, float reg_fp, float atol,
+    void* stream) {
   if (batch <= 0 || N < 2 || P < 0) return (int)cudaErrorInvalidValue;
   Args a{x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
          R, H, q, r, c, active, Xout, Uout, scal, batch, N, ls_iters, ls_lb,
          ls_ub, reg_min, reg_factor, reg_fp, atol};
   trajopt::CanonTables tab{(const int4*)row_i, (const float4*)row_f, nullptr,
                            nullptr, nullptr, P, 0};
-  fused_al_forward_kernel<<<batch, 32, 0, (cudaStream_t)stream>>>(a, tab);
-  return (int)cudaGetLastError();
+#define TRAJOPT_AL_FORWARD(M)                                              \
+  case kModel##M:                                                          \
+    fused_al_forward_kernel<M, false>                                      \
+        <<<batch, 32, 0, (cudaStream_t)stream>>>(a, tab);                  \
+    return (int)cudaGetLastError();                                        \
+  case kModelSlack + kModel##M:                                            \
+    fused_al_forward_kernel<M, true>                                       \
+        <<<batch, 32, 0, (cudaStream_t)stream>>>(a, tab);                  \
+    return (int)cudaGetLastError()
+  switch (model) {
+    TRAJOPT_AL_FORWARD(Quadrotor);
+    TRAJOPT_AL_FORWARD(Cartpole);
+    TRAJOPT_AL_FORWARD(Car);
+    TRAJOPT_AL_FORWARD(Pendulum);
+    TRAJOPT_AL_FORWARD(DoubleIntegrator);
+  }
+#undef TRAJOPT_AL_FORWARD
+  return (int)cudaErrorInvalidValue;
 }

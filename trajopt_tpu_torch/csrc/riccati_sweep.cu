@@ -114,6 +114,9 @@ extern "C" int trajopt_riccati_sweep_f32(
   TRAJOPT_RICCATI(4, 1);     // cartpole
   TRAJOPT_RICCATI(3, 2);     // car
   TRAJOPT_RICCATI(2, 1);     // pendulum, double integrator
+  TRAJOPT_RICCATI(4, 5);     // cartpole with the slacks
+  TRAJOPT_RICCATI(3, 5);     // car with the slacks
+  TRAJOPT_RICCATI(2, 3);     // pendulum, double integrator with the slacks
 #undef TRAJOPT_RICCATI
   return (int)cudaErrorInvalidValue;
 }

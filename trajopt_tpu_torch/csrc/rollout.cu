@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_rollout.py::_rollout_kernel
 // (front end rollout_closed_loop_pallas) with the model's step inlined
-// (models.cuh: the quadrotor, the slack-augmented quadrotor, cartpole, car,
-// pendulum, double integrator) and, for the quadrotor's error-state solves,
+// (models.cuh: the quadrotor, cartpole, car, pendulum, double integrator, and
+// each of them with the slack controls of the infeasible-start transform)
+// and, for the quadrotor's error-state solves,
 // quadrotor_state_diff_lanes (quaternion error state). For every problem and
 // knot k:
 //   u_k = U_k + K_k·δx_k + α d_k,  δx_k = x̄_k − X_k  or  state_diff(x̄_k, X_k)
@@ -163,7 +164,15 @@ extern "C" int trajopt_rollout_f32(
     case kModelCar: TRAJOPT_ROLLOUT(Car, false);
     case kModelPendulum: TRAJOPT_ROLLOUT(Pendulum, false);
     case kModelDoubleIntegrator: TRAJOPT_ROLLOUT(DoubleIntegrator, false);
-    case kModelQuadrotorSlack: TRAJOPT_ROLLOUT(QuadrotorSlack, false);
+    case kModelSlack + kModelQuadrotor:
+      TRAJOPT_ROLLOUT(WithSlack<Quadrotor>, false);
+    case kModelSlack + kModelCartpole:
+      TRAJOPT_ROLLOUT(WithSlack<Cartpole>, false);
+    case kModelSlack + kModelCar: TRAJOPT_ROLLOUT(WithSlack<Car>, false);
+    case kModelSlack + kModelPendulum:
+      TRAJOPT_ROLLOUT(WithSlack<Pendulum>, false);
+    case kModelSlack + kModelDoubleIntegrator:
+      TRAJOPT_ROLLOUT(WithSlack<DoubleIntegrator>, false);
   }
 #undef TRAJOPT_ROLLOUT
   return (int)cudaErrorInvalidValue;

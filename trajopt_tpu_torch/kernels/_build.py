@@ -64,13 +64,14 @@ SIGNATURES = {
     "fused_al_backward": {
         # X, U, lam, mu, dt, Q, R, H, q, r, rho, row_i, row_f, groups,
         # col_ptr, col_rows, K, d, dV, fail, Aout, Bout, batch, N, P, G,
-        # reg_state, atol, stream
-        "trajopt_fused_al_backward_f32": (_P,) * 22 + (_I,) * 5 + (_F, _P)},
+        # model, reg_state, atol, stream
+        "trajopt_fused_al_backward_f32": (_P,) * 22 + (_I,) * 6 + (_F, _P)},
     "fused_al_forward": {
         # x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
         # R, H, q, r, c, row_i, row_f, active, Xout, Uout, scal, batch, N, P,
-        # ls_iters, ls_lb, ls_ub, reg_min, reg_factor, reg_fp, atol, stream
-        "trajopt_fused_al_forward_f32": (_P,) * 26 + (_I,) * 4 + (_F,) * 6
+        # model, ls_iters, ls_lb, ls_ub, reg_min, reg_factor, reg_fp, atol,
+        # stream
+        "trajopt_fused_al_forward_f32": (_P,) * 26 + (_I,) * 5 + (_F,) * 6
         + (_P,)},
 }
 

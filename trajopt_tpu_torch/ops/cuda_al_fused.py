@@ -5,7 +5,7 @@ Counterpart of ``trajopt_tpu/ops/pallas_al_fused.py``. One constrained iLQR
 iteration is two programs:
 
 - backward (K3, ``csrc/fused_al_backward.cu``): per knot, inside the
-  backward sweep, the discrete-step Jacobians (the slack columns of the
+  backward sweep, the discrete-step Jacobians (the slack columns of an
   infeasible-start model are the identity), the quadratic stage expansion,
   the Gauss-Newton AL expansion lx += cxᵀg, lxx += cxᵀIμcx (g = Iμ∘c + λ)
   of the canonical constraint stack, then the Riccati step;
@@ -16,14 +16,18 @@ iteration is two programs:
 versions: model-generic, they set the semantics and run on the CPU.
 ``fused_al_backward_cuda`` and ``fused_al_forward_cuda`` are the wrappers: a
 tensor on the CPU goes to the plain version, a CUDA tensor to the kernel,
-and anything the kernels do not take raises. The kernels carry the
-quadrotor's RK3 step with n = 13 states and 4 + 13 controls as compile-time
-constants; the constraint stack, N and the batch are run-time arguments.
+and anything the kernels do not take raises. The kernels carry the RK3 step
+of every model of ``ops/cuda_models.py``, with or without the n slack
+controls of the infeasible-start transform, as compile-time traits (ten
+instantiations each); the constraint stack, N and the batch are run-time
+arguments.
 
 λ and μ must arrive zero on invalid (knot, row) pairs: the constraint
 masks are not part of the canonical data (``ops/canonical.py``).
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -34,13 +38,11 @@ from trajopt_tpu_torch.ops.canonical import (
 from trajopt_tpu_torch.ops.cost import (
     Expansion, Objective, cost_expansion, total_cost,
 )
+from trajopt_tpu_torch.ops.cuda_models import cuda_model, find_cuda_model
 from trajopt_tpu_torch.ops.line_search import HostSyncs, line_search
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
 
-# the kernels' compile-time shapes: quadrotor state, base and slack controls
-KN, KM_BASE = 13, 4
-KM = KM_BASE + KN
 # the divergence limits the kernels carry (iLQROptions' defaults)
 MAX_VALUE = 1e8
 
@@ -94,34 +96,27 @@ def fused_al_forward(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
 # ------------------------------------------------------------ the wrappers
 
 def cuda_model_supported(model) -> bool:
-    """True for the one model the kernels carry: the quadrotor's RK3 step
-    with its 13 slack controls."""
-    return (getattr(model, "cuda_step", None) == "quadrotor_rk3"
-            and getattr(model, "slack_m", None) == KM_BASE
-            and model.n == KN and model.m == KM)
+    """True for the models the kernels carry: an RK3 step of
+    ``ops/cuda_models.py``, with or without the slack controls."""
+    return find_cuda_model(model, slack_ok=True) is not None
 
 
 def _check_common(fn, model, canon, X, U, lam, mu, dt_traj, obj):
-    if not cuda_model_supported(model):
-        raise NotImplementedError(
-            f"{fn}: no fused AL kernel for model "
-            f"{getattr(model, 'name', model)!r}; the kernels carry the "
-            "slack-augmented quadrotor RK3 step only (other models' steps: "
-            "ROADMAP Queue 2, K6)")
-    Bz, N, n = X.shape
-    dev = X.device
-    if canon.n != KN or canon.m != KM or canon.row_i.device != dev:
+    cm = cuda_model(model, fn, slack_ok=True)
+    Bz, N, _ = X.shape
+    n, m, dev = cm.n, cm.m, X.device
+    if canon.n != n or canon.m != m or canon.row_i.device != dev:
         raise ValueError(f"{fn}: the canonical stack must be compiled for "
-                         f"n={KN}, m={KM} on {dev}")
+                         f"n={n}, m={m} on {dev}")
     P = canon.P
     for name, t, shape in (
-            ("X", X, (Bz, N, KN)), ("U", U, (Bz, N - 1, KM)),
+            ("X", X, (Bz, N, n)), ("U", U, (Bz, N - 1, m)),
             ("lam", lam, (Bz, N, P)), ("mu", mu, (Bz, N, P)),
-            ("dt_traj", dt_traj, (N - 1,)), ("Q", obj.Q, (N, KN, KN)),
-            ("R", obj.R, (N, KM, KM)), ("H", obj.H, (N, KM, KN)),
-            ("q", obj.q, (N, KN)), ("r", obj.r, (N, KM)), ("c", obj.c, (N,))):
+            ("dt_traj", dt_traj, (N - 1,)), ("Q", obj.Q, (N, n, n)),
+            ("R", obj.R, (N, m, m)), ("H", obj.H, (N, m, n)),
+            ("q", obj.q, (N, n)), ("r", obj.r, (N, m)), ("c", obj.c, (N,))):
         _build.check_input(fn, name, t, shape, dev)
-    return Bz, N, P
+    return cm, Bz, N, P
 
 
 def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
@@ -129,22 +124,24 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
                            return_jacobians=False):
     """Fused AL backward sweep on kernel K3. Arguments and results as
     :func:`fused_al_backward`; with ``return_jacobians`` the kernel also
-    writes out its in-kernel A and the base-control columns of B (the slack
+    writes out its in-kernel A and the base-control columns of B (slack
     columns are the identity, which the kernel never forms). CPU tensors
     run the plain version; CUDA tensors must be contiguous float32."""
     if X.device.type == "cpu":
         return fused_al_backward(model, canon, X, U, lam, mu, dt_traj, obj,
                                  rho, atol, reg_state, return_jacobians)
     fn = "fused_al_backward_cuda"
-    Bz, N, P = _check_common(fn, model, canon, X, U, lam, mu, dt_traj, obj)
+    cm, Bz, N, P = _check_common(fn, model, canon, X, U, lam, mu, dt_traj,
+                                 obj)
     _build.check_input(fn, "rho", rho, (Bz,), X.device)
+    n, m = cm.n, cm.m
 
     lib = _build.load()
     new = lambda *s: torch.empty(s, dtype=X.dtype, device=X.device)  # noqa
-    K, d, dV = new(Bz, N - 1, KM, KN), new(Bz, N - 1, KM), new(2, Bz)
+    K, d, dV = new(Bz, N - 1, m, n), new(Bz, N - 1, m), new(2, Bz)
     fail = torch.empty((Bz,), dtype=torch.bool, device=X.device)
-    Aout = new(Bz, N - 1, KN, KN) if return_jacobians else None
-    Bout = new(Bz, N - 1, KN, KM_BASE) if return_jacobians else None
+    Aout = new(Bz, N - 1, n, n) if return_jacobians else None
+    Bout = new(Bz, N - 1, n, cm.m_base) if return_jacobians else None
     err = lib.trajopt_fused_al_backward_f32(
         X.data_ptr(), U.data_ptr(), lam.data_ptr(), mu.data_ptr(),
         dt_traj.data_ptr(), obj.Q.data_ptr(), obj.R.data_ptr(),
@@ -154,18 +151,23 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
         canon.col_rows.data_ptr(), K.data_ptr(), d.data_ptr(), dV.data_ptr(),
         fail.data_ptr(), Aout.data_ptr() if return_jacobians else None,
         Bout.data_ptr() if return_jacobians else None,
-        Bz, N, P, canon.groups.shape[0], int(bool(reg_state)), float(atol),
-        _build.stream(X.device))
+        Bz, N, P, canon.groups.shape[0], cm.id, int(bool(reg_state)),
+        float(atol), _build.stream(X.device))
     _build.check(err, "trajopt_fused_al_backward_f32")
     fused_al_backward_cuda.launches += 1
+    fused_al_backward_cuda.launches_by[cm.label] += 1
     out = (K, d, dV[0], dV[1], fail)
     if return_jacobians:
-        eye = torch.eye(KN, dtype=X.dtype, device=X.device)
-        out += (Aout, torch.cat([Bout, eye.expand(Bz, N - 1, KN, KN)], -1))
+        if cm.m != cm.m_base:       # the slack columns the kernel never forms
+            eye = torch.eye(n, dtype=X.dtype, device=X.device)
+            Bout = torch.cat([Bout, eye.expand(Bz, N - 1, n, n)], -1)
+        out += (Aout, Bout)
     return out
 
 
+# launches in all, and by the kernel's instantiation
 fused_al_backward_cuda.launches = 0
+fused_al_backward_cuda.launches_by = collections.Counter()
 
 
 def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
@@ -182,7 +184,8 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
                                 obj, opts_t, atol, active=active,
                                 syncs=syncs)
     fn = "fused_al_forward_cuda"
-    Bz, N, P = _check_common(fn, model, canon, X, U, lam, mu, dt_traj, obj)
+    cm, Bz, N, P = _check_common(fn, model, canon, X, U, lam, mu, dt_traj,
+                                 obj)
     dev = X.device
     alpha0 = torch.ones(Bz, dtype=X.dtype, device=dev) if alpha0 is None \
         else alpha0
@@ -192,8 +195,8 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
         raise ValueError(f"{fn}: active must be a contiguous bool tensor "
                          f"of shape ({Bz},) on {dev}")
     for name, t, shape in (
-            ("x0", x0, (Bz, KN)), ("K", K, (Bz, N - 1, KM, KN)),
-            ("d", d, (Bz, N - 1, KM)), ("dV1", dV1, (Bz,)),
+            ("x0", x0, (Bz, cm.n)), ("K", K, (Bz, N - 1, cm.m, cm.n)),
+            ("d", d, (Bz, N - 1, cm.m)), ("dV1", dV1, (Bz,)),
             ("dV2", dV2, (Bz,)), ("J_prev", J_prev, (Bz,)),
             ("rho", rho, (Bz,)), ("drho", drho, (Bz,)),
             ("alpha0", alpha0, (Bz,))):
@@ -213,13 +216,15 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
         obj.r.data_ptr(), obj.c.data_ptr(), canon.row_i.data_ptr(),
         canon.row_f.data_ptr(),
         None if active is None else active.data_ptr(), Xout.data_ptr(),
-        Uout.data_ptr(), scal.data_ptr(), Bz, N, P, int(ls_iters),
+        Uout.data_ptr(), scal.data_ptr(), Bz, N, P, cm.id, int(ls_iters),
         float(ls_lb), float(ls_ub),
         float(reg_min), float(reg_factor), float(reg_fp), float(atol),
         _build.stream(dev))
     _build.check(err, "trajopt_fused_al_forward_f32")
     fused_al_forward_cuda.launches += 1
+    fused_al_forward_cuda.launches_by[cm.label] += 1
     return Xout, Uout, scal[0], scal[1], scal[2], scal[3]
 
 
 fused_al_forward_cuda.launches = 0
+fused_al_forward_cuda.launches_by = collections.Counter()

@@ -3,9 +3,9 @@
 ``rollout_closed_loop_cuda`` wraps ``csrc/rollout.cu``, the counterpart of
 ``trajopt_tpu/ops/pallas_rollout.py::rollout_closed_loop_pallas`` with the
 model's RK3 step inlined (``csrc/models.cuh``): the full-state rollout
-(``quat_slice=None``) for every model of ``ops/cuda_models.py`` and the
-slack-augmented quadrotor, and the quaternion error state for the
-quadrotor. A tensor on the CPU goes to the plain version
+(``quat_slice=None``) for every model of ``ops/cuda_models.py``, with or
+without the slack controls of the infeasible-start transform, and the
+quaternion error state for the quadrotor. A tensor on the CPU goes to the plain version
 ``ops/rollout.py::rollout_closed_loop``; a CUDA tensor goes to the kernel,
 and anything the kernel does not take raises.
 """

@@ -2,8 +2,8 @@
 
 Counterpart of ``trajopt_tpu/parallel/batch.py``'s ``solve_batch`` (the
 whole AL solve for a batch of starts in one call) and of
-``solve_batch_queued``, ``solve_batch_queued_altro`` and
-``solve_batch_queued_altro_retry``: a pool
+``solve_batch_queued``, ``solve_batch_queued_altro``,
+``solve_batch_queued_altro_retry`` and ``pn_polish_batch``: a pool
 of problems streams through a fixed number of lanes, one AL outer iteration
 per round, and a lane whose problem finishes takes the next problem from the
 front of the pool. The JAX package runs this as one compiled
@@ -225,3 +225,21 @@ def solve_batch_queued_altro_retry(prob: Problem, opts, x0s,
             c_max=upd(r.c_max, r2.c_max), J=upd(r.J, r2.J),
             iterations_total=upd(r.iterations_total, r2.iterations_total))
     return r, n_retried
+
+
+def pn_polish_batch(prob: Problem, Xs, Us, opts=None, syncs=None):
+    """Batched projected-Newton polish of a pool of AL-converged
+    trajectories Xs (B, N, n), Us (B, N-1, m): the batch-scale version of
+    ALTRO's AL → PN handoff (reference altro_methods.jl:30-40 +
+    projected_newton.jl:200-324). Each problem is the template ``prob``
+    re-seeded with its solved (X, U), its start taken from the trajectory
+    (the dispersed pool), then projected to machine-precision feasibility.
+    Returns a PNResult with a leading problem dimension. float64 in, float64
+    out: cast a float32 AL result up first where c_max below ~1e-6 is
+    wanted."""
+    from trajopt_tpu_torch.solvers.projected_newton import (
+        PNOptions, pn_solve_batch,
+    )
+
+    return pn_solve_batch(prob, Xs[:, 0], Xs, Us,
+                          PNOptions() if opts is None else opts, syncs=syncs)

@@ -1,9 +1,9 @@
 """Problem zoo.
 
 Counterpart of ``trajopt_tpu/problems/zoo.py``: ``doubleintegrator``,
-``pendulum``, ``cartpole``, ``parallel_park``, ``car_3obs``, the
-unconstrained ``quadrotor_line`` and ``quadrotor_maze`` are ported (ROADMAP
-Queue 1: the rest of the zoo comes after). Every factory builds on
+``pendulum``, ``cartpole``, ``parallel_park``, ``car_3obs``, ``car_escape``,
+the unconstrained ``quadrotor_line`` and ``quadrotor_maze`` are ported
+(ROADMAP Queue 1: the rest of the zoo comes after). Every factory builds on
 ``device``; None is the current CUDA device, and the CPU is asked for with
 ``device="cpu"``.
 """
@@ -108,6 +108,53 @@ def car_3obs(dtype=torch.float64, device=None):
     return problem(model_d, obj, constraints=cons, x0=np.zeros(n), xf=xf,
                    N=N, dt=0.05, U0=np.full((N - 1, m), 0.01), dtype=dtype,
                    device=device)
+
+
+def _escape_circles():
+    """(reference problems/car_escape.jl:20-46): 170 obstacle circles
+    (3·30 + 50 + 2·15)."""
+    r = 0.5
+    s1, s2, s3 = 30, 50, 15
+    circles = []
+    for xc in (0.0, 5.0, 10.0):
+        for i in np.linspace(0, 5, s1):
+            circles.append((xc, i, r))
+    for i in np.linspace(0, 10, s2):
+        circles.append((i, 0.0, r))
+    for i in np.linspace(0, 3, s3):
+        circles.append((i, 5.0, r))
+    for i in np.linspace(5, 8, s3):
+        circles.append((i, 5.0, r))
+    return circles
+
+
+def car_escape(dtype=torch.float64, device=None):
+    """(reference problems/car_escape.jl): the car leaves a walled room of
+    170 circles through its one gap; control box, goal, and an
+    infeasible-start state seed through five waypoints (N=101, tf=3;
+    P = 177, and 180 with the slack rows of the infeasible-start
+    transform)."""
+    device = resolve_device(device)
+    model_d = discretize(dynamics.car, "rk3")
+    n, m, N = 3, 2, 101
+    tf = 3.0
+    x0 = np.array([2.5, 2.5, 0.0])
+    xf = np.array([7.5, 2.5, 0.0])
+    obj = LQRObjective(np.eye(n) * 1e-3, np.eye(m) * 1e-2, np.eye(n) * 100.0,
+                       xf, N, dtype=dtype, device=device)
+    cons = ConstraintSetBuilder(N)
+    cons.add(bound_constraint(n, m, u_min=-5.0, u_max=5.0))
+    cons.add(obstacle_field_constraint(_escape_circles(), label="trap"),
+             knots=range(1, N - 1))
+    cons.add(goal_constraint(xf))
+    prob = problem(model_d, obj, constraints=cons, x0=x0, xf=xf, N=N, tf=tf,
+                   U0=np.ones((N - 1, m)), dtype=dtype, device=device)
+    # infeasible-start seed (car_escape.jl:68-71)
+    X_guess = np.array([
+        [2.5, 2.5, 0.0], [4.0, 5.0, 0.785], [5.0, 6.25, 0.0],
+        [7.5, 6.25, -0.261], [9.0, 5.0, -1.57], [7.5, 2.5, 0.0],
+    ]).T
+    return initial_states(prob, interp_rows(N, tf, X_guess))
 
 
 def quadrotor_line(N=101, dtype=torch.float64, device=None,

@@ -8,9 +8,9 @@ dimension.
 
 Which kernels a solve on a CUDA tensor runs on follows from what it is, not
 from a fallback. An unconstrained ``al_solve`` with ``fused=True`` runs on
-K7a and K7b. A constrained solve with a canonical stack on the
-slack-augmented quadrotor runs on K3 and K4 (``fused_al``, the default).
-Every other solve is phase-split: the Jacobians, the cost expansion and the
+K7a and K7b. A constrained solve with a canonical stack, of any model with
+a CUDA step, with or without slack controls, runs on K3 and K4
+(``fused_al``, the default). Every other solve is phase-split: the Jacobians, the cost expansion and the
 AL terms of ``al_cost_fns`` as torch ops, the backward pass on K5 (or K1
 with ``bp_type='sqrt'``), the line search's rollouts on K2.
 """

@@ -1,15 +1,24 @@
-"""ALTRO problem transforms for the batched AL stage.
+"""ALTRO meta-solver.
 
 Counterpart of ``trajopt_tpu/solvers/altro.py`` (reference
-src/solvers/altro/): the options, the infeasible-start slack transform and
-ALTRO's per-row penalty schedules, which ``parallel/batch.py::
-solve_batch_queued_altro`` drives. ``altro_solve``, the minimum-time
-transform and the projected-Newton polish are not ported yet (ROADMAP
-Queue 1 #11); ``ALTROOptions`` keeps their fields so options carry across.
+src/solvers/altro/). ALTRO = problem transforms (infeasible start) + the
+AL-iLQR primary solve + the optional projected-Newton polish + result
+post-processing (reference altro_methods.jl:2-124): the options, the
+infeasible-start slack transform, ALTRO's per-row penalty schedules (which
+``parallel/batch.py::solve_batch_queued_altro`` also drives) and
+``altro_solve``. The minimum-time transform is not ported yet (ROADMAP
+Queue 1 #11): ``altro_solve`` raises for it, and ``ALTROOptions`` keeps its
+fields so options carry across.
+
+On a CUDA tensor the AL stages run on the fused AL kernels K3 and K4 (the
+slack-augmented model first, the base model in the feasible re-solve), the
+TVLQR projection on K5 and K2; the polish is plain tensor code
+(``solvers/projected_newton.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,7 +29,9 @@ from trajopt_tpu_torch.ops.constraints import (
 )
 from trajopt_tpu_torch.ops.cost import Objective
 from trajopt_tpu_torch.problem import Problem, update_problem
-from trajopt_tpu_torch.solvers.al import ALOptions
+from trajopt_tpu_torch.solvers.al import ALOptions, al_solve
+from trajopt_tpu_torch.solvers.ilqr import tvlqr_projection
+from trajopt_tpu_torch.solvers.projected_newton import PNOptions, pn_solve
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +57,20 @@ class ALTROOptions:
     penalty_scaling_minimum_time_equality: float = 1.0
     # projected newton
     projected_newton: bool = False
-    opts_pn: object = None
+    opts_pn: Optional[PNOptions] = None
     projected_newton_tolerance: float = 1e-3
+
+
+class ALTROResult(NamedTuple):
+    X: torch.Tensor
+    U: torch.Tensor
+    J: torch.Tensor
+    c_max: torch.Tensor
+    iterations: torch.Tensor
+    iterations_total: torch.Tensor
+    gradient: torch.Tensor
+    dt_traj: torch.Tensor  # per-interval dt
+    tt: torch.Tensor       # total trajectory time
 
 
 # ------------------------------------------------------------ constraint lift
@@ -163,3 +186,103 @@ def _penalty_rows(cs: ConstraintSet, opts: ALTROOptions, dtype):
     dev = cs.mask.device
     return (torch.as_tensor(mu0, dtype=dtype, device=dev),
             torch.as_tensor(sca, dtype=dtype, device=dev))
+
+
+# --------------------------------------------------------------- main solve
+
+def _al_fields(o: ALOptions):
+    return {f.name: getattr(o, f.name) for f in dataclasses.fields(o)}
+
+
+def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
+                infeasible: Optional[bool] = None,
+                minimum_time: Optional[bool] = None) -> ALTROResult:
+    """(reference solve!, altro_methods.jl:2-53).
+
+    The infeasible-start transform is selected from the problem's data (a
+    finite state seed, reference altro_methods.jl:98-124) unless
+    ``infeasible`` says otherwise. With it: the AL solve of the
+    slack-augmented problem, the optional projected-Newton polish, the
+    slacks stripped, and with ``resolve_feasible_problem`` the AL re-solve
+    of the original problem from the TVLQR projection of that trajectory
+    onto the dynamics (``dynamically_feasible_projection``). ``c_max`` of
+    the result is scored on the original constraints. A minimum-time problem
+    (``minimum_time=True`` or ``tf == 0``) raises ``NotImplementedError``.
+    """
+    dtype = prob.U.dtype
+    if infeasible is None:
+        infeasible = bool(torch.isfinite(prob.X).all())
+    if minimum_time is None:
+        minimum_time = prob.tf == 0.0
+    if minimum_time:
+        raise NotImplementedError(
+            "altro_solve: the minimum-time transform (minimum_time=True or "
+            "tf == 0) is not ported yet (ROADMAP Queue 1 #11)")
+
+    prob_altro = infeasible_problem(prob, opts.R_inf) if infeasible else prob
+
+    # PN handoff tolerance (altro_methods.jl:6-14)
+    ctol = opts.opts_al.constraint_tolerance
+    kickout = opts.opts_al.kickout_max_penalty
+    if opts.projected_newton:
+        if opts.projected_newton_tolerance >= 0:
+            ctol = opts.projected_newton_tolerance
+        else:
+            ctol = 0.0
+            kickout = True
+    opts_al = ALOptions(**{**_al_fields(opts.opts_al),
+                           "constraint_tolerance": ctol,
+                           "kickout_max_penalty": kickout})
+
+    mu0, sca = _penalty_rows(prob_altro.constraints, opts, dtype)
+    res_al = al_solve(prob_altro, opts_al, mu_init=mu0[None, :],
+                      penalty_scaling=sca)
+    X_a, U_a = res_al.X, res_al.U
+    iterations_total = res_al.iterations_total
+    J = res_al.J
+
+    # projected newton polish (altro_methods.jl:30-40)
+    if opts.projected_newton:
+        pn_opts = opts.opts_pn if opts.opts_pn is not None else PNOptions()
+        res_pn = pn_solve(update_problem(prob_altro, X=X_a, U=U_a), pn_opts)
+        X_a, U_a, J = res_pn.X, res_pn.U, res_pn.J
+
+    # ---------------- process results (altro_methods.jl:56-95)
+    n, m = prob.model.n, prob.model.m
+    X_out = X_a[:, :n].contiguous()
+    U_out = U_a[:, :m].contiguous()
+
+    if infeasible:
+        # strip the slacks, project to feasible, optionally re-solve
+        # (infeasible.jl:38-59)
+        prob_feas = update_problem(prob, X=X_out, U=U_out)
+        if opts.dynamically_feasible_projection:
+            dtf = prob_feas.dt_traj()
+            Xp, Up = tvlqr_projection(
+                prob_feas.model,
+                lambda X, U: prob_feas.obj.expansion(X, U, dtf),
+                prob_feas.x0[None], prob_feas.X[None], prob_feas.U[None],
+                prob_feas.dt, opts.opts_al.opts_uncon)
+            # as in the JAX package, the projection seeds the re-solve;
+            # without one the stripped trajectory is what comes back
+            prob_feas = update_problem(prob_feas, X=Xp[0], U=Up[0])
+
+        if opts.resolve_feasible_problem:
+            mu0f, scaf = _penalty_rows(prob_feas.constraints, opts, dtype)
+            res2 = al_solve(prob_feas, opts_al, mu_init=mu0f[None, :],
+                            penalty_scaling=scaf)
+            iterations_total = iterations_total + res2.iterations_total
+            J = res2.J
+            X_out, U_out = res2.X, res2.U
+
+    dt_out = prob.dt_traj()
+    # the final violation on the ORIGINAL constraints (reference
+    # max_violation(prob) post-solve, problem.jl:242-267: the augmented rows
+    # are internal)
+    cs = prob.constraints
+    c_max = cs.max_violation(cs.evaluate(X_out, U_out))
+    return ALTROResult(X=X_out, U=U_out, J=J, c_max=c_max,
+                       iterations=res_al.iterations,
+                       iterations_total=iterations_total,
+                       gradient=res_al.gradient, dt_traj=dt_out,
+                       tt=dt_out.sum())

@@ -19,8 +19,14 @@ those reads. Four iteration paths are ported:
 - the fused path (``fused=True``, ``objective`` given and
   ``_fused_eligible``): the backward pass is kernel K7a and the whole line
   search kernel K7b (``ops/cuda_fused.py``), two launches per iteration;
-- the fused AL path of the maze benchmark (``al_meta`` given and
-  ``_fused_al_eligible``): kernels K3 and K4 (``ops/cuda_al_fused.py``).
+- the fused AL path (``al_meta`` given and ``_fused_al_eligible``, the
+  default of a constrained solve whose constraints are all canonical):
+  kernels K3 and K4 (``ops/cuda_al_fused.py``), for every model with a CUDA
+  step, with or without the slack controls of the infeasible-start
+  transform.
+
+``tvlqr_projection`` (one backward pass and one closed-loop rollout at α = 0)
+runs on K5 and K2.
 
 A tensor on the CPU runs the kernels' plain versions instead; on a CUDA
 tensor no plain version stands in for a kernel: a model without a CUDA step
@@ -295,8 +301,9 @@ def _fused_al_eligible(model, opts: iLQROptions, meta, like=None):
     The rules the JAX package shares (a canonical stack, a plain quadratic
     objective, the scan backward pass on the full state, the default
     limits), and for a CUDA tensor ``like`` the Hopper kernels' own:
-    float32 and the one model they carry. Nothing of the TPU dispatch
-    (batch % 128, VMEM budgets, chunking) applies."""
+    float32 and a model they carry (``ops/cuda_models.py``, with or without
+    slack controls). Nothing of the TPU dispatch (batch % 128, VMEM budgets,
+    chunking) applies."""
     ok = ((opts.fused or opts.fused_al)
           and meta is not None and meta.canon is not None
           and isinstance(meta.objective, Objective)
@@ -489,3 +496,31 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
     return ILQRResult(X=X, U=U, K=K, d=d, J=J_prev, iterations=it,
                       gradient=grad, dJ=dJ, rho=rho, drho=drho,
                       converged=converged)
+
+
+@precise
+def tvlqr_projection(model, expansion_fn, x0, X, U, dt, opts: iLQROptions):
+    """Project dynamically infeasible trajectories into feasible space with
+    TVLQR tracking (reference projection!, ilqr_methods.jl:179-190): one
+    backward pass from ρ = 0 (kernel K5, or K1 with ``bp_type='sqrt'``; the ρ
+    retry climbs where float32 needs it), then one closed-loop rollout with
+    α = 0 (kernel K2, full state). Batched: x0 (B, n), X (B, N, n),
+    U (B, N-1, m); ``dt`` the uniform step as a Python float.
+    ``expansion_fn(X, U) -> Expansion``. Returns (X̄, Ū)."""
+    _check_supported(opts)
+    _check_card_path(model, X, dt)
+    dtype, dev = X.dtype, X.device
+    Bz, Nm1 = U.shape[0], U.shape[1]
+    dt_traj = torch.as_tensor(dt, dtype=dtype,
+                              device=dev).expand(Nm1).contiguous()
+    X, U = X.contiguous(), U.contiguous()
+    A, B = model.jacobian_traj(X[:, :-1], U, dt_traj)
+    exp = expansion_fn(X, U)
+    zero = torch.zeros(Bz, dtype=dtype, device=dev)
+    K, d, _, _, _, _ = backward_pass(A, B, exp, zero, torch.ones_like(zero),
+                                     opts)
+    Xn, Un, _ = rollout_closed_loop_cuda(
+        model, x0.contiguous(), X, U, K.contiguous(), d.contiguous(), zero,
+        dt, max_state_value=opts.max_state_value,
+        max_control_value=opts.max_control_value)
+    return Xn, Un
