@@ -84,8 +84,8 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
     re-solve, for the car; K5 and K2 only in the TVLQR projection;
 18. slice 4, path 2: ``solve_batch_queued_altro_retry`` on 1024
     ``car_escape`` starts over 128 lanes, then ``pn_polish_batch`` on the
-    result in float64 (the first 256, 128 problems at a time) and in float32
-    (the first 128); outcome bars from the JAX package
+    result in float64 and in float32 (the first 128 each); outcome bars
+    from the JAX package
     (``tools/slice4_gates_jax.py``);
 19. profile of one ``car_escape`` round of 10 fused iterations on 128 lanes;
 20. the instantiations no other path reaches, through
@@ -229,8 +229,10 @@ AL_KD_TOL, AL_DV_TOL = 2e-3, 1e-3
 # the car_escape pool: 1024 starts (seed 0, 0.05 m normal noise on x and y)
 ESCAPE_POOL = 1024
 # pn_polish_batch on the pool's result: in float64 the first POLISH_F64
-# problems, POLISH_CHUNK at a time, in float32 the first POLISH_CHUNK
-POLISH_F64, POLISH_CHUNK = 256, 128
+# problems, POLISH_CHUNK at a time, in float32 the first POLISH_CHUNK (256
+# in float64 until slice 5, cut for time: 65 s of an 867 s run of this
+# script on the H100)
+POLISH_F64, POLISH_CHUNK = 128, 128
 # Outcomes of the JAX package on the CPU (tools/slice4_gates_jax.py, run
 # before the first GPU run). altro_solve(car_escape()) in float32: c_max
 # 1.5e-10 with the polish (8 outer, 84 inner iterations) and 8.8e-9 with the
@@ -249,6 +251,50 @@ JAX_ESCAPE_F32, ESCAPE_F32_BAR, ESCAPE_BARS = (1.5e-10, 8.8e-9), 1e-3, \
 JAX_ESCAPE_POOL_SHARE = 1.0
 JAX_ESCAPE_POLISH = {"float32": 0.5, "float64": 0.8125}
 POLISH_MARGIN = 0.25
+
+# --- slice 5 (kuka_obstacles: the chain step and the fk rows) ---
+# the kuka stack's K3 Jacobians: within this share of their scale of
+# jacobian_traj's (or three times the float32 plain version's distance from
+# float64)
+KUKA_JAC_RTOL = 1e-5
+# K2 on stiff gains against the float64 plain version: the arm's rollouts
+# amplify float32 rounding, so two float32 orders of operations land at
+# distances from float64 that differ by about 2x (H100: kernel 2.8e-3, plain
+# version 1.5e-3 of scale, |K| up to 48); the kernel is held to three times
+# the plain version's distance, as the other kuka checks are
+KUKA_STIFF_RATIO = 3.0
+# Path 1's bars, tests/test_altro.py:110-111: c_max < 1e-3 and the goal
+# within 1e-3. The JAX package on the CPU (tools/slice5_gates_jax.py) meets
+# them in float32 (c_max 5.47e-4, goal error 3.8e-5, 7 outer and 459 inner
+# iterations; 5.17e-4, 2.4e-5 and 461 inner with XLA's CPU threads
+# limited, a different order of float32 sums) and in float64 (5.61e-4,
+# 1.1e-5, 6 and 191).
+KUKA_BARS = (1e-3, 1e-3)
+JAX_KUKA_F32 = (5.47e-4, 3.8e-5, 7, 459)
+# Path 2: KUKA_POOL starts (seed 0, q perturbed by N(0, 0.05²) rad, q̇ = 0),
+# the first KUKA_POOL_RUN of them driven over 128 lanes (one round) in each
+# arm, with the tuned options cut to KUKA_POOL_DEPTH = (outer iterations,
+# inner cap). At the tuned options' own depth (20, 300) the pool does not
+# fit the run: 256 starts took 26,138 batched iterations and 1,427 s in the
+# phase-split arm on the H100 (c_max < 1e-3 on 0.199; the JAX package in
+# float32 and in float64 on the CPU solves 2 of the first 16 starts there,
+# after 1,087 and 1,453 inner iterations in float32). The cut keeps the
+# inner cap and takes the first 5 outer iterations: the first depth at
+# which the JAX package brings some of the first 16 starts to the goal
+# within 1e-3 (starts 4 and 7; c_max < 1e-3 takes 8). The JAX package in
+# float32 at this depth on the first KUKA_GATE_COUNT starts
+# (tools/slice5_gates_jax.py): the shares with c_max < 1e-3, with the goal
+# within 1e-3 and with c_max < 1e-1, which each arm must reach on the same
+# starts less GATE_MARGIN; the arms must agree on all of their starts
+# within KUKA_ARM_MARGIN. There 10 of the 64 reach the goal within 1e-3
+# with c_max between 0.0045 and 0.03 after at most 385 inner iterations; the
+# other 54 stop at c_max ~1.6.
+KUKA_POOL, KUKA_POOL_RUN, KUKA_POOL_DEPTH = 1024, 128, (5, 300)
+KUKA_GATE_COUNT = 64
+JAX_KUKA_POOL = dict(cmax_1e3=0.0, goal_1e3=0.15625, cmax_1e1=0.15625)
+# Path 3 (the slack instantiations): the inner cap of its one outer iteration
+KUKA_SLACK_INNER = 10
+KUKA_ARM_MARGIN = 0.03
 
 
 def log(*a):
@@ -1292,17 +1338,100 @@ def riccati_flops(n, m):
 
 
 # operations of one evaluation of a model's dynamics (a count by hand of
-# csrc/models.cuh; with one tangent three times that)
+# csrc/models.cuh; with one tangent three times that); a rigid-body chain's
+# are counted from its table by chain_dyn_ops
 DYN_OPS = dict(quadrotor=120, cartpole=40, car=8, pendulum=8,
                doubleintegrator=1)
 
 
-def step_ops(label, n):
-    """Operations of one RK3 step (with slack controls, ``label`` ends in
-    ``_slack``: n more additions): three dynamics evaluations and the
-    combinations."""
+def chain_dyn_ops(table):
+    """Operations that one evaluation of a rigid-body chain's dynamics needs
+    (``Chain::dynamics`` of csrc/models.cuh), counted from the chain table
+    the kernels read (``models/rigidbody_lanes.py::chain_table``): only
+    products of two entries that are not structurally zero, as the JAX lane
+    code leaves out its zero coefficients. Xup(q) has the nonzeros of its
+    affine coefficients; the composite inertias, velocities, accelerations
+    and forces carry the nonzero pattern that their products give. A
+    product term is two operations (multiply, add), as is each sin/cos
+    coefficient term of Xup; the spatial cross products count 30 each, the
+    7x7 equilibrated solve its loops."""
+    t = np.asarray(table, np.float64)
+    D = 8                                   # kChainMaxDof
+    C = t[:D * 108].reshape(D, 3, 6, 6)
+    o = D * 108
+    S, o = t[o:o + D * 6].reshape(D, 6) != 0, o + D * 6
+    Inert, o = t[o:o + D * 36].reshape(D, 6, 6) != 0, o + D * 36
+    Bact, o = t[o:o + D * D].reshape(D, D) != 0, o + D * D
+    o += D                                  # damping
+    parent = t[o:o + D].astype(int)
+    nd = int(t[-2])
+
+    def prod(a, b):
+        """Operations of a @ b on patterns, and the pattern of the result."""
+        k = a.astype(int) @ b.astype(int)
+        return 2 * int(k.sum()), k > 0
+
+    Xp = [(C[k] != 0).any(0) for k in range(nd)]
+    ops = sum(2 * int((C[k, 1:] != 0).sum()) for k in range(nd))
+    # CRBA: composite inertias from the leaves in, then H's columns
+    Ic = [Inert[i].copy() for i in range(nd)]
+    for i in range(nd - 1, -1, -1):
+        if parent[i] >= 0:
+            a, XtI = prod(Xp[i].T, Ic[i])
+            b, add = prod(XtI, Xp[i])
+            ops += a + b + int(add.sum())
+            Ic[parent[i]] = Ic[parent[i]] | add
+        a, F = prod(Ic[i], S[i][:, None])
+        ops += a + 2 * int((S[i] & F[:, 0]).sum())
+        j = i
+        while parent[j] >= 0:
+            a, F = prod(Xp[j].T, F)
+            j = parent[j]
+            ops += a + 2 * int((S[j] & F[:, 0]).sum())
+    # RNEA with q̈ = 0: out, then the forces back in
+    v, acc, f = [None] * nd, [None] * nd, [None] * nd
+    grav = np.zeros((6, 1), bool)
+    grav[5] = True
+    for i in range(nd):
+        vJ = S[i][:, None]
+        ops += int(vJ.sum())
+        p = parent[i]
+        if p >= 0:
+            a, v[i] = prod(Xp[i], v[p])
+            b, acc[i] = prod(Xp[i], acc[p])
+            ops += a + b + int(vJ.sum())
+            v[i] = v[i] | vJ
+        else:
+            b, acc[i] = prod(Xp[i], grav)
+            v[i] = vJ
+            ops += b
+        acc[i] = np.ones((6, 1), bool)      # + (v ×) vJ fills it
+        a, _ = prod(Inert[i], acc[i])
+        b, _ = prod(Inert[i], v[i])
+        ops += 30 + 6 + a + b + 30 + 6
+        f[i] = np.ones((6, 1), bool)
+    for i in range(nd - 1, -1, -1):
+        ops += 2 * int(S[i].sum())
+        if parent[i] >= 0:
+            a, _ = prod(Xp[i].T, f[i])
+            ops += a + 6
+    # τ = Bact u − bias − damping q̇, and the solve
+    ops += 2 * int(Bact[:nd, :nd].sum()) + 3 * nd
+    M = nd
+    ops += 2 * M + 2 * M * M + M
+    ops += sum(1 + (M - i - 1) * (1 + 2 * (M - i - 1) + 2) for i in range(M))
+    ops += sum(2 * (M - i - 1) + 1 for i in range(M)) + M
+    return ops
+
+
+def step_ops(label, n, model):
+    """Operations of one RK3 step of ``model`` (with slack controls,
+    ``label`` ends in ``_slack``: n more additions): three dynamics
+    evaluations and the combinations."""
     base = label.removesuffix("_slack")
-    return 3 * DYN_OPS[base] + 8 * n + (n if base != label else 0)
+    table = getattr(model, "chain_table", None)
+    dyn = DYN_OPS[base] if table is None else chain_dyn_ops(table)
+    return 3 * dyn + 8 * n + (n if base != label else 0)
 
 
 def model_setup(name, batch=B, seed=7):
@@ -1580,7 +1709,7 @@ def phase_k7a(report):
         ms_k = cuda_time_ms(lambda: fused_backward_cuda(*args), reps=20)
         plain_ms = cuda_time_ms(lambda: fused_backward(*args), reps=2,
                                 warmup=1)
-        per_knot = ((n + m) * 3 * step_ops(name, n)
+        per_knot = ((n + m) * 3 * step_ops(name, n, model)
                     + 2 * (n * n + m * m + 2 * m * n) + riccati_flops(n, m))
         bound_ms, bound_by = bound(
             B * (Nk - 1) * per_knot,
@@ -1715,7 +1844,7 @@ def phase_k7b(report, setups):
             ak > 0, torch.log2(alpha0 / ak.clamp(min=1e-30)).round() + 1,
             torch.full_like(ak, LS_OPTS[2] + 1.0))
         per_knot = (mm(m, 1, n) + 2 * (n * n + m * m + m * n)
-                    + step_ops(name, n))
+                    + step_ops(name, n, model))
         bound_ms, bound_by = bound(
             float(cands.sum()) * (Nk - 1) * per_knot,
             nbytes(x0, X, U, st["K"], d, dtt, obj.Q, obj.R, obj.H, obj.q,
@@ -1785,7 +1914,7 @@ def phase_k2_full(report, setups, maze):
         plain_ms = cuda_time_ms(lambda: rollout_closed_loop(model, *ins, dt),
                                 reps=2, warmup=1)
         bound_ms, bound_by = bound(
-            B * (Nk - 1) * (mm(m, 1, n) + step_ops(label, n)),
+            B * (Nk - 1) * (mm(m, 1, n) + step_ops(label, n, model)),
             nbytes(*ins) + nbytes(Xk, Uk, okk))
         log(f"{tag} time per rollout: kernel {ms_k:.4f} ms, plain version "
             f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}")
@@ -2206,6 +2335,15 @@ def phase_al_models(report):
     against their plain versions on the card, and with them the slack
     instantiations of K2 and the (n, m + n) shapes of K5 that the
     phase-split path of the same problems runs."""
+    for name, slack in AL_CASES:
+        al_case(report, al_setup(name, slack))
+
+
+def al_case(report, st):
+    """K3 and K4 of one instantiation (``st`` from ``al_setup`` or
+    ``kuka_setup``) against their plain versions on the card, and for the
+    slack instantiations (or where ``st["phase_split"]``) K2 on K3's gains
+    and K5 on the AL expansion of ``al_cost_fns``."""
     import torch
     from trajopt_tpu_torch.ops.canonical import canon_al_cost, pad_terminal
     from trajopt_tpu_torch.ops.cost import Expansion, total_cost
@@ -2219,242 +2357,257 @@ def phase_al_models(report):
     from trajopt_tpu_torch.solvers.al import al_cost_fns
     from trajopt_tpu_torch.solvers.ilqr import reg_noise_scale
 
-    for name, slack in AL_CASES:
-        st = al_setup(name, slack)
-        dev = st["p32"].device
-        one = torch.ones(B, device=dev)
-        label, p32, p64, Nk = st["label"], st["p32"], st["p64"], st["Nk"]
-        model, obj, canon, dt = p32.model, p32.obj, st["canon"], p32.dt_traj()
-        n, m, P = p32.n, p32.m, canon.P
-        mb = m - n if slack else m
-        X, U, lam, mu = st["data"]
-        tag = f"K3 {label} (n={n}, m={m}, P={P}, N={Nk})"
+    name, slack = st["name"], st["slack"]
+    dev = st["p32"].device
+    one = torch.ones(B, device=dev)
+    label, p32, p64, Nk = st["label"], st["p32"], st["p64"], st["Nk"]
+    model, obj, canon, dt = p32.model, p32.obj, st["canon"], p32.dt_traj()
+    n, m, P = p32.n, p32.m, canon.P
+    mb = m - n if slack else m
+    X, U, lam, mu = st["data"]
+    tag = f"K3 {label} (n={n}, m={m}, P={P}, N={Nk})"
 
-        def three(lam_, mu_, rho, jac=False):
-            """Kernel, float32 plain version (timed), float64 plain."""
-            k = fused_al_backward_cuda(model, canon, X, U, lam_, mu_, dt, obj,
-                                       rho, return_jacobians=jac)
-            p, ms_p = timed(lambda: fused_al_backward(
-                model, canon, X, U, lam_, mu_, dt, obj, rho,
-                return_jacobians=jac))
-            X64, U64 = st["data64"][:2]
-            q = fused_al_backward(p64.model, st["canon64"], X64, U64,
-                                  lam_.double(), mu_.double(), p64.dt_traj(),
-                                  p64.obj, rho.double())
-            return k, p, q, ms_p
+    def three(lam_, mu_, rho, jac=False):
+        """Kernel, float32 plain version (timed), float64 plain."""
+        k = fused_al_backward_cuda(model, canon, X, U, lam_, mu_, dt, obj,
+                                   rho, return_jacobians=jac)
+        p, ms_p = timed(lambda: fused_al_backward(
+            model, canon, X, U, lam_, mu_, dt, obj, rho,
+            return_jacobians=jac))
+        X64, U64 = st["data64"][:2]
+        q = fused_al_backward(p64.model, st["canon64"], X64, U64,
+                              lam_.double(), mu_.double(), p64.dt_traj(),
+                              p64.obj, rho.double())
+        return k, p, q, ms_p
 
-        # benign duals, rho = 1, and the in-kernel Jacobians
-        k, p, q, plain_ms = three(lam, mu, one, jac=True)
-        check(k[0].shape == (B, Nk - 1, m, n) and k[1].shape == (B, Nk - 1, m),
-              f"{tag}: output shapes")
-        check(not bool(k[4].any()), f"{tag}: a benign problem failed")
-        worst = compare_sweeps(f"{tag} rho=1", k[:5], p[:5], q,
-                               kd_tol=AL_KD_TOL, dv_tol=AL_DV_TOL)
-        eA = float((k[5] - p[5]).abs().max())
-        eB = float((k[6] - p[6]).abs().max())
-        log(f"{tag} Jacobians against jacobian_traj: max|dA| {eA:.2e}, "
-            f"max|dB| {eB:.2e} (tol {JAC_TOL:g})")
-        check(k[6].shape == (B, Nk - 1, n, m) and eA < JAC_TOL
-              and eB < JAC_TOL, f"{tag}: Jacobians disagree")
-        if label == "car_slack":
-            # late-schedule duals (penalties 1e6..1e8, one value a row): at
-            # rho = 0 and at the retry's jump; flags counted where rounding
-            # may decide them
-            row_mu = torch.as_tensor(
-                10.0 ** st["rng"].uniform(6, 8, size=P), dtype=torch.float32,
-                device=dev)
-            mu_late = (row_mu * p32.constraints.mask).expand(
-                B, Nk, -1).contiguous()
-            jump = reg_noise_scale(mu_late, torch.float32).contiguous()
-            for what, rho in (("rho = 0", torch.zeros(B, device=dev)),
-                              (f"rho = {float(jump.max()):.3g}", jump)):
-                k2, p2, q2, _ = three(lam, mu_late, rho)
-                log(f"{tag} late duals, {what}: fail kernel "
-                    f"{int(k2[4].sum())}, plain f32 {int(p2[4].sum())}, plain "
-                    f"f64 {int(q2[4].sum())} of {B}")
-                worst = max(worst, compare_sweeps(
-                    f"{tag} late duals, {what}", k2, p2, q2, same_flags=False,
-                    kd_tol=AL_KD_TOL, dv_tol=AL_DV_TOL))
-            # problem 7 made indefinite at knot 40 (negative penalties on
-            # its slack rows): it fails alone, gains zero at that stage
-            mu_bad = mu.clone()
-            r0, r1 = p32.constraints.row_slice("infeasible")
-            mu_bad[7, 40, r0:r1] = -1e3
-            k2, p2, q2, _ = three(lam, mu_bad, one)
-            check(k2[4].nonzero().flatten().tolist() == [7]
-                  and torch.equal(k2[4], p2[4]), f"{tag}: fail flags of the "
-                  "indefinite problem")
-            check(not bool(k2[0][7, 40].any())
-                  and not bool(k2[1][7, 40].any()),
-                  f"{tag}: gains left at the failed stage")
-            compare_sweeps(f"{tag} problem 7 indefinite at knot 40", k2, p2,
-                           q2, kd_tol=AL_KD_TOL, dv_tol=AL_DV_TOL)
-            log(f"{tag}: problem 7 fails alone in kernel and plain version")
+    # benign duals, rho = 1, and the in-kernel Jacobians
+    k, p, q, plain_ms = three(lam, mu, one, jac=True)
+    check(k[0].shape == (B, Nk - 1, m, n) and k[1].shape == (B, Nk - 1, m),
+          f"{tag}: output shapes")
+    check(not bool(k[4].any()), f"{tag}: a benign problem failed")
+    worst = compare_sweeps(f"{tag} rho=1", k[:5], p[:5], q,
+                           kd_tol=AL_KD_TOL, dv_tol=AL_DV_TOL)
+    eA = float((k[5] - p[5]).abs().max())
+    eB = float((k[6] - p[6]).abs().max())
+    jac_tol = JAC_TOL
+    if "jac_rtol" in st:
+        # the chain's B reaches ~3e2: its entries are held to a share of
+        # their scale, or to three times the float32 plain version's own
+        # distance from float64 where that is more
+        X64, U64 = st["data64"][:2]
+        A64, B64 = p64.model.jacobian_traj(X64[:, :-1], U64, p64.dt_traj())
+        own = max(float((p[5].double() - A64).abs().max()),
+                  float((p[6].double() - B64).abs().max()))
+        scale = max(1.0, float(A64.abs().max()), float(B64.abs().max()))
+        jac_tol = max(st["jac_rtol"] * scale, 3 * own)
+        log(f"{tag} Jacobians: scale {scale:.3e}, the float32 plain version "
+            f"{own:.2e} from float64")
+    log(f"{tag} Jacobians against jacobian_traj: max|dA| {eA:.2e}, "
+        f"max|dB| {eB:.2e} (tol {jac_tol:.2e})")
+    check(k[6].shape == (B, Nk - 1, n, m) and eA < jac_tol
+          and eB < jac_tol, f"{tag}: Jacobians disagree")
+    if label == "car_slack":
+        # late-schedule duals (penalties 1e6..1e8, one value a row): at
+        # rho = 0 and at the retry's jump; flags counted where rounding
+        # may decide them
+        row_mu = torch.as_tensor(
+            10.0 ** st["rng"].uniform(6, 8, size=P), dtype=torch.float32,
+            device=dev)
+        mu_late = (row_mu * p32.constraints.mask).expand(
+            B, Nk, -1).contiguous()
+        jump = reg_noise_scale(mu_late, torch.float32).contiguous()
+        for what, rho in (("rho = 0", torch.zeros(B, device=dev)),
+                          (f"rho = {float(jump.max()):.3g}", jump)):
+            k2, p2, q2, _ = three(lam, mu_late, rho)
+            log(f"{tag} late duals, {what}: fail kernel "
+                f"{int(k2[4].sum())}, plain f32 {int(p2[4].sum())}, plain "
+                f"f64 {int(q2[4].sum())} of {B}")
+            worst = max(worst, compare_sweeps(
+                f"{tag} late duals, {what}", k2, p2, q2, same_flags=False,
+                kd_tol=AL_KD_TOL, dv_tol=AL_DV_TOL))
+        # problem 7 made indefinite at knot 40 (negative penalties on
+        # its slack rows): it fails alone, gains zero at that stage
+        mu_bad = mu.clone()
+        r0, r1 = p32.constraints.row_slice("infeasible")
+        mu_bad[7, 40, r0:r1] = -1e3
+        k2, p2, q2, _ = three(lam, mu_bad, one)
+        check(k2[4].nonzero().flatten().tolist() == [7]
+              and torch.equal(k2[4], p2[4]), f"{tag}: fail flags of the "
+              "indefinite problem")
+        check(not bool(k2[0][7, 40].any())
+              and not bool(k2[1][7, 40].any()),
+              f"{tag}: gains left at the failed stage")
+        compare_sweeps(f"{tag} problem 7 indefinite at knot 40", k2, p2,
+                       q2, kd_tol=AL_KD_TOL, dv_tol=AL_DV_TOL)
+        log(f"{tag}: problem 7 fails alone in kernel and plain version")
 
-        args = (model, canon, X, U, lam, mu, dt, obj, one)
-        ms_k = cuda_time_ms(lambda: fused_al_backward_cuda(*args), reps=20)
-        # (timed again: the first call of a plain version sets torch.func up)
-        _, plain_ms = timed(lambda: fused_al_backward(*args))
-        per_knot = ((n + mb) * 3 * step_ops(name, n)
-                    + 2 * (n * n + m * m + 2 * m * n) + 14 * P
-                    + riccati_flops(n, m))
-        bound_ms, bound_by = bound(
-            B * (Nk - 1) * per_knot,
-            nbytes(X, U, lam, mu, dt, obj.Q, obj.R, obj.H, obj.q, obj.r, one,
-                   canon.row_i, canon.row_f) + nbytes(k[0], k[1]) + 9 * B)
-        log(f"{tag} time per sweep: kernel {ms_k:.4f} ms, plain version "
-            f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
-        kernel_entry(report, name=f"fused_al_backward_{label}",
-                     source="trajopt_tpu_torch/csrc/fused_al_backward.cu",
-                     replaces="trajopt_tpu/ops/pallas_al_fused.py:564",
-                     max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by)
+    args = (model, canon, X, U, lam, mu, dt, obj, one)
+    ms_k = cuda_time_ms(lambda: fused_al_backward_cuda(*args), reps=20)
+    # (timed again: the first call of a plain version sets torch.func up)
+    _, plain_ms = timed(lambda: fused_al_backward(*args))
+    per_knot = ((n + mb) * 3 * step_ops(name, n, model)
+                + 2 * (n * n + m * m + 2 * m * n) + 14 * P
+                + riccati_flops(n, m))
+    bound_ms, bound_by = bound(
+        B * (Nk - 1) * per_knot,
+        nbytes(X, U, lam, mu, dt, obj.Q, obj.R, obj.H, obj.q, obj.r, one,
+               canon.row_i, canon.row_f) + nbytes(k[0], k[1]) + 9 * B)
+    log(f"{tag} time per sweep: kernel {ms_k:.4f} ms, plain version "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    kernel_entry(report, name=f"fused_al_backward_{label}",
+                 source="trajopt_tpu_torch/csrc/fused_al_backward.cu",
+                 replaces="trajopt_tpu/ops/pallas_al_fused.py:564",
+                 max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
 
-        # ---- K4 on K3's gains: lanes K4_DIVERGE follow a blown-up
-        # feedforward, lane K4_EXHAUST gets a cost no candidate can beat
-        tag = f"K4 {label} (n={n}, m={m}, P={P}, N={Nk})"
-        K, d, dV1, dV2 = k[0], k[1].clone(), k[2], k[3]
-        quad = name == "quadrotor"
-        for lane in K4_DIVERGE:
-            d[lane] *= 1e6 if quad else 1e5
-        x0 = X[:, 0].contiguous()
-        J_prev = (total_cost(obj, X, U, dt) + canon_al_cost(
-            canon, X, pad_terminal(U), lam, mu)).contiguous()
-        J_prev[K4_EXHAUST] = -1e30
-        alpha0 = (0.5 ** (6 + torch.arange(B, device=dev) % 4)).float() \
-            if quad else one
-        args = (model, canon, x0, X, U, K, d, dV1, dV2, J_prev, one, one,
-                alpha0, lam, mu, dt, obj, LS_OPTS)
-        Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args)
-        torch.cuda.synchronize()
-        (Xp, Up, Jp, rp, drp, ap), plain_ms = timed(
-            lambda: fused_al_forward(*args))
-        check(Xk.shape == X.shape and Uk.shape == U.shape, f"{tag}: shapes")
-        same = ak == ap
-        share = float(same.float().mean())
-        calm = same.clone()
-        calm[list(K4_DIVERGE)] = False
-        eJ = float(((Jk - Jp).abs() / Jp.abs().clamp(min=1.0))[calm].max())
-        eX = float((Xk - Xp)[calm].abs().max()
-                   / max(1.0, float(Xp[calm].abs().max())))
-        eU = float((Uk - Up)[calm].abs().max()
-                   / max(1.0, float(Up[calm].abs().max())))
-        # stiff gains (|K| ~ 1e2 on the car_escape stack) amplify float32
-        # rounding of the state: the floor under any float32 rollout
-        pX, pU = rollout_eps(p64.model, (x0, X, U, K, d, ak), p32.dt, Xp, Up,
-                             calm & (ak > 0))
-        log(f"{tag}: alpha equal on {int(same.sum())}/{B} problems (bar "
-            f"{K4_ALPHA_SHARE}); on those J rel err {eJ:.2e} (tol "
-            f"{K4_J_TOL:g}), X {eX:.2e} and U {eU:.2e} of scale (tol "
-            f"{K4_X_TOL:g}, or 3x the float32 plain version's distance from "
-            f"float64: X {pX:.2e}, U {pU:.2e}); steps used "
-            f"{sorted(set(ak.tolist()))}")
-        check(share >= K4_ALPHA_SHARE, f"{tag}: takes other steps than the "
-              "plain version")
-        check(eJ < K4_J_TOL and eX < max(K4_X_TOL, 3 * pX)
-              and eU < max(K4_X_TOL, 3 * pU),
-              f"{tag}: disagrees with the plain version")
-        ex = K4_EXHAUST
-        for lane in K4_DIVERGE + (ex,):
-            check(float(ak[lane]) == float(ap[lane]),
-                  f"{tag} lane {lane}: step differs from the plain version")
-        check(float(ak[ex]) == 0.0 and torch.equal(Xk[ex], X[ex])
-              and torch.equal(Uk[ex], U[ex])
-              and float(Jk[ex]) == float(J_prev[ex]) and float(rk[ex]) > 10,
-              f"{tag}: the exhausted search did not restore its inputs")
-        check(torch.equal(rk[same], rp[same])
-              and torch.equal(drk[same], drp[same]),
-              f"{tag}: rho or drho differ from the plain version")
-        ok0 = rollout_closed_loop(model, x0, X, U, K, d, alpha0, p32.dt)[2]
-        died = [lane for lane in K4_DIVERGE if not bool(ok0[lane])]
-        log(f"{tag} branches: lanes {K4_DIVERGE} took alpha "
-            f"{[float(ak[i]) for i in K4_DIVERGE]} (first candidate "
-            f"diverged on lanes {died}); lane {ex} ran out: alpha 0, rho "
-            f"{float(rk[ex]):g}")
-        ms_k = cuda_time_ms(lambda: fused_al_forward_cuda(*args), reps=10)
-        cands = torch.where(
-            ak > 0, torch.log2(alpha0 / ak.clamp(min=1e-30)).round() + 1,
-            torch.full_like(ak, LS_OPTS[2] + 1.0))
-        per_knot = (mm(m, 1, n) + 2 * (n * n + m * m + m * n) + 10 * P
-                    + step_ops(label, n))
-        bound_ms, bound_by = bound(
-            float(cands.sum()) * (Nk - 1) * per_knot,
-            nbytes(x0, X, U, K, d, lam, mu, dt, obj.Q, obj.R, obj.H, obj.q,
-                   obj.r, obj.c, canon.row_i, canon.row_f, Xk, Uk) + 40 * B)
-        log(f"{tag} time per line search ({float(cands.mean()):.2f} "
-            f"candidates a problem, {int(cands.max())} at most): kernel "
-            f"{ms_k:.4f} ms, plain version {plain_ms:.1f} ms, bound "
-            f"{bound_ms:.5f} ms by {bound_by}")
-        kernel_entry(report, name=f"fused_al_forward_{label}",
-                     source="trajopt_tpu_torch/csrc/fused_al_forward.cu",
-                     replaces="trajopt_tpu/ops/pallas_al_fused.py:828",
-                     max_abs_err=float((Xk - Xp)[calm].abs().max()), ms=ms_k,
-                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if not slack:
-            continue
+    # ---- K4 on K3's gains: lanes K4_DIVERGE follow a blown-up
+    # feedforward, lane K4_EXHAUST gets a cost no candidate can beat
+    tag = f"K4 {label} (n={n}, m={m}, P={P}, N={Nk})"
+    K, d, dV1, dV2 = k[0], k[1].clone(), k[2], k[3]
+    quad = name == "quadrotor"
+    for lane in K4_DIVERGE:
+        d[lane] *= 1e6 if quad else 1e5
+    x0 = X[:, 0].contiguous()
+    J_prev = (total_cost(obj, X, U, dt) + canon_al_cost(
+        canon, X, pad_terminal(U), lam, mu)).contiguous()
+    J_prev[K4_EXHAUST] = -1e30
+    alpha0 = (0.5 ** (6 + torch.arange(B, device=dev) % 4)).float() \
+        if quad else one
+    args = (model, canon, x0, X, U, K, d, dV1, dV2, J_prev, one, one,
+            alpha0, lam, mu, dt, obj, LS_OPTS)
+    Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args)
+    torch.cuda.synchronize()
+    (Xp, Up, Jp, rp, drp, ap), plain_ms = timed(
+        lambda: fused_al_forward(*args))
+    check(Xk.shape == X.shape and Uk.shape == U.shape, f"{tag}: shapes")
+    same = ak == ap
+    share = float(same.float().mean())
+    calm = same.clone()
+    calm[list(K4_DIVERGE)] = False
+    eJ = float(((Jk - Jp).abs() / Jp.abs().clamp(min=1.0))[calm].max())
+    eX = float((Xk - Xp)[calm].abs().max()
+               / max(1.0, float(Xp[calm].abs().max())))
+    eU = float((Uk - Up)[calm].abs().max()
+               / max(1.0, float(Up[calm].abs().max())))
+    # stiff gains (|K| ~ 1e2 on the car_escape stack) amplify float32
+    # rounding of the state: the floor under any float32 rollout
+    pX, pU = rollout_eps(p64.model, (x0, X, U, K, d, ak), p32.dt, Xp, Up,
+                         calm & (ak > 0))
+    log(f"{tag}: alpha equal on {int(same.sum())}/{B} problems (bar "
+        f"{K4_ALPHA_SHARE}); on those J rel err {eJ:.2e} (tol "
+        f"{K4_J_TOL:g}), X {eX:.2e} and U {eU:.2e} of scale (tol "
+        f"{K4_X_TOL:g}, or 3x the float32 plain version's distance from "
+        f"float64: X {pX:.2e}, U {pU:.2e}); steps used "
+        f"{sorted(set(ak.tolist()))}")
+    check(share >= K4_ALPHA_SHARE, f"{tag}: takes other steps than the "
+          "plain version")
+    check(eJ < K4_J_TOL and eX < max(K4_X_TOL, 3 * pX)
+          and eU < max(K4_X_TOL, 3 * pU),
+          f"{tag}: disagrees with the plain version")
+    ex = K4_EXHAUST
+    for lane in K4_DIVERGE + (ex,):
+        check(float(ak[lane]) == float(ap[lane]),
+              f"{tag} lane {lane}: step differs from the plain version")
+    check(float(ak[ex]) == 0.0 and torch.equal(Xk[ex], X[ex])
+          and torch.equal(Uk[ex], U[ex])
+          and float(Jk[ex]) == float(J_prev[ex]) and float(rk[ex]) > 10,
+          f"{tag}: the exhausted search did not restore its inputs")
+    check(torch.equal(rk[same], rp[same])
+          and torch.equal(drk[same], drp[same]),
+          f"{tag}: rho or drho differ from the plain version")
+    ok0 = rollout_closed_loop(model, x0, X, U, K, d, alpha0, p32.dt)[2]
+    died = [lane for lane in K4_DIVERGE if not bool(ok0[lane])]
+    log(f"{tag} branches: lanes {K4_DIVERGE} took alpha "
+        f"{[float(ak[i]) for i in K4_DIVERGE]} (first candidate "
+        f"diverged on lanes {died}); lane {ex} ran out: alpha 0, rho "
+        f"{float(rk[ex]):g}")
+    ms_k = cuda_time_ms(lambda: fused_al_forward_cuda(*args), reps=10)
+    cands = torch.where(
+        ak > 0, torch.log2(alpha0 / ak.clamp(min=1e-30)).round() + 1,
+        torch.full_like(ak, LS_OPTS[2] + 1.0))
+    per_knot = (mm(m, 1, n) + 2 * (n * n + m * m + m * n) + 10 * P
+                + step_ops(label, n, model))
+    bound_ms, bound_by = bound(
+        float(cands.sum()) * (Nk - 1) * per_knot,
+        nbytes(x0, X, U, K, d, lam, mu, dt, obj.Q, obj.R, obj.H, obj.q,
+               obj.r, obj.c, canon.row_i, canon.row_f, Xk, Uk) + 40 * B)
+    log(f"{tag} time per line search ({float(cands.mean()):.2f} "
+        f"candidates a problem, {int(cands.max())} at most): kernel "
+        f"{ms_k:.4f} ms, plain version {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.5f} ms by {bound_by}")
+    kernel_entry(report, name=f"fused_al_forward_{label}",
+                 source="trajopt_tpu_torch/csrc/fused_al_forward.cu",
+                 replaces="trajopt_tpu/ops/pallas_al_fused.py:828",
+                 max_abs_err=float((Xk - Xp)[calm].abs().max()), ms=ms_k,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if not (slack or st.get("phase_split")):
+        return
 
-        # ---- the same slack problem phase-split: K2's slack instantiation
-        # on K3's gains (the quadrotor's: phase 13) ...
-        tag = f"K2 {label} (n={n}, m={m}, N={Nk})"
-        ins = [x0, X, U, K, k[1], one]
-        Xk, Uk, okk = rollout_closed_loop_cuda(model, *ins, p32.dt)
-        torch.cuda.synchronize()
-        (Xp, Up, okp), plain_ms = timed(
-            lambda: rollout_closed_loop(model, *ins, p32.dt))
-        check(torch.equal(okk, okp), f"{tag}: ok masks differ from the "
-              "plain version")
-        eX = float((Xk - Xp)[okk].abs().max()
-                   / max(1.0, float(Xp[okk].abs().max())))
-        eU = float((Uk - Up)[okk].abs().max()
-                   / max(1.0, float(Up[okk].abs().max())))
-        pX, pU = rollout_eps(p64.model, ins, p32.dt, Xp, Up, okk)
-        log(f"{tag}: ok {int(okk.sum())}/{B} in both, X {eX:.2e} and U "
-            f"{eU:.2e} of scale (tol {K7B_X_TOL:g}, or 3x the float32 plain "
-            f"version's distance from float64: X {pX:.2e}, U {pU:.2e})")
-        check(int(okk.sum()) > B // 2 and eX < max(K7B_X_TOL, 3 * pX)
-              and eU < max(K7B_X_TOL, 3 * pU),
-              f"{tag}: disagrees with the plain version")
-        ms_k = cuda_time_ms(
-            lambda: rollout_closed_loop_cuda(model, *ins, p32.dt), reps=50)
-        bound_ms, bound_by = bound(
-            B * (Nk - 1) * (mm(m, 1, n) + step_ops(label, n)),
-            nbytes(*ins) + nbytes(Xk, Uk, okk))
-        log(f"{tag} time per rollout: kernel {ms_k:.4f} ms, plain version "
-            f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
-        kernel_entry(report, name=f"rollout_closed_loop_{label}",
-                     source="trajopt_tpu_torch/csrc/rollout.cu",
-                     replaces="trajopt_tpu/ops/pallas_rollout.py:260",
-                     max_abs_err=float((Xk - Xp)[okk].abs().max()), ms=ms_k,
-                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    # ---- the same slack problem phase-split: K2's slack instantiation
+    # on K3's gains (the quadrotor's: phase 13) ...
+    tag = f"K2 {label} (n={n}, m={m}, N={Nk})"
+    # (kuka: at the steps K4 accepted; the full step from the held start
+    # throws most arms out of bounds)
+    ins = [x0, X, U, K, k[1], ak if st.get("phase_split") else one]
+    Xk, Uk, okk = rollout_closed_loop_cuda(model, *ins, p32.dt)
+    torch.cuda.synchronize()
+    (Xp, Up, okp), plain_ms = timed(
+        lambda: rollout_closed_loop(model, *ins, p32.dt))
+    check(torch.equal(okk, okp), f"{tag}: ok masks differ from the "
+          "plain version")
+    check(int(okk.sum()) > B // 2, f"{tag}: too few problems stay finite")
+    eX = float((Xk - Xp)[okk].abs().max()
+               / max(1.0, float(Xp[okk].abs().max())))
+    eU = float((Uk - Up)[okk].abs().max()
+               / max(1.0, float(Up[okk].abs().max())))
+    pX, pU = rollout_eps(p64.model, ins, p32.dt, Xp, Up, okk)
+    log(f"{tag}: ok {int(okk.sum())}/{B} in both, X {eX:.2e} and U "
+        f"{eU:.2e} of scale (tol {K7B_X_TOL:g}, or 3x the float32 plain "
+        f"version's distance from float64: X {pX:.2e}, U {pU:.2e})")
+    check(int(okk.sum()) > B // 2 and eX < max(K7B_X_TOL, 3 * pX)
+          and eU < max(K7B_X_TOL, 3 * pU),
+          f"{tag}: disagrees with the plain version")
+    ms_k = cuda_time_ms(
+        lambda: rollout_closed_loop_cuda(model, *ins, p32.dt), reps=50)
+    bound_ms, bound_by = bound(
+        B * (Nk - 1) * (mm(m, 1, n) + step_ops(label, n, model)),
+        nbytes(*ins) + nbytes(Xk, Uk, okk))
+    log(f"{tag} time per rollout: kernel {ms_k:.4f} ms, plain version "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    kernel_entry(report, name=f"rollout_closed_loop_{label}",
+                 source="trajopt_tpu_torch/csrc/rollout.cu",
+                 replaces="trajopt_tpu/ops/pallas_rollout.py:260",
+                 max_abs_err=float((Xk - Xp)[okk].abs().max()), ms=ms_k,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
-        # ... and K5's (n, m + n) shape on the AL expansion of al_cost_fns
-        if any(e["name"] == f"riccati_sweep_{n}x{m}"
-               for e in report["kernels"]):
-            continue                 # the pendulum's shape is the same
-        tag = f"K5 {label} ({n},{m}), N={Nk}"
-        X64, U64, lam64, mu64 = st["data64"]
-        A, Bm = p64.model.jacobian_traj(X64[:, :-1], U64, p64.dt_traj())
-        e = al_cost_fns(p64.obj, p64.constraints, p64.dt_traj(), lam64,
-                        mu64)[1](X64, U64)
-        ins = [t.float().contiguous()
-               for t in (A, Bm, e.x, e.u, e.xx, e.uu, e.ux)]
-        k5 = riccati_sweep_cuda(*ins, one)
-        torch.cuda.synchronize()
-        exp = Expansion(*ins[2:])
-        p5, plain_ms = timed(lambda: scan_sweep(ins[0], ins[1], exp, one))
-        q5 = scan_sweep(A, Bm, e, one.double())
-        worst = compare_sweeps(f"{tag} rho=1", k5, p5, q5)
-        ms_k = cuda_time_ms(lambda: riccati_sweep_cuda(*ins, one), reps=10)
-        bound_ms, bound_by = bound(
-            B * (Nk - 1) * riccati_flops(n, m),
-            nbytes(*ins, one) + nbytes(k5[0], k5[1]) + 9 * B)
-        log(f"{tag}: kernel {ms_k:.4f} ms per sweep, plain version "
-            f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
-        kernel_entry(report, name=f"riccati_sweep_{n}x{m}",
-                     source="trajopt_tpu_torch/csrc/riccati_sweep.cu",
-                     replaces="trajopt_tpu/ops/pallas_riccati.py:278",
-                     max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by)
+    # ... and K5's (n, m + n) shape on the AL expansion of al_cost_fns
+    if any(e["name"] == f"riccati_sweep_{n}x{m}"
+           for e in report["kernels"]):
+        return                   # the pendulum's shape is the same
+    tag = f"K5 {label} ({n},{m}), N={Nk}"
+    X64, U64, lam64, mu64 = st["data64"]
+    A, Bm = p64.model.jacobian_traj(X64[:, :-1], U64, p64.dt_traj())
+    e = al_cost_fns(p64.obj, p64.constraints, p64.dt_traj(), lam64,
+                    mu64)[1](X64, U64)
+    ins = [t.float().contiguous()
+           for t in (A, Bm, e.x, e.u, e.xx, e.uu, e.ux)]
+    k5 = riccati_sweep_cuda(*ins, one)
+    torch.cuda.synchronize()
+    exp = Expansion(*ins[2:])
+    p5, plain_ms = timed(lambda: scan_sweep(ins[0], ins[1], exp, one))
+    q5 = scan_sweep(A, Bm, e, one.double())
+    worst = compare_sweeps(f"{tag} rho=1", k5, p5, q5)
+    ms_k = cuda_time_ms(lambda: riccati_sweep_cuda(*ins, one), reps=10)
+    bound_ms, bound_by = bound(
+        B * (Nk - 1) * riccati_flops(n, m),
+        nbytes(*ins, one) + nbytes(k5[0], k5[1]) + 9 * B)
+    log(f"{tag}: kernel {ms_k:.4f} ms per sweep, plain version "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+    kernel_entry(report, name=f"riccati_sweep_{n}x{m}",
+                 source="trajopt_tpu_torch/csrc/riccati_sweep.cu",
+                 replaces="trajopt_tpu/ops/pallas_riccati.py:278",
+                 max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
 
 
 def al_kernels(*labels):
@@ -2764,6 +2917,435 @@ def phase_slice4_models(report):
           opts, x0s, al_kernels("quadrotor"), False)
 
 
+# ------------------------------------------------------------- slice 5
+
+def kuka_setup(slack, seed=5):
+    """Kernel inputs of K3 and K4 on the kuka stack at B = 128, N = 41, made
+    in float64 and handed out in both types: starts around the hold pose
+    (q noise 0.05, as the pool's), each problem's own hold torques plus 0.05
+    noise, λ ~ U(0, 0.5) and μ ~ U(0.5, 20) on the valid rows
+    (tests/test_fused_al.py:179-207). The states hold the start on every
+    knot, as a solve's first iteration sees them once the initial-rollout
+    guard has held x0: an open-loop rollout of the undamped arm at
+    dt = 0.125 blows up. With ``slack``, after the infeasible-start
+    transform with R_inf = 1e-8: the states 0.1 off the start on every
+    knot (as in that test) and the slack controls the defects that this
+    leaves, plus 0.02 noise."""
+    import torch
+    from trajopt_tpu_torch.ops.canonical import canonical_stack
+    from trajopt_tpu_torch.problems.zoo import kuka_obstacles
+    from trajopt_tpu_torch.solvers.altro import infeasible_problem
+
+    base = kuka_obstacles(dtype=torch.float64)
+    p64, p32 = base, kuka_obstacles(dtype=torch.float32)
+    if slack:
+        p64, p32 = (infeasible_problem(p, 1e-8) for p in (p64, p32))
+    dev = p64.device
+    n, m, Nk, P = p64.n, p64.m, p64.N, p64.constraints.P
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    x0s = base.x0[None] + t(np.concatenate(
+        [rng.normal(size=(B, 7)) * 0.05, np.zeros((B, 7))], axis=1))
+    hold = base.model.model.chain.bias_forces(x0s[:, :7],
+                                              torch.zeros_like(x0s[:, :7]))
+    U = hold[:, None] + t(rng.normal(size=(B, Nk - 1, 7)) * 0.05)
+    X = x0s[:, None].expand(B, Nk, n)
+    if slack:
+        X = torch.cat([X[:, :1], X[:, 1:] + t(rng.normal(
+            size=(B, Nk - 1, n)) * 0.1)], dim=1)
+        defect = X[:, 1:] - base.model.step(X[:, :-1], U,
+                                            base.dt_traj()[:, None])
+        U = torch.cat([U, defect + t(rng.normal(size=(B, Nk - 1, n)) * 0.02)],
+                      -1)
+    mask = p64.constraints.mask
+    lam = t(rng.uniform(0.0, 0.5, size=(B, Nk, P))) * mask
+    mu = t(rng.uniform(0.5, 20.0, size=(B, Nk, P))) * mask
+    data64 = [a.contiguous() for a in (X, U, lam, mu)]
+    return dict(
+        label="kuka" + ("_slack" if slack else ""), name="kuka", slack=slack,
+        p64=p64, p32=p32, Nk=Nk, rng=rng,
+        canon64=canonical_stack(p64.constraints, n, m, dtype=torch.float64),
+        canon=canonical_stack(p32.constraints, n, m, dtype=torch.float32),
+        data64=data64, data=[a.float().contiguous() for a in data64],
+        phase_split=True, jac_rtol=KUKA_JAC_RTOL)
+
+
+def phase_kuka_kernels(report):
+    """Every kuka instantiation against its plain version on the card: K3,
+    K4, K2 and K5 for ``kuka`` and ``kuka_slack`` through ``al_case`` (K3's
+    Jacobians, K4 with diverging lanes and a search that runs out); then K3
+    fed the same stack without its fk rows, K2 with two problems forced to
+    diverge, and K2 on stiff gains against the float64 plain version."""
+    import torch
+    from trajopt_tpu_torch.ops.canonical import canonical_stack
+    from trajopt_tpu_torch.ops.constraints import ConstraintSet
+    from trajopt_tpu_torch.ops.cuda_al_fused import (
+        fused_al_backward, fused_al_backward_cuda)
+    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
+    from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
+
+    for slack in (False, True):
+        st = kuka_setup(slack)
+        al_case(report, st)
+        label, p32, p64, Nk = st["label"], st["p32"], st["p64"], st["Nk"]
+        n, m = p32.n, p32.m
+        dev = p32.device
+        one = torch.ones(B, device=dev)
+        X, U, lam, mu = st["data"]
+        X64, U64, lam64, mu64 = st["data64"]
+
+        # K3 on the stack without its fk rows (bounds, goal, slack rows)
+        tag = f"K3 {label} without the fk rows"
+        stacks, cols = [], []
+        for p in (p32, p64):
+            cs = p.constraints
+            mask = cs.mask.cpu().numpy()
+            entries = [(c, mask[:, r0:r1].any(axis=1))
+                       for c, (r0, r1) in zip(cs.cons, cs.slices)
+                       if c.label != "obs"]
+            stacks.append(canonical_stack(
+                ConstraintSet.build(entries, Nk, device=dev), n, m,
+                dtype=p.U.dtype))
+        for c, (r0, r1) in zip(p32.constraints.cons, p32.constraints.slices):
+            if c.label != "obs":
+                cols += list(range(r0, r1))
+        cols = torch.as_tensor(cols, device=dev)
+        check(stacks[0].fk_joint.shape[0] == 0, f"{tag}: fk rows left")
+        k = fused_al_backward_cuda(
+            p32.model, stacks[0], X, U, lam[..., cols].contiguous(),
+            mu[..., cols].contiguous(), p32.dt_traj(), p32.obj, one)
+        pl = fused_al_backward(p32.model, stacks[0], X, U, lam[..., cols],
+                               mu[..., cols], p32.dt_traj(), p32.obj, one)
+        q = fused_al_backward(p64.model, stacks[1], X64, U64,
+                              lam64[..., cols], mu64[..., cols],
+                              p64.dt_traj(), p64.obj, one.double())
+        check(not bool(k[4].any()), f"{tag}: a benign problem failed")
+        compare_sweeps(tag, k, pl, q, kd_tol=AL_KD_TOL, dv_tol=AL_DV_TOL)
+
+        # K2 with lanes 3 and 77 forced to diverge, on K3's gains
+        tag = f"K2 {label}, two problems forced to diverge"
+        k = fused_al_backward_cuda(p32.model, st["canon"], X, U, lam, mu,
+                                   p32.dt_traj(), p32.obj, one)
+        d = k[1].clone()
+        d[3] *= 1e9
+        d[77] *= 1e9
+        # steps of 2^-6 .. 2^-8: from the held start the arm leaves its
+        # bounds at 2^-4 on most problems, kernel and plain version alike
+        alpha = (0.5 ** (6 + torch.arange(B, device=dev) % 3)).float()
+        ins = [X[:, 0].contiguous(), X, U, k[0], d, alpha]
+        Xk, Uk, okk = rollout_closed_loop_cuda(p32.model, *ins, p32.dt)
+        Xp, Up, okp = rollout_closed_loop(p32.model, *ins, p32.dt)
+        pX, pU = rollout_eps(p64.model, ins, p32.dt, Xp, Up, okp)
+        eX = float((Xk - Xp)[okk].abs().max()
+                   / max(1.0, float(Xp[okk].abs().max())))
+        log(f"{tag}: ok {int(okk.sum())}/{B} (plain {int(okp.sum())}), X "
+            f"{eX:.2e} of scale (tol {max(K7B_X_TOL, 3 * pX):.2e})")
+        check(torch.equal(okk, okp) and not bool(okk[3])
+              and not bool(okk[77]), f"{tag}: ok masks")
+        check(eX < max(K7B_X_TOL, 3 * pX), f"{tag}: disagrees")
+
+        # K2 on the stiff gains of K3 at rho = 0, against the float64 plain
+        # version: the kernel within KUKA_STIFF_RATIO of the float32 plain
+        # version's distance from it (or within K7B_X_TOL of scale)
+        tag = f"K2 {label}, stiff gains"
+        k = fused_al_backward_cuda(p32.model, st["canon"], X, U, lam, mu,
+                                   p32.dt_traj(), p32.obj,
+                                   torch.zeros(B, device=dev))
+        ins = [X[:, 0].contiguous(), X, U, k[0], k[1], alpha]
+        Xk, Uk, okk = rollout_closed_loop_cuda(p32.model, *ins, p32.dt)
+        Xp, Up, okp = rollout_closed_loop(p32.model, *ins, p32.dt)
+        X6, U6, ok6 = rollout_closed_loop(
+            p64.model, *(a.double() for a in ins), p32.dt)
+        both = okk & okp & ok6
+        scale = max(1.0, float(X6[both].abs().max()))
+        errs = [float((a[both].double() - X6[both]).abs().max()) / scale
+                for a in (Xk, Xp)]
+        log(f"{tag}: |K| up to {float(k[0].abs().max()):.3e}; ok kernel "
+            f"{int(okk.sum())}, plain f32 {int(okp.sum())}, plain f64 "
+            f"{int(ok6.sum())}; X from float64: kernel {errs[0]:.2e}, plain "
+            f"f32 {errs[1]:.2e} of scale (bar "
+            f"{max(KUKA_STIFF_RATIO * errs[1], K7B_X_TOL):.2e})")
+        check(torch.equal(okk, okp), f"{tag}: ok masks differ")
+        check(int(both.sum()) >= B // 2, f"{tag}: too few problems ok")
+        check(errs[0] <= max(KUKA_STIFF_RATIO * errs[1], K7B_X_TOL),
+              f"{tag}: further from float64 than the float32 plain version")
+
+
+def kuka_options(fused_al_fk=False):
+    """Path 1's options, tests/test_altro.py:101-111: 20 outer iterations,
+    penalties 0.01 x 50, constraint tolerance 1e-3 (a feasible start, no
+    polish)."""
+    import trajopt_tpu_torch as tt
+
+    al = tt.ALOptions(iterations=20, cost_tolerance=1e-6,
+                      cost_tolerance_intermediate=1e-5,
+                      constraint_tolerance=1e-3, penalty_scaling=50.0,
+                      penalty_initial=0.01,
+                      opts_uncon=tt.iLQROptions(fused_al_fk=fused_al_fk))
+    return tt.ALTROOptions(opts_al=al)
+
+
+def kuka_starts(x0, count):
+    """The kuka pool: seed 0, q perturbed by N(0, 0.05²) rad, q̇ = 0; the
+    first ``count`` of KUKA_POOL."""
+    rng = np.random.default_rng(0)
+    x0 = np.asarray(x0, dtype=np.float64)
+    noise = np.concatenate([rng.normal(size=(KUKA_POOL, 7)) * 0.05,
+                            np.zeros((KUKA_POOL, 7))], axis=1)
+    return (x0[None] + noise)[:count]
+
+
+def kuka_tuned(fused_al_fk=False):
+    """``tuned_altro_options("kuka_obstacles")`` cut to KUKA_POOL_DEPTH,
+    with ``fused_al_fk`` for the hybrid arm."""
+    import dataclasses
+
+    from trajopt_tpu_torch.problems.tuned import tuned_altro_options
+
+    o = tuned_altro_options("kuka_obstacles")
+    outer, inner = KUKA_POOL_DEPTH
+    return dataclasses.replace(o, opts_al=dataclasses.replace(
+        o.opts_al, iterations=outer, opts_uncon=dataclasses.replace(
+            o.opts_al.opts_uncon, iterations=inner,
+            fused_al_fk=fused_al_fk)))
+
+
+def phase_kuka(report, refs):
+    """Path 1: ``altro_solve(kuka_obstacles())`` in float32 on the card with
+    path 1's options; K5 (14, 7) and K2 ``kuka`` must launch, K3 and K4 not.
+    The float64 CPU reference by the plain versions ran beside."""
+    import torch
+    from trajopt_tpu_torch.problems.zoo import kuka_obstacles
+    import trajopt_tpu_torch as tt
+
+    prob = kuka_obstacles(dtype=torch.float32)
+    tt.altro_solve(prob, _kuka_warm())
+    tag = "slice 5 altro_solve kuka_obstacles, float32"
+    r, wall, launches = run_counted(
+        report, tag, lambda: tt.altro_solve(prob, kuka_options()),
+        ("riccati_sweep_14x7", "rollout_closed_loop_kuka"))
+    check(r.X.shape == (prob.N, 14) and r.U.shape == (prob.N - 1, 7)
+          and bool(torch.isfinite(r.X).all()), f"{tag}: output")
+    c = float(r.c_max)
+    g = float((r.X[-1] - prob.xf).norm())
+    inner = int(r.iterations_total)
+    k5 = launches["riccati_sweep_14x7"]
+    log(f"{tag}: {wall:.3f} s, c_max {c:.3e}, goal error {g:.3e}, outer "
+        f"{int(r.iterations)}, inner {inner}; per inner iteration "
+        f"{wall / inner * 1e3:.2f} ms, K5 {k5 / inner:.2f} and K2 "
+        f"{launches['rollout_closed_loop_kuka'] / inner:.2f} launches, "
+        f"{r.host_syncs / inner:.2f} host syncs; the initial-rollout guard "
+        f"held x0 for {r.seed_held} problem(s) (the JAX "
+        f"package in float32 on the CPU: c_max {JAX_KUKA_F32[0]:.2e}, goal "
+        f"error {JAX_KUKA_F32[1]:.1e}, outer {JAX_KUKA_F32[2]}, inner "
+        f"{JAX_KUKA_F32[3]}; bars c_max < {KUKA_BARS[0]:g}, goal within "
+        f"{KUKA_BARS[1]:g})")
+    report[tag] = dict(wall_s=wall, c_max=c, goal_err=g, inner=inner,
+                       outer=int(r.iterations), host_syncs=r.host_syncs,
+                       guard=r.seed_held)
+    check(c < KUKA_BARS[0] and g < KUKA_BARS[1], f"{tag}: misses the bars")
+
+    ref = refs.pop("ref_kuka").result()
+    log(f"reference: altro_solve(kuka_obstacles()) in float64 on the CPU by "
+        f"the plain versions ({ref['seconds']:.1f} s): c_max "
+        f"{ref['c_max']:.3e}, goal error {ref['goal_err']:.3e}, outer "
+        f"{ref['outer']}, inner {ref['inner']}; max|X_card - X_cpu| "
+        f"{float((r.X.cpu().double() - torch.as_tensor(ref['X'])).abs().max()):.3e}"  # noqa: E501
+        " (printed, both are local solutions)")
+    check(ref["c_max"] < KUKA_BARS[0] and ref["goal_err"] < KUKA_BARS[1],
+          "the CPU reference misses the bars")
+
+
+def _kuka_warm():
+    """One outer iteration of two inner ones: sets torch and the kernels up
+    before path 1 is timed."""
+    import trajopt_tpu_torch as tt
+
+    return tt.ALTROOptions(opts_al=tt.ALOptions(
+        iterations=1, opts_uncon=tt.iLQROptions(iterations=2)))
+
+
+def kuka_arm(report, tag, prob, opts, x0s, ran):
+    """One arm of the pool: solve_batch_queued_altro over 128 lanes, with
+    its shares and launches."""
+    import torch
+    from trajopt_tpu_torch.parallel.batch import solve_batch_queued_altro
+
+    res, wall, launches = run_counted(
+        report, tag, lambda: solve_batch_queued_altro(prob, opts, x0s,
+                                                      lanes=B), ran)
+    count = x0s.shape[0]
+    check(res.X.shape == (count, prob.N, 14)
+          and bool(torch.isfinite(res.X).all()), f"{tag}: output")
+    c = res.c_max.double()
+    g = (res.X[:, -1] - prob.xf).norm(dim=-1).double()
+
+    def shares(k):
+        """The shares of the first ``k`` starts, as JAX_KUKA_POOL."""
+        return dict(cmax_1e3=float((c[:k] < 1e-3).double().mean()),
+                    goal_1e3=float((g[:k] < 1e-3).double().mean()),
+                    cmax_1e1=float((c[:k] < 1e-1).double().mean()))
+
+    every, gated = shares(count), shares(KUKA_GATE_COUNT)
+    iters = max(launches[ran[0]], 1)
+    log(f"{tag}: {count} problems over {B} lanes in {wall:.3f} s = "
+        f"{count / wall:.2f} problems/s at the cut depth "
+        f"{KUKA_POOL_DEPTH} | rounds {res.rounds}, {iters} batched "
+        f"iterations (K5 sweeps), launches {launches}, host syncs "
+        f"{res.host_syncs} ({res.host_syncs / iters:.2f} per batched "
+        f"iteration) | shares of all {count}: {every}; of the first "
+        f"{KUKA_GATE_COUNT}: {gated} (the JAX package in float32 on the "
+        f"CPU, same starts and depth: {JAX_KUKA_POOL}; gate: each less "
+        f"{GATE_MARGIN}) | median c_max {float(c.median()):.3e}, inner "
+        f"iterations mean {res.iterations_total.double().mean().item():.2f} "
+        f"and max {int(res.iterations_total.max())}")
+    report[tag] = dict(problems_per_s=count / wall, wall_s=wall,
+                       rounds=res.rounds, host_syncs=res.host_syncs,
+                       shares=every, shares_gated=gated,
+                       median_cmax=float(c.median()))
+    check(all(gated[k] >= JAX_KUKA_POOL[k] - GATE_MARGIN for k in gated),
+          f"{tag}: shares below the JAX package's less {GATE_MARGIN}")
+    return every
+
+
+def phase_kuka_pool(report):
+    """Path 2: the kuka pool through ``solve_batch_queued_altro`` with the
+    tuned options (cut to KUKA_POOL_DEPTH) in two arms: the default
+    (phase-split: K5 (14, 7) and K2) and ``fused_al_fk=True`` (the hybrid:
+    K5 and K4)."""
+    import torch
+    from trajopt_tpu_torch.parallel.batch import solve_batch_queued_altro
+    from trajopt_tpu_torch.problems.zoo import kuka_obstacles
+
+    prob = kuka_obstacles(dtype=torch.float32)
+    x0s = torch.as_tensor(kuka_starts(prob.x0.cpu(), KUKA_POOL_RUN),
+                          dtype=torch.float32, device=prob.device)
+    warm = _kuka_warm()
+    shares = []
+    for fk, ran in ((False, ("riccati_sweep_14x7",
+                             "rollout_closed_loop_kuka")),
+                    (True, ("riccati_sweep_14x7", "fused_al_forward_kuka"))):
+        solve_batch_queued_altro(prob, warm, x0s[:B], lanes=B)
+        arm = "hybrid (fused_al_fk=True)" if fk else "default (phase-split)"
+        shares.append(kuka_arm(report, f"slice 5 pool kuka_obstacles, {arm}",
+                               prob, kuka_tuned(fk), x0s, ran))
+    diff = {k: abs(shares[0][k] - shares[1][k]) for k in shares[0]}
+    log(f"slice 5 pool: the arms differ by {diff} on their shares (bar "
+        f"{KUKA_ARM_MARGIN})")
+    check(max(diff.values()) <= KUKA_ARM_MARGIN,
+          "slice 5 pool: the arms disagree")
+
+
+def phase_kuka_profile(report):
+    """One round of 2 iterations of each arm on 128 lanes under
+    torch.profiler (a profiled iteration of the phase-split arm holds
+    ~20,000 device launches). The round starts from the start held on
+    every knot, where the initial-rollout guard leaves a solve, so that
+    the open-loop seed rollout (some 10^5 small torch ops) stays out of it."""
+    import torch
+    from trajopt_tpu_torch.parallel.batch import solve_batch_queued_altro
+    from trajopt_tpu_torch.problems.zoo import kuka_obstacles
+    import trajopt_tpu_torch as tt
+
+    prob = kuka_obstacles(dtype=torch.float32)
+    prob = tt.update_problem(prob, X=prob.x0.expand(prob.N, 14).contiguous())
+    x0s = torch.as_tensor(kuka_starts(prob.x0.cpu(), B), dtype=torch.float32,
+                          device=prob.device)
+    iters = 2
+    for fk, names in ((False, ("riccati_sweep_14x7",
+                               "rollout_closed_loop_kuka")),
+                      (True, ("riccati_sweep_14x7", "fused_al_forward_kuka"))):
+        opts = tt.ALTROOptions(opts_al=tt.ALOptions(
+            iterations=1, cost_tolerance_intermediate=0.0,
+            penalty_initial=0.01, penalty_scaling=50.0,
+            opts_uncon=tt.iLQROptions(iterations=iters, fused_al_fk=fk)))
+
+        def one_round():
+            res = solve_batch_queued_altro(prob, opts, x0s, lanes=B,
+                                           infeasible=False)
+            torch.cuda.synchronize()
+            return res
+
+        profile_round("slice 5 profile " + ("hybrid" if fk else "default"),
+                      one_round, iters, names)
+
+
+def phase_kuka_slack(report):
+    """Path 3, the instantiations no other path reaches: 128 line-seeded
+    kuka starts through ``solve_batch_queued_altro(..., infeasible=True)``,
+    one outer iteration of at most KUKA_SLACK_INNER inner ones, in both
+    arms: K5 (14, 21) with K2 ``kuka_slack``, and K5 (14, 21) with K4
+    ``kuka_slack``. (Three outer iterations took 86 s phase-split and 69 s
+    hybrid on the H100.) Then K3, which the solver never sends a stack
+    with fk rows: the same starts on ``kuka_obstacles`` without its bubble
+    rows (torque bounds and the goal), which the default dispatch runs
+    fused, K3 and K4 ``kuka`` (a feasible start from the hold seed), and
+    from the line seed with the infeasible-start transform, K3 and K4
+    ``kuka_slack``."""
+    import torch
+    from trajopt_tpu_torch.parallel.batch import solve_batch_queued_altro
+    from trajopt_tpu_torch.problems.zoo import kuka_obstacles
+    import trajopt_tpu_torch as tt
+
+    prob = line_seeded(kuka_obstacles(dtype=torch.float32))
+    x0s = torch.as_tensor(kuka_starts(prob.x0.cpu(), B), dtype=torch.float32,
+                          device=prob.device)
+    for fk, ran in ((False, ("riccati_sweep_14x21",
+                             "rollout_closed_loop_kuka_slack")),
+                    (True, ("riccati_sweep_14x21",
+                            "fused_al_forward_kuka_slack"))):
+        opts = tt.ALTROOptions(R_inf=1e-8, opts_al=tt.ALOptions(
+            iterations=1, penalty_initial=0.01, penalty_scaling=50.0,
+            opts_uncon=tt.iLQROptions(iterations=KUKA_SLACK_INNER,
+                                      fused_al_fk=fk)))
+        tag = ("slice 5 kuka infeasible start, "
+               + ("hybrid" if fk else "phase-split")
+               + f", 1 outer iteration of {KUKA_SLACK_INNER}")
+        res, wall, _ = run_counted(
+            report, tag, lambda: solve_batch_queued_altro(
+                prob, opts, x0s, lanes=B, infeasible=True), ran)
+        check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite states")
+        log(f"{tag}: {B} problems in {wall:.3f} s | c_max < 1e-3 on "
+            f"{float((res.c_max < 1e-3).float().mean()):.4f}, median c_max "
+            f"{float(res.c_max.median()):.3e}, mean inner iterations "
+            f"{res.iterations_total.float().mean().item():.2f} (printed, "
+            "not held)")
+
+    free = kuka_without_obstacles(kuka_obstacles(dtype=torch.float32))
+    for slack, start in ((False, free), (True, line_seeded(free))):
+        label = "kuka_slack" if slack else "kuka"
+        opts = tt.ALTROOptions(R_inf=1e-8, opts_al=tt.ALOptions(
+            iterations=1, penalty_initial=0.01, penalty_scaling=50.0,
+            opts_uncon=tt.iLQROptions(iterations=KUKA_SLACK_INNER)))
+        tag = (f"slice 5 kuka without the bubble rows, fused, "
+               f"{'infeasible' if slack else 'feasible'} start, 1 outer "
+               f"iteration of {KUKA_SLACK_INNER}")
+        res, wall, _ = run_counted(
+            report, tag, lambda: solve_batch_queued_altro(
+                start, opts, x0s, lanes=B, infeasible=slack),
+            (f"fused_al_backward_{label}", f"fused_al_forward_{label}"))
+        check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite states")
+        log(f"{tag}: {B} problems in {wall:.3f} s | median c_max "
+            f"{float(res.c_max.median()):.3e} (printed, not held)")
+
+
+def kuka_without_obstacles(prob):
+    """``kuka_obstacles`` without its fk rows: the torque bounds and the
+    goal, a kuka stack that the default dispatch runs fused (K3, K4)."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.constraints import ConstraintSet
+
+    cs = prob.constraints
+    mask = cs.mask.cpu().numpy()
+    entries = [(c, mask[:, r0:r1].any(axis=1))
+               for c, (r0, r1) in zip(cs.cons, cs.slices) if c.label != "obs"]
+    return tt.update_problem(prob, constraints=ConstraintSet.build(
+        entries, prob.N, device=prob.device))
+
+
 # ------------------------------------------ float64 references on the CPU
 
 def cpu_reference(kind, x0s):
@@ -2773,7 +3355,8 @@ def cpu_reference(kind, x0s):
     "quadrotor" (slice 3 arms (a) and (b): on the CPU the fused and the
     phase-split solve are the same computation), "cartpole" (arm (c)),
     "escape" (slice 4's ``altro_solve(car_escape())`` with the polish; no
-    starts) or "escape_pool" (slice 4's pool)."""
+    starts), "escape_pool" (slice 4's pool) or "kuka" (slice 5's
+    ``altro_solve(kuka_obstacles())``; no starts)."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -2816,6 +3399,12 @@ def cpu_reference(kind, x0s):
         out = dict(c_max=float(r.c_max), X=r.X.numpy(),
                    goal_err=float((r.X[-1] - prob.xf).norm()),
                    outer=int(r.iterations), inner=int(r.iterations_total))
+    elif kind == "kuka":
+        prob = zoo.kuka_obstacles(**kw)
+        r = tt.altro_solve(prob, kuka_options())
+        out = dict(c_max=float(r.c_max), X=r.X.numpy(),
+                   goal_err=float((r.X[-1] - prob.xf).norm()),
+                   outer=int(r.iterations), inner=int(r.iterations_total))
     elif kind == "escape_pool":
         ref, _ = solve_batch_queued_altro_retry(
             zoo.car_escape(**kw), escape_options(ctol=1e-3), xs,
@@ -2842,6 +3431,7 @@ def start_references(pool, want):
         "ref_escape": ("escape", "escape", None),
         "ref_escape_pool": ("escape_pool", "escape_pool", escape_starts(
             np.array([2.5, 2.5, 0.0]), 2)),
+        "ref_kuka": ("kuka", "kuka", None),
     }
     return {name: pool.submit(cpu_reference, kind, x0s)
             for name, (phase, kind, x0s) in jobs.items() if phase in want}
@@ -2878,7 +3468,8 @@ def main() -> int:
 
 PHASES = ("build", "k1", "k2", "slice1", "profile1", "k3", "k4", "maze",
           "profile2", "k5", "k7a", "k7b", "k2full", "almodels", "slice3",
-          "profile3", "escape", "escape_pool", "profile4", "slice4models")
+          "profile3", "escape", "escape_pool", "profile4", "slice4models",
+          "kuka_kernels", "kuka", "kuka_pool", "kuka_profile", "kuka_slack")
 
 
 def run_phases(report, only):
@@ -2894,8 +3485,10 @@ def run_phases(report, only):
         if name not in want or failed or any(x is None for x in a):
             return None
         log(f"--- phase: {title}")
+        t0 = time.perf_counter()
         try:
             out = fn(*a)
+            log(f"--- phase {title}: {time.perf_counter() - t0:.1f} s")
             return True if out is None else out
         except Exception:
             traceback.print_exc()
@@ -2909,7 +3502,7 @@ def run_phases(report, only):
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
     try:
         # (slice 3's start once the host-bound slice 1 has been timed)
-        early = [p for p in ("slice1", "maze") if p in want]
+        early = [p for p in ("slice1", "maze", "kuka") if p in want]
         refs = start_references(workers, early)
         with precise_context():
             run("build", "device and build", phase_build, report)
@@ -2944,6 +3537,16 @@ def run_phases(report, only):
                 report)
             run("slice4models", "slice 4: the other instantiations",
                 phase_slice4_models, report)
+            run("kuka_kernels", "slice 5: every kuka instantiation against "
+                "its plain version", phase_kuka_kernels, report)
+            run("kuka", "slice 5: altro_solve(kuka_obstacles)", phase_kuka,
+                report, refs)
+            run("kuka_pool", "slice 5: the kuka pool, both arms",
+                phase_kuka_pool, report)
+            run("kuka_profile", "profile of slice 5", phase_kuka_profile,
+                report)
+            run("kuka_slack", "slice 5: the kuka slack instantiations",
+                phase_kuka_slack, report)
     finally:
         workers.shutdown(wait=True, cancel_futures=True)
     idle = [k["name"] for k in report["kernels"] if not k.get("launches")]

@@ -128,14 +128,15 @@ def _assert_scaled(mine, ref, tol, floor=0.0):
 
 
 def test_every_model_has_both_instantiations():
-    """The kernels' table holds each of the five models with and without
-    slacks, with the widths the transform produces; the fused AL kernels
-    take all ten and refuse a model without a CUDA step."""
-    assert len(CUDA_MODELS) == 10
+    """The kernels' table holds each of the six models (the five scalar
+    ones and kuka) with and without slacks, with the widths the transform
+    produces; the fused AL kernels take all twelve and refuse a model
+    without a CUDA step."""
+    assert len(CUDA_MODELS) == 12
     for (step, slack), cm in CUDA_MODELS.items():
         assert cm.m == cm.m_base + (cm.n if slack else 0)
         assert cm.label.endswith("_slack") == slack
-    assert sorted(cm.id for cm in CUDA_MODELS.values()) == list(range(10))
+    assert sorted(cm.id for cm in CUDA_MODELS.values()) == list(range(12))
 
 
 def test_fused_al_eligibility_follows_the_table(case):

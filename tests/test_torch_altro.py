@@ -155,6 +155,8 @@ def test_altro_solve_pendulum_matches_jax(resolve):
     rt = tt.altro_solve(pt, _port_opts(jopts))
     assert isinstance(rt, tt.ALTROResult)
     _assert_same_result(rt, rj)
+    # a line seed: no open-loop rollout to guard; a loop test per iteration
+    assert rt.seed_held == 0 and rt.host_syncs >= int(rt.iterations_total)
     assert float((rt.X[-1] - pt.xf).norm()) < 1e-3
     assert float(rt.c_max) < 1e-3
     if resolve:

@@ -780,3 +780,173 @@ def test_default_options_solve_on_the_card(cuda_device):
     prob64 = problems.pendulum(dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError):
         solve_batch(prob64, tt.ALOptions(), x0s.double())
+
+
+# ------------------------------------------------------------ kuka (slice 5)
+
+def _kuka_setup(slack, device, seed=5):
+    """The kuka stack's kernel inputs of chip_smoke.py's kuka_setup at
+    B = 16: starts around the hold pose, each start's hold torques plus 0.05
+    noise, the start held on every knot (with slacks 0.1 off it and the
+    slack controls the defects plus 0.02), exercised duals; float64 and
+    float32."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        prob = problems.kuka_obstacles(dtype=dtype, device=device)
+        out[dtype] = infeasible_problem(prob, 1e-8) if slack else prob
+    base = problems.kuka_obstacles(dtype=torch.float64, device=device)
+    p64 = out[torch.float64]
+    n, m, Nk, P = p64.n, p64.m, p64.N, p64.constraints.P
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+    x0s = base.x0[None] + t(np.concatenate(
+        [rng.normal(size=(B, 7)) * 0.05, np.zeros((B, 7))], axis=1))
+    q = x0s[:, :7]
+    hold = base.model.model.chain.bias_forces(q, torch.zeros_like(q))
+    U = hold[:, None] + t(rng.normal(size=(B, Nk - 1, 7)) * 0.05)
+    X = x0s[:, None].expand(B, Nk, n)
+    if slack:
+        X = torch.cat([X[:, :1], X[:, 1:] + t(rng.normal(
+            size=(B, Nk - 1, n)) * 0.1)], dim=1)
+        defect = X[:, 1:] - base.model.step(X[:, :-1], U,
+                                            base.dt_traj()[:, None])
+        U = torch.cat([U, defect + t(rng.normal(size=(B, Nk - 1, n)) * 0.02)],
+                      -1)
+    mask = p64.constraints.mask
+    lam = t(rng.uniform(0.0, 0.5, size=(B, Nk, P))) * mask
+    mu = t(rng.uniform(0.5, 20.0, size=(B, Nk, P))) * mask
+    data64 = [a.contiguous() for a in (X, U, lam, mu)]
+    p32 = out[torch.float32]
+    return dict(
+        p64=p64, p32=p32, data64=data64,
+        data=[a.float().contiguous() for a in data64],
+        canon64=canonical_stack(p64.constraints, n, m, dtype=torch.float64),
+        canon=canonical_stack(p32.constraints, n, m, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("slack", [False, True])
+def test_kuka_kernels_match_plain_versions(cuda_device, slack):
+    """The kuka instantiations, B = 16, float32, on the kuka stack (fk rows
+    in it): K3 at rho = 1 with its in-kernel Jacobians, K and d at 2e-3 of
+    scale or three times the float32 plain version's distance from float64,
+    the Jacobians at 1e-5 of their scale; K4 on those gains (lane 11's
+    search runs out): steps, rho, drho equal on at least 0.9 of the
+    problems, X at 1e-4 of scale or three times the float32 plain version's
+    distance from float64; K2 at K4's steps; K5 (14, 7) or (14, 21) on the
+    AL expansion of the same inputs."""
+    from trajopt_tpu_torch.solvers.al import al_cost_fns
+
+    st = _kuka_setup(slack, cuda_device)
+    p32, p64, canon = st["p32"], st["p64"], st["canon"]
+    X, U, lam, mu = st["data"]
+    X64, U64, lam64, mu64 = st["data64"]
+    label = "kuka_slack" if slack else "kuka"
+    n, m = p32.n, p32.m
+    ones = torch.ones(B, device=cuda_device)
+    dt = p32.dt_traj()
+    before = fused_al_backward_cuda.launches_by[label]
+    k = fused_al_backward_cuda(p32.model, canon, X, U, lam, mu, dt, p32.obj,
+                               ones, return_jacobians=True)
+    torch.cuda.synchronize()
+    assert fused_al_backward_cuda.launches_by[label] == before + 1
+    p = fused_al_backward(p32.model, canon, X, U, lam, mu, dt, p32.obj, ones,
+                          return_jacobians=True)
+    q = fused_al_backward(p64.model, st["canon64"], X64, U64, lam64, mu64,
+                          p64.dt_traj(), p64.obj, ones.double(),
+                          return_jacobians=True)
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i in (0, 1):
+        _close(k[i], p[i], q[i], 2e-3)
+    for i in (5, 6):
+        _close(k[i], p[i], q[i], 1e-5)
+
+    K, d, dV1, dV2 = k[0], k[1], k[2], k[3]
+    J_prev = (total_cost(p32.obj, X, U, dt) + canon_al_cost(
+        canon, X, pad_terminal(U), lam, mu)).contiguous()
+    J_prev[11] = -1e30
+    args = (p32.model, canon, X[:, 0].contiguous(), X, U, K, d, dV1, dV2,
+            J_prev, ones, ones, ones, lam, mu, dt, p32.obj, LS_OPTS)
+    before = fused_al_forward_cuda.launches_by[label]
+    Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_al_forward_cuda.launches_by[label] == before + 1
+    Xp, Up, Jp, rp, drp, ap = fused_al_forward(*args)
+    same = ak == ap
+    assert float(same.float().mean()) >= 0.9
+    assert torch.equal(rk[same], rp[same]) and torch.equal(drk[same],
+                                                           drp[same])
+    assert float(ak[11]) == 0.0 and torch.equal(Xk[11], X[11])
+    args64 = (p64.model, st["canon64"]) + tuple(
+        a.double() for a in args[2:-3]) + (p64.dt_traj(), p64.obj, LS_OPTS)
+    Xq, _, _, _, _, aq = fused_al_forward(*args64)
+    calm = same & (aq == ap.double())
+    assert int(calm.sum()) >= B // 2
+    _close(Xk[calm], Xp[calm], Xq[calm], 1e-4)
+
+    ins = [X[:, 0].contiguous(), X, U, K, d, ak.contiguous()]
+    before = rollout_closed_loop_cuda.launches_by[label]
+    Xr, Ur, okr = rollout_closed_loop_cuda(p32.model, *ins, p32.dt)
+    torch.cuda.synchronize()
+    assert rollout_closed_loop_cuda.launches_by[label] == before + 1
+    Xs, Us, oks = rollout_closed_loop(p32.model, *ins, p32.dt)
+    X6, _, _ = rollout_closed_loop(p64.model, *(a.double() for a in ins),
+                                   p32.dt)
+    assert torch.equal(okr, oks) and int(okr.sum()) >= B // 2
+    _close(Xr[okr], Xs[okr], X6[okr], 1e-5)
+
+    A, Bm = p64.model.jacobian_traj(X64[:, :-1], U64, p64.dt_traj())
+    e = al_cost_fns(p64.obj, p64.constraints, p64.dt_traj(), lam64,
+                    mu64)[1](X64, U64)
+    ins64 = [A, Bm, e.x, e.u, e.xx, e.uu, e.ux]
+    ins = [a.float().contiguous() for a in ins64]
+    k5 = riccati_sweep_cuda(*ins, ones)
+    torch.cuda.synchronize()
+    p5 = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]), ones)
+    q5 = scan_sweep(A, Bm, e, ones.double())
+    assert torch.equal(k5[4], p5[4])
+    for i in (0, 1):
+        _close(k5[i], p5[i], q5[i], 1e-3)
+
+
+@pytest.mark.parametrize("fk", [False, True])
+def test_kuka_solve_on_the_card(cuda_device, fk):
+    """Two inner iterations of kuka_obstacles on the card in float32: the
+    default dispatch launches K5 (14, 7) and K2 kuka only, ``fused_al_fk``
+    K5 and K4 kuka; K3 never runs for the fk stack."""
+    import trajopt_tpu_torch as tt
+
+    prob = problems.kuka_obstacles(dtype=torch.float32, device=cuda_device)
+    counts = lambda: (riccati_sweep_cuda.launches_by["14x7"],  # noqa: E731
+                      rollout_closed_loop_cuda.launches_by["kuka"],
+                      fused_al_backward_cuda.launches_by["kuka"],
+                      fused_al_forward_cuda.launches_by["kuka"])
+    before = counts()
+    res = tt.altro_solve(prob, tt.ALTROOptions(opts_al=tt.ALOptions(
+        iterations=1, penalty_initial=0.01, penalty_scaling=50.0,
+        opts_uncon=tt.iLQROptions(iterations=2, fused_al_fk=fk))))
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(counts(), before)]
+    assert bool(torch.isfinite(res.X).all())
+    assert moved[0] >= 2 and moved[2] == 0
+    assert (moved[1] == 0) == fk and (moved[3] == 2) == fk
+
+
+def test_unconstrained_fused_kuka_solve_raises_on_the_card(cuda_device):
+    """K7a/K7b carry no chain step: an unconstrained ``fused=True`` kuka
+    solve on a CUDA tensor raises NotImplementedError before any launch,
+    as a model without a CUDA step does, and nothing runs in K7a's place."""
+    import trajopt_tpu_torch as tt
+
+    base = problems.kuka_obstacles(dtype=torch.float32, device=cuda_device)
+    prob = tt.problem(base.model, base.obj, x0=base.x0.cpu(),
+                      xf=base.xf.cpu(), N=base.N, dt=base.dt,
+                      U0=base.U.cpu(), dtype=torch.float32,
+                      device=cuda_device)
+    before = fused_backward_cuda.launches
+    with pytest.raises(NotImplementedError, match="K7a/K7b"):
+        tt.al_solve(prob, tt.ALOptions(opts_uncon=tt.iLQROptions(
+            iterations=2, fused=True)))
+    assert fused_backward_cuda.launches == before

@@ -151,8 +151,8 @@ def test_scan_backward_pass_matches_jax_f64(reg_type):
 def test_riccati_wrapper_takes_the_ported_shapes():
     """Every (n, m) a ported model produces has an instantiation, with or
     without the slack controls (the quadrotor's (13, 17), the car's (3, 5),
-    ...), and the error state (12, 4)."""
-    assert len(CUDA_MODELS) == 10
+    kuka's (14, 21), ...), and the error state (12, 4)."""
+    assert len(CUDA_MODELS) == 12
     for cm in CUDA_MODELS.values():
         assert (cm.n, cm.m) in SHAPES
     assert (12, 4) in SHAPES and (13, 17) in SHAPES and (3, 5) in SHAPES

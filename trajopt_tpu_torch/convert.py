@@ -6,14 +6,21 @@ with the JAX ``Problem``'s attributes (through ``np.asarray``), and
 ``problem_from_arrays`` builds the port's ``Problem`` from them, on the
 device and in the dtype asked for. The constraint set travels as data too:
 per constraint its label, its canonical row kind with the parameters, the
-equality flags and the knots it applies at. ``state_arrays`` and
+equality flags and the knots it applies at. The forward-kinematics rows of
+a chain (kuka's collision bubbles) are a function of the arm in the JAX
+package; they travel as their ``fk_sphere`` descriptor, which holds the
+chain's rotation coefficients, and are rebuilt from it here
+(``ops/constraints.py::fk_sphere_constraint``), so a problem that has them
+is the same problem on each side whether it is carried over or built by
+name (``PROBLEMS["kuka_obstacles"]``). ``state_arrays`` and
 ``state_from_arrays`` do the same for a solver state (X, U, λ, μ), and
 ``result_arrays`` hands an ``ALResult`` back as numpy arrays. Options travel
 as nested dicts of plain values: ``options_dict`` reads them off the JAX
 package's option dataclasses (``ALTROOptions`` with its ``ALOptions``,
 ``iLQROptions`` and ``PNOptions``), ``altro_options_from_dict`` builds the
-port's. ``PROBLEMS`` names the ported zoo problems (``car_escape`` among
-them) as the JAX package's ``problems.zoo.PROBLEMS`` does.
+port's. ``MODELS`` and ``PROBLEMS`` name the ported models (``kuka`` among
+them) and zoo problems (``car_escape``, ``kuka_obstacles`` among them) as
+the JAX package's ``models.zoo`` and ``problems.zoo.PROBLEMS`` do.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch
 from trajopt_tpu_torch.models import zoo
 from trajopt_tpu_torch.models.base import discretize
 from trajopt_tpu_torch.ops.constraints import (
-    ConstraintSet, linear_rows_constraint, sphere_rows_constraint,
+    ConstraintSet, fk_sphere_constraint, linear_rows_constraint,
+    sphere_rows_constraint,
 )
 from trajopt_tpu_torch.ops.cost import Objective
 from trajopt_tpu_torch.problem import Problem
@@ -36,12 +44,11 @@ from trajopt_tpu_torch.solvers.ilqr import iLQROptions
 from trajopt_tpu_torch.solvers.projected_newton import PNOptions
 from trajopt_tpu_torch.utils.device import resolve_device
 
-MODELS = {m.name: m for m in (zoo.quadrotor, zoo.pendulum,
-                              zoo.doubleintegrator, zoo.car, zoo.cartpole)}
+MODELS = zoo.MODELS
 # the ported zoo problems under the JAX package's names
 PROBLEMS = {name: getattr(problems_zoo, name) for name in (
     "doubleintegrator", "pendulum", "cartpole", "parallel_park", "car_3obs",
-    "car_escape", "quadrotor_maze")}
+    "car_escape", "quadrotor_maze", "kuka_obstacles")}
 OBJECTIVE_FIELDS = ("Q", "R", "H", "q", "r", "c")
 STATE_FIELDS = ("X", "U", "lam", "mu")
 
@@ -50,16 +57,19 @@ def constraint_arrays(cs) -> list:
     """The constraints of a JAX ``ConstraintSet`` as data, one dict per
     constraint: label, applies, equality (p,), knots (N,) bool, term_rows
     or None, and the canonical descriptor (kind 'sphere': coords, ctr, b;
-    kind 'linear': rows of (is_u, idx, sign), off). A constraint without a
-    descriptor (a custom function, the kuka FK rows) does not carry over."""
+    kind 'linear': rows of (is_u, idx, sign), off; kind 'fk_sphere': meta,
+    the chain's coefficients, points and rows as nested tuples). A
+    constraint without a descriptor (a custom function) does not carry
+    over."""
     mask = np.asarray(cs.mask)
     out = []
     for con, (r0, r1) in zip(cs.cons, cs.slices):
         canon = getattr(con, "canon", None)
-        if canon is None or canon[0] not in ("sphere", "linear"):
+        if canon is None or canon[0] not in ("sphere", "linear",
+                                             "fk_sphere"):
             raise NotImplementedError(
-                f"constraint {con.label!r} has no sphere/linear descriptor "
-                "and does not carry over (ROADMAP Queue 1)")
+                f"constraint {con.label!r} has no canonical descriptor and "
+                "does not carry over (ROADMAP Queue 1)")
         d = dict(label=con.label, applies=con.applies,
                  equality=np.asarray(con.equality, bool),
                  knots=mask[:, r0:r1].any(axis=1), kind=canon[0],
@@ -67,6 +77,8 @@ def constraint_arrays(cs) -> list:
         if canon[0] == "sphere":
             d.update(coords=tuple(canon[1]), ctr=np.asarray(canon[2]),
                      b=np.asarray(canon[3]))
+        elif canon[0] == "fk_sphere":
+            d.update(meta=canon[1])
         else:
             d.update(rows=tuple(canon[1]), off=np.asarray(canon[2]))
         out.append(d)
@@ -80,6 +92,9 @@ def constraints_from_arrays(constraints, N: int, device=None) -> ConstraintSet:
         if d["kind"] == "sphere":
             con = sphere_rows_constraint(d["coords"], d["ctr"], d["b"],
                                          d["label"], applies=d["applies"])
+        elif d["kind"] == "fk_sphere":
+            con = fk_sphere_constraint(("fk_sphere", d["meta"]), d["label"],
+                                       applies=d["applies"])
         else:
             con = linear_rows_constraint(
                 d["rows"], d["off"], d["label"], equality=d["equality"],

@@ -1,5 +1,6 @@
 // Fused AL backward sweep (kernel K3), for every model of models.cuh with
-// or without the slack controls of the infeasible-start transform.
+// or without the slack controls of the infeasible-start transform, and with
+// the forward-kinematics rows of a rigid-body chain (K8) in the stack.
 //
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_al_fused.py::
 // _fused_al_backward_kernel (front end fused_al_backward_pallas). Per
@@ -48,6 +49,7 @@ using namespace trajopt;
 template <int NX, int NU>
 struct Shared {
   RiccatiWork<NX, NU> w;
+  FkWork fk;
   float z[NX + NU];
   float alx[NX], alu[NU], alxx[NX * NX], aluu_d[NU];
 };
@@ -60,7 +62,8 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
     const float* __restrict__ dt, const float* __restrict__ Q,
     const float* __restrict__ R, const float* __restrict__ H,
     const float* __restrict__ q, const float* __restrict__ r,
-    const float* __restrict__ rho_in, CanonTables tab, float* __restrict__ K,
+    const float* __restrict__ rho_in, CanonTables tab,
+    const ChainTable* __restrict__ chain, float* __restrict__ K,
     float* __restrict__ d, float* __restrict__ dV,
     unsigned char* __restrict__ fail_out, float* __restrict__ Aout,
     float* __restrict__ Bout, int batch, int N, int reg_state, float atol) {
@@ -77,10 +80,11 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
 
   // terminal knot: Sx = Q_N x_N + q_N + alx, Sxx = Q_N + alxx (u = 0)
   const float* xN = X + ((size_t)b * N + (N - 1)) * NX;
-  if (lane < NX + NU) s.z[lane] = lane < NX ? xN[lane] : 0.0f;
+  for (int e = lane; e < NX + NU; e += 32) s.z[e] = e < NX ? xN[e] : 0.0f;
   __syncwarp();
+  fk_knot_warp(tab, s.z, s.fk, lane);
   canon_al_expansion_warp<NX, NU>(
-      tab, s.z, lam + ((size_t)b * N + (N - 1)) * P,
+      tab, s.z, s.fk, lam + ((size_t)b * N + (N - 1)) * P,
       mu + ((size_t)b * N + (N - 1)) * P, atol, g_s, imu_s, s.alx, s.alu,
       s.alxx, s.aluu_d, lane);
   const float* QN = Q + (size_t)(N - 1) * NX * NX;
@@ -104,7 +108,8 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
     const float* xk = X + ((size_t)b * N + k) * NX;
     const float* uk = U + bk * NU;
     const float dtv = dt[k];
-    if (lane < NX + NU) s.z[lane] = lane < NX ? xk[lane] : uk[lane - NX];
+    for (int e = lane; e < NX + NU; e += 32)
+      s.z[e] = e < NX ? xk[e] : uk[e - NX];
     __syncwarp();
 
     // Jacobians: lane j < n + m_base pushes tangent e_j of [x; u_base]
@@ -117,7 +122,7 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
 #pragma unroll
       for (int i = 0; i < MB; ++i)
         ud[i] = Dual(s.z[NX + i], lane == NX + i ? 1.f : 0.f);
-      M::template step<Dual>(xd, ud, dtv, out);
+      M::template step<Dual>(xd, ud, dtv, out, chain);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         if (lane < NX) {
@@ -157,7 +162,9 @@ __global__ void __launch_bounds__(32) fused_al_backward_kernel(
     __syncwarp();
 
     // AL expansion of the stack; lux gets no AL term
-    canon_al_expansion_warp<NX, NU>(tab, s.z, lam + ((size_t)b * N + k) * P,
+    fk_knot_warp(tab, s.z, s.fk, lane);
+    canon_al_expansion_warp<NX, NU>(tab, s.z, s.fk,
+                                    lam + ((size_t)b * N + k) * P,
                                     mu + ((size_t)b * N + k) * P, atol, g_s,
                                     imu_s, s.alx, s.alu, s.alxx, s.aluu_d,
                                     lane);
@@ -184,13 +191,14 @@ template <class M, bool Slack>
 int launch(const float* X, const float* U, const float* lam, const float* mu,
            const float* dt, const float* Q, const float* R, const float* H,
            const float* q, const float* r, const float* rho,
-           const CanonTables& tab, float* K, float* d, float* dV,
-           unsigned char* fail, float* Aout, float* Bout, int batch, int N,
-           int reg_state, float atol, cudaStream_t stream) {
+           const CanonTables& tab, const ChainTable* chain, float* K,
+           float* d, float* dV, unsigned char* fail, float* Aout,
+           float* Bout, int batch, int N, int reg_state, float atol,
+           cudaStream_t stream) {
   const size_t dyn = 2 * (size_t)tab.P * sizeof(float);
   fused_al_backward_kernel<M, Slack><<<batch, 32, dyn, stream>>>(
-      X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, K, d, dV, fail, Aout, Bout,
-      batch, N, reg_state, atol);
+      X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, chain, K, d, dV, fail,
+      Aout, Bout, batch, N, reg_state, atol);
   return (int)cudaGetLastError();
 }
 
@@ -202,7 +210,9 @@ int launch(const float* X, const float* U, const float* lam, const float* mu,
 // controls and m = m_base or m_base + n controls: X (B,N,n), U (B,N-1,m),
 // lam, mu (B,N,P), dt (N-1), Q (N,n,n), R (N,m,m), H (N,m,n), q (N,n),
 // r (N,m), rho (B); the stack's tables row_i (P,4) int32, row_f (P,4),
-// groups (G,6) int32, col_ptr (n+m+1) int32, col_rows int32 →
+// groups (G,6) int32, col_ptr (n+m+1) int32, col_rows int32, fk_joint
+// (J,36) and fk_point (npts,4) (J = 0: no fk rows), chain (a chain model's
+// table, models.cuh ChainTable, on the device; else null) →
 // K (B,N-1,m,n), d (B,N-1,m), dV (2,B), fail (B) bytes, and where Aout/Bout
 // are not null the in-kernel Jacobians A (B,N-1,n,n), B_base (B,N-1,n,m_base).
 // Returns the CUDA error of the launch (0 on success), or
@@ -212,27 +222,34 @@ extern "C" int trajopt_fused_al_backward_f32(
     const float* dt, const float* Q, const float* R, const float* H,
     const float* q, const float* r, const float* rho, const int* row_i,
     const float* row_f, const int* groups, const int* col_ptr,
-    const int* col_rows, float* K, float* d, float* dV, unsigned char* fail,
-    float* Aout, float* Bout, int batch, int N, int P, int G, int model,
-    int reg_state, float atol, void* stream) {
-  if (batch <= 0 || N < 2 || P < 0) return (int)cudaErrorInvalidValue;
+    const int* col_rows, const float* fk_joint, const float* fk_point,
+    const float* chain, float* K, float* d, float* dV, unsigned char* fail,
+    float* Aout, float* Bout, int batch, int N, int P, int G, int J,
+    int npts, int model, int reg_state, float atol, void* stream) {
+  if (batch <= 0 || N < 2 || P < 0 || J < 0 || J > kFkMaxJoints ||
+      npts < 0 || npts > kFkMaxPoints ||
+      (model % kModelSlack == kModelKuka && chain == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const ChainTable* ct = (const ChainTable*)chain;
   trajopt::CanonTables tab{(const int4*)row_i, (const float4*)row_f, groups,
-                           col_ptr, col_rows, P, G};
+                           col_ptr, col_rows, P, G, fk_joint,
+                           (const float4*)fk_point, J, npts};
 #define TRAJOPT_AL_BACKWARD(M)                                               \
   case kModel##M:                                                            \
-    return launch<M, false>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, K, d, \
-                            dV, fail, Aout, Bout, batch, N, reg_state, atol, \
-                            (cudaStream_t)stream);                           \
+    return launch<M, false>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, ct,  \
+                            K, d, dV, fail, Aout, Bout, batch, N, reg_state, \
+                            atol, (cudaStream_t)stream);                     \
   case kModelSlack + kModel##M:                                              \
-    return launch<M, true>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, K, d,  \
-                           dV, fail, Aout, Bout, batch, N, reg_state, atol,  \
-                           (cudaStream_t)stream)
+    return launch<M, true>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, ct,   \
+                           K, d, dV, fail, Aout, Bout, batch, N, reg_state,  \
+                           atol, (cudaStream_t)stream)
   switch (model) {
     TRAJOPT_AL_BACKWARD(Quadrotor);
     TRAJOPT_AL_BACKWARD(Cartpole);
     TRAJOPT_AL_BACKWARD(Car);
     TRAJOPT_AL_BACKWARD(Pendulum);
     TRAJOPT_AL_BACKWARD(DoubleIntegrator);
+    TRAJOPT_AL_BACKWARD(Kuka);
   }
 #undef TRAJOPT_AL_BACKWARD
   return (int)cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
 // Fused AL line search (kernel K4), for every model of models.cuh with or
-// without the slack controls of the infeasible-start transform.
+// without the slack controls of the infeasible-start transform, and with
+// the forward-kinematics rows of a rigid-body chain (K8) in the stack.
 //
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_al_fused.py::
 // _fused_al_forward_kernel (front end fused_al_forward_pallas). Per
@@ -55,6 +56,7 @@ struct Args {
   const float *x0, *X, *U, *K, *d, *dV1, *dV2, *Jprev, *rho, *drho, *alpha0;
   const float *lam, *mu, *dt, *Q, *R, *H, *q, *r, *c;
   const unsigned char* active;
+  const ChainTable* chain;   // a chain model's table, else null
   float *Xout, *Uout, *scal;
   int batch, N, ls_iters;
   float ls_lb, ls_ub, reg_min, reg_factor, reg_fp, atol;
@@ -78,6 +80,7 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
   constexpr int NX = M::NX, MB = M::NU, NU = Slack ? MB + NX : MB;
   static_assert(NU <= 32, "one lane per control");
   __shared__ float z[NX + NU];
+  __shared__ FkWork fk;
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const int N = a.N, P = tab.P;
@@ -160,13 +163,15 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
       }
       if (lane == 0) part = part + a.c[k];
       Jacc = Jacc + part * dtv;
-      Jacc = Jacc + canon_al_cost_lane(tab, z, a.lam + ((size_t)b * N + k) * P,
+      fk_knot_warp(tab, z, fk, lane);
+      Jacc = Jacc + canon_al_cost_lane(tab, z, fk,
+                                       a.lam + ((size_t)b * N + k) * P,
                                        a.mu + ((size_t)b * N + k) * P, a.atol,
                                        lane);
 
       // the step (the base controls lead u) and the divergence guard
       float xn[NX];
-      M::template step<float>(x, u, dtv, xn);
+      M::template step<float>(x, u, dtv, xn, a.chain);
       bool good = true;
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
@@ -201,8 +206,9 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
       }
       if (lane == 0) part = part + a.c[N - 1];
       Jacc = Jacc + part;
+      fk_knot_warp(tab, z, fk, lane);
       Jacc = Jacc + canon_al_cost_lane(
-          tab, z, a.lam + ((size_t)b * N + N - 1) * P,
+          tab, z, fk, a.lam + ((size_t)b * N + N - 1) * P,
           a.mu + ((size_t)b * N + N - 1) * P, a.atol, lane);
       __syncwarp();
       const float Jc = warp_sum(Jacc);
@@ -229,7 +235,9 @@ __global__ void __launch_bounds__(32) fused_al_forward_kernel(Args a,
 // x0 (B,n), X (B,N,n), U (B,N-1,m), K (B,N-1,m,n), d (B,N-1,m), dV1, dV2,
 // J_prev, rho, drho, alpha0 (B), lam, mu (B,N,P), dt (N-1), Q (N,n,n),
 // R (N,m,m), H (N,m,n), q (N,n), r (N,m), c (N), the stack's row tables
-// row_i (P,4) int32 and row_f (P,4), active (B) bytes or null →
+// row_i (P,4) int32 and row_f (P,4), its fk tables fk_joint (J,36) and
+// fk_point (npts,4) (J = 0: no fk rows), active (B) bytes or null, chain (a
+// chain model's table, models.cuh ChainTable, on the device; else null) →
 // Xout (B,N,n), Uout (B,N-1,m), scal (4,B) = J, rho, drho and the step used.
 // Returns the CUDA error of the launch (0 on success), or
 // cudaErrorInvalidValue for a model that has no instantiation.
@@ -240,16 +248,22 @@ extern "C" int trajopt_fused_al_forward_f32(
     const float* lam, const float* mu, const float* dt, const float* Q,
     const float* R, const float* H, const float* q, const float* r,
     const float* c, const int* row_i, const float* row_f,
-    const unsigned char* active, float* Xout, float* Uout, float* scal,
-    int batch, int N, int P, int model, int ls_iters, float ls_lb,
-    float ls_ub, float reg_min, float reg_factor, float reg_fp, float atol,
-    void* stream) {
-  if (batch <= 0 || N < 2 || P < 0) return (int)cudaErrorInvalidValue;
+    const float* fk_joint, const float* fk_point,
+    const unsigned char* active, const float* chain, float* Xout,
+    float* Uout, float* scal, int batch, int N, int P, int J, int npts,
+    int model, int ls_iters, float ls_lb, float ls_ub, float reg_min,
+    float reg_factor, float reg_fp, float atol, void* stream) {
+  if (batch <= 0 || N < 2 || P < 0 || J < 0 || J > kFkMaxJoints ||
+      npts < 0 || npts > kFkMaxPoints ||
+      (model % kModelSlack == kModelKuka && chain == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a{x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
-         R, H, q, r, c, active, Xout, Uout, scal, batch, N, ls_iters, ls_lb,
-         ls_ub, reg_min, reg_factor, reg_fp, atol};
+         R, H, q, r, c, active, (const ChainTable*)chain, Xout, Uout, scal,
+         batch, N, ls_iters, ls_lb, ls_ub, reg_min, reg_factor, reg_fp,
+         atol};
   trajopt::CanonTables tab{(const int4*)row_i, (const float4*)row_f, nullptr,
-                           nullptr, nullptr, P, 0};
+                           nullptr, nullptr, P, 0, fk_joint,
+                           (const float4*)fk_point, J, npts};
 #define TRAJOPT_AL_FORWARD(M)                                              \
   case kModel##M:                                                          \
     fused_al_forward_kernel<M, false>                                      \
@@ -265,6 +279,7 @@ extern "C" int trajopt_fused_al_forward_f32(
     TRAJOPT_AL_FORWARD(Car);
     TRAJOPT_AL_FORWARD(Pendulum);
     TRAJOPT_AL_FORWARD(DoubleIntegrator);
+    TRAJOPT_AL_FORWARD(Kuka);
   }
 #undef TRAJOPT_AL_FORWARD
   return (int)cudaErrorInvalidValue;

@@ -117,6 +117,8 @@ extern "C" int trajopt_riccati_sweep_f32(
   TRAJOPT_RICCATI(4, 5);     // cartpole with the slacks
   TRAJOPT_RICCATI(3, 5);     // car with the slacks
   TRAJOPT_RICCATI(2, 3);     // pendulum, double integrator with the slacks
+  TRAJOPT_RICCATI(14, 7);    // kuka
+  TRAJOPT_RICCATI(14, 21);   // kuka with the slacks (~19 KB of shared memory)
 #undef TRAJOPT_RICCATI
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_rollout.py::_rollout_kernel
 // (front end rollout_closed_loop_pallas) with the model's step inlined
-// (models.cuh: the quadrotor, cartpole, car, pendulum, double integrator, and
-// each of them with the slack controls of the infeasible-start transform)
+// (models.cuh: the quadrotor, cartpole, car, pendulum, double integrator, the
+// 7-DOF kuka arm's rigid-body chain step, and each of them with the slack
+// controls of the infeasible-start transform)
 // and, for the quadrotor's error-state solves,
 // quadrotor_state_diff_lanes (quaternion error state). For every problem and
 // knot k:
@@ -17,7 +18,10 @@
 // What bounds it on this card: latency. Each problem is a chain of N-1
 // dependent RK3 steps (for the quadrotor three dynamics evaluations, ~300
 // flops); the quadrotor error-state path reads 128 x 100 x (13 + 4 + 48 + 4)
-// floats (~3.5 MB) per launch, far below what bandwidth would notice.
+// floats (~3.5 MB) per launch, far below what bandwidth would notice. The
+// kuka step is ~15k flops (three CRBA + RNEA + 7x7 solves) whose ~700
+// intermediate values per dynamics call spill to local memory, so a kuka
+// thread mostly waits on its own local-memory traffic.
 //
 // Design: one thread per problem; state, control and the gain row live in
 // registers, and the model's widths are compile-time constants, one
@@ -67,8 +71,8 @@ __global__ void rollout_kernel(
     const float* __restrict__ U, const float* __restrict__ K,
     const float* __restrict__ d, const float* __restrict__ alpha,
     float* __restrict__ Xout, float* __restrict__ Uout,
-    unsigned char* __restrict__ ok, int batch, int N, float dt,
-    float max_state, float max_control) {
+    unsigned char* __restrict__ ok, const ChainTable* __restrict__ chain,
+    int batch, int N, float dt, float max_state, float max_control) {
   constexpr int kN = M::NX;
   constexpr int kNs = ErrorState ? M::NX - 1 : M::NX;
   constexpr int kM = M::NU;
@@ -103,7 +107,7 @@ __global__ void rollout_kernel(
       for (int c = 1; c < kNs; ++c) acc = acc + Kk[i * kNs + c] * dx[c];
       u[i] = U[bk * kM + i] + acc + a * d[bk * kM + i];
     }
-    M::template step<float>(x, u, dt, xn);
+    M::template step<float>(x, u, dt, xn, chain);
     bool good = true;
 #pragma unroll
     for (int i = 0; i < kN; ++i)
@@ -126,12 +130,13 @@ __global__ void rollout_kernel(
 template <class M, bool ErrorState>
 int launch(const float* x0, const float* X, const float* U, const float* K,
            const float* d, const float* alpha, float* Xout, float* Uout,
-           unsigned char* ok, int batch, int N, float dt, float max_state,
-           float max_control, cudaStream_t stream) {
+           unsigned char* ok, const ChainTable* chain, int batch, int N,
+           float dt, float max_state, float max_control,
+           cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (batch + threads - 1) / threads;
   rollout_kernel<M, ErrorState><<<blocks, threads, 0, stream>>>(
-      x0, X, U, K, d, alpha, Xout, Uout, ok, batch, N, dt, max_state,
+      x0, X, U, K, d, alpha, Xout, Uout, ok, chain, batch, N, dt, max_state,
       max_control);
   return (int)cudaGetLastError();
 }
@@ -142,20 +147,25 @@ int launch(const float* x0, const float* X, const float* U, const float* K,
 // contiguous float32 for the model `model` (models.cuh ModelId) with n
 // states, m controls and gains of width ns = n, or 12 with error_state (the
 // quadrotor only): x0 (B,n), X (B,N,n), U (B,N-1,m), K (B,N-1,m,ns),
-// d (B,N-1,m), alpha (B,) → Xout (B,N,n), Uout (B,N-1,m), ok (B,) bytes.
-// Returns the CUDA error of the launch (0 on success), or
+// d (B,N-1,m), alpha (B,) → Xout (B,N,n), Uout (B,N-1,m), ok (B,) bytes;
+// chain: a chain model's table (models.cuh ChainTable) on the device, else
+// null. Returns the CUDA error of the launch (0 on success), or
 // cudaErrorInvalidValue for a model that has no instantiation.
 extern "C" int trajopt_rollout_f32(
     const float* x0, const float* X, const float* U, const float* K,
     const float* d, const float* alpha, float* Xout, float* Uout,
-    unsigned char* ok, int batch, int N, int model, int error_state, float dt,
-    float max_state, float max_control, void* stream) {
+    unsigned char* ok, const float* chain, int batch, int N, int model,
+    int error_state, float dt, float max_state, float max_control,
+    void* stream) {
   if (batch <= 0 || N < 2) return (int)cudaErrorInvalidValue;
   if (error_state && model != kModelQuadrotor)
     return (int)cudaErrorInvalidValue;
-#define TRAJOPT_ROLLOUT(M, ES)                                               \
-  return launch<M, ES>(x0, X, U, K, d, alpha, Xout, Uout, ok, batch, N, dt, \
-                       max_state, max_control, (cudaStream_t)stream)
+  if (model % kModelSlack == kModelKuka && chain == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define TRAJOPT_ROLLOUT(M, ES)                                              \
+  return launch<M, ES>(x0, X, U, K, d, alpha, Xout, Uout, ok,              \
+                       (const ChainTable*)chain, batch, N, dt, max_state,  \
+                       max_control, (cudaStream_t)stream)
   switch (model) {
     case kModelQuadrotor:
       if (error_state) TRAJOPT_ROLLOUT(Quadrotor, true);
@@ -173,6 +183,8 @@ extern "C" int trajopt_rollout_f32(
       TRAJOPT_ROLLOUT(WithSlack<Pendulum>, false);
     case kModelSlack + kModelDoubleIntegrator:
       TRAJOPT_ROLLOUT(WithSlack<DoubleIntegrator>, false);
+    case kModelKuka: TRAJOPT_ROLLOUT(Kuka, false);
+    case kModelSlack + kModelKuka: TRAJOPT_ROLLOUT(WithSlack<Kuka>, false);
   }
 #undef TRAJOPT_ROLLOUT
   return (int)cudaErrorInvalidValue;

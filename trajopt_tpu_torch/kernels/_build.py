@@ -44,9 +44,9 @@ SIGNATURES = {
         # stream
         "trajopt_sqrt_sweep_f32": (_P,) * 12 + (_I,) * 4 + (_P,)},
     "rollout": {
-        # x0, X, U, K, d, alpha, Xout, Uout, ok, batch, N, model,
+        # x0, X, U, K, d, alpha, Xout, Uout, ok, chain, batch, N, model,
         # error_state, dt, max_state, max_control, stream
-        "trajopt_rollout_f32": (_P,) * 9 + (_I,) * 4 + (_F,) * 3 + (_P,)},
+        "trajopt_rollout_f32": (_P,) * 10 + (_I,) * 4 + (_F,) * 3 + (_P,)},
     "riccati_sweep": {
         # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m,
         # reg_state, stream
@@ -63,15 +63,15 @@ SIGNATURES = {
         + (_P,)},
     "fused_al_backward": {
         # X, U, lam, mu, dt, Q, R, H, q, r, rho, row_i, row_f, groups,
-        # col_ptr, col_rows, K, d, dV, fail, Aout, Bout, batch, N, P, G,
-        # model, reg_state, atol, stream
-        "trajopt_fused_al_backward_f32": (_P,) * 22 + (_I,) * 6 + (_F, _P)},
+        # col_ptr, col_rows, fk_joint, fk_point, chain, K, d, dV, fail, Aout,
+        # Bout, batch, N, P, G, J, npts, model, reg_state, atol, stream
+        "trajopt_fused_al_backward_f32": (_P,) * 25 + (_I,) * 8 + (_F, _P)},
     "fused_al_forward": {
         # x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
-        # R, H, q, r, c, row_i, row_f, active, Xout, Uout, scal, batch, N, P,
-        # model, ls_iters, ls_lb, ls_ub, reg_min, reg_factor, reg_fp, atol,
-        # stream
-        "trajopt_fused_al_forward_f32": (_P,) * 26 + (_I,) * 5 + (_F,) * 6
+        # R, H, q, r, c, row_i, row_f, fk_joint, fk_point, active, chain,
+        # Xout, Uout, scal, batch, N, P, J, npts, model, ls_iters, ls_lb,
+        # ls_ub, reg_min, reg_factor, reg_fp, atol, stream
+        "trajopt_fused_al_forward_f32": (_P,) * 29 + (_I,) * 7 + (_F,) * 6
         + (_P,)},
 }
 

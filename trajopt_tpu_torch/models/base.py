@@ -4,7 +4,9 @@ Counterpart of ``trajopt_tpu/models/base.py``. A ``Model`` wraps a continuous
 dynamics function ``f(x, u) -> xdot`` written in tensor ops that broadcast
 over leading batch dimensions; ``discretize`` turns it into a
 ``DiscreteModel`` with a ``step(x, u, dt)`` and trajectory Jacobians from
-``torch.func.jacfwd`` vmapped over every knot of every problem at once.
+``torch.func.jacfwd`` vmapped over every knot of every problem at once (for
+a rigid-body chain under RK3, from its structured linearization chained
+through the three stages instead).
 """
 from __future__ import annotations
 
@@ -45,6 +47,10 @@ class DiscreteModel:
     ``slack_m`` is the base model's control width when this is a
     slack-augmented model of the infeasible-start transform
     (``solvers/altro.py::infeasible_problem``), else None.
+    ``chain_table`` is what the kernels' ``Chain`` trait reads for a
+    rigid-body chain (``models/rigidbody_lanes.py::chain_table``), else
+    None; ``chain_table_on`` holds its copy on each device the kernels
+    ran on.
     """
 
     def __init__(self, step, n: int, m: int, model: Model | None = None,
@@ -58,7 +64,10 @@ class DiscreteModel:
         self.quat_slice = getattr(model, "quat_slice", None)
         self.cuda_step = None
         self.slack_m = None
-        self._jac = torch.func.jacfwd(step, argnums=(0, 1))
+        self.chain_table = None     # a chain's table for the CUDA kernels
+        self.chain_table_on = {}    # device -> that table on the device
+        # (x (B, n), u (B, m), dt (B,)) -> A (B, n, n), B (B, n, m)
+        self._jac = torch.func.vmap(torch.func.jacfwd(step, argnums=(0, 1)))
 
     def __call__(self, x, u, dt):
         return self.step(x, u, dt)
@@ -70,13 +79,38 @@ class DiscreteModel:
         lead = U.shape[:-1]
         n, m = X.shape[-1], U.shape[-1]
         dt = torch.as_tensor(dt, dtype=X.dtype, device=X.device).expand(lead)
-        A, B = torch.func.vmap(self._jac)(
-            X.reshape(-1, n), U.reshape(-1, m), dt.reshape(-1))
+        A, B = self._jac(X.reshape(-1, n), U.reshape(-1, m), dt.reshape(-1))
         return A.reshape(*lead, n, n), B.reshape(*lead, n, m)
 
     def __repr__(self):
         return (f"DiscreteModel({self.name}, n={self.n}, m={self.m}, "
                 f"{self.integrator})")
+
+
+def rk3_jacobian(linearize):
+    """``jac(x, u, dt) -> (A, B)`` of the RK3 step with zero-order hold
+    (``ops/integration.py::rk3``) from ``linearize(x, u) -> (ẋ, ∂ẋ/∂x,
+    ∂ẋ/∂u)``, the chain rule through the three stages written out:
+    dk1 = dt F1 dz, dk2 = dt F2 (dz + ½dk1), dk3 = dt F3 (dz − dk1 + 2dk2),
+    dx⁺ = dx + (dk1 + 4dk2 + dk3)/6. Batched: x (…, n), u (…, m) and
+    dt (…)."""
+
+    def jac(x, u, dt):
+        eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+        dtm = dt[..., None, None]
+        dt = dt[..., None]
+        f1, Fx, Fu = linearize(x, u)
+        k1, K1x, K1u = dt * f1, dtm * Fx, dtm * Fu
+        f2, Fx, Fu = linearize(x + 0.5 * k1, u)
+        X2x, X2u = eye + 0.5 * K1x, 0.5 * K1u
+        k2, K2x, K2u = dt * f2, dtm * (Fx @ X2x), dtm * (Fx @ X2u + Fu)
+        _, Fx, Fu = linearize(x - k1 + 2.0 * k2, u)
+        X3x, X3u = eye - K1x + 2.0 * K2x, 2.0 * K2u - K1u
+        K3x, K3u = dtm * (Fx @ X3x), dtm * (Fx @ X3u + Fu)
+        return (eye + (K1x + 4.0 * K2x + K3x) / 6.0,
+                (K1u + 4.0 * K2u + K3u) / 6.0)
+
+    return jac
 
 
 def discretize(model: Model, integrator: str = "rk3") -> DiscreteModel:
@@ -85,7 +119,15 @@ def discretize(model: Model, integrator: str = "rk3") -> DiscreteModel:
     dmodel = DiscreteModel(step, model.n, model.m, model=model,
                            integrator=integrator, name=model.name)
     # the kernels inline the RK3 step of these models (csrc/models.cuh): the
-    # pairs the JAX package registers a scalar lane step for
+    # pairs the JAX package registers a lane step for
     if f"{model.name}_{integrator}" in CUDA_STEPS:
         dmodel.cuda_step = f"{model.name}_{integrator}"
+    chain = getattr(model, "chain", None)
+    if chain is not None and integrator == "rk3":
+        # rigid-body chains: the structured Jacobians, and the table the
+        # kernels' Chain trait reads (models/rigidbody_lanes.py)
+        from trajopt_tpu_torch.models.rigidbody_lanes import chain_table
+
+        dmodel._jac = rk3_jacobian(model.linearize)
+        dmodel.chain_table = chain_table(chain, **model.chain_meta)
     return dmodel

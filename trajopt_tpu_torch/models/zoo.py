@@ -3,8 +3,10 @@
 Counterpart of ``trajopt_tpu/models/zoo.py``: the quaternion quadrotor and
 the four models whose scalar lane step the JAX package ships (pendulum,
 double integrator, car, cartpole); the rest of the zoo is ROADMAP Queue 1.
-Every function takes states with any leading batch dimensions and works
-under ``torch.func.vmap``/``jacfwd``.
+``MODELS`` names them with the four rigid-body rigs of ``models/robots.py``
+(kuka and the URDF acrobot, double pendulum and cartpole). Every function
+takes states with any leading batch dimensions and works under
+``torch.func.vmap``/``jacfwd``.
 
 Every component is taken as a width-1 slice, never a 0-d index: under
 ``torch.func.jacfwd`` a Python float times a 0-d element is promoted to
@@ -143,3 +145,18 @@ def quadrotor_dynamics(x, u, params=None):
 
 quadrotor = Model(quadrotor_dynamics, 13, 4, name="quadrotor")
 quadrotor.quat_slice = (3, 7)  # unit quaternion at x[3:7]
+
+
+def _robot_models():
+    """The URDF-rig models (``models/robots.py``), by name."""
+    from trajopt_tpu_torch.models import robots
+
+    return {"kuka": robots.kuka_model(),
+            "doublependulum_urdf": robots.doublependulum_urdf_model(),
+            "acrobot_urdf": robots.acrobot_urdf_model(),
+            "cartpole_urdf": robots.cartpole_urdf_model()}
+
+
+MODELS = {"pendulum": pendulum, "doubleintegrator": doubleintegrator,
+          "car": car, "cartpole": cartpole, "quadrotor": quadrotor,
+          **_robot_models()}

@@ -13,13 +13,15 @@ fixed-shape tensor ops. Where the JAX package maps a per-knot function with
 ``vmap``, a constraint function here takes X (…, n) and U (…, m) with any
 leading dimensions (problems, knots) and returns (…, p).
 
-The constraint kinds of the problem zoo are two row kinds written relative
-to the state and control widths they are called with: ``sphere`` rows
-(circle and sphere obstacle fields) and single-entry ``linear`` rows (box
-bounds, goal equalities, the infeasible-start slack rows). The same
-constraint therefore serves a problem and its slack-augmented transform
-(``solvers/altro.py::lift_constraint``), and each carries the ``canon``
-descriptor that ``ops/canonical.py`` compiles for the fused AL kernels.
+The constraint kinds of the problem zoo are three row kinds written
+relative to the state and control widths they are called with: ``sphere``
+rows (circle and sphere obstacle fields), single-entry ``linear`` rows (box
+bounds, goal equalities, the infeasible-start slack rows) and ``fk_sphere``
+rows (collision bubbles on a rigid-body chain's forward kinematics, the
+kuka arm's). The same constraint therefore serves a problem and its
+slack-augmented transform (``solvers/altro.py::lift_constraint``), and each
+carries the ``canon`` descriptor that ``ops/canonical.py`` compiles for the
+fused AL kernels.
 ``custom_constraint``, ``sphere_constraint_fn`` and
 ``planar_obstacle_constraint`` are not ported yet (ROADMAP Queue 1).
 """
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from trajopt_tpu_torch.ops.canonical import (
-    linear_canon, pad_terminal, sphere_canon,
+    fk_data, fk_rows, linear_canon, pad_terminal, sphere_canon,
 )
 from trajopt_tpu_torch.utils.device import resolve_device
 
@@ -204,6 +206,50 @@ def linear_rows_constraint(rows, off, label, equality=False, applies="all",
     con.canon = linear_canon(rows, off_np)
     if term_rows is not None:
         con.term_rows = np.asarray(term_rows, dtype=bool)
+    return con
+
+
+def fk_sphere_constraint(canon, label="obs", applies="stage"):
+    """Rows c = b − Σ_{d ∈ dims} (p_i(q)[d] − ctr[d])² ≤ 0 of an
+    ``fk_sphere`` descriptor (``ops/canonical.py::fk_sphere_canon``): sphere
+    and cylinder bubbles on world points of a chain's forward kinematics
+    from q = x[:J] (the kuka arm's, reference
+    problems/kuka_obstacles.jl:14-60). The Jacobian is analytic, from one
+    FK pass (∂p_i/∂q_k = z_k × (p_i − o_k) up to the point's joint), and the
+    ``al_terms`` hook gives the Gauss-Newton AL terms in the q block only
+    (the JAX package's obs_al_terms)."""
+    meta = canon[1]
+    J, p = meta[0], len(meta[4])
+    cache = {}
+
+    def data(x):
+        key = (x.dtype, x.device)
+        if key not in cache:
+            cache[key] = fk_data(meta, x.dtype, x.device)
+        return cache[key]
+
+    def fn(x, u):
+        return fk_rows(data(x), x)
+
+    def jac(x, u):
+        _, grow = fk_rows(data(x), x, with_jacobian=True)
+        cx = torch.cat([grow, grow.new_zeros(grow.shape[:-1]
+                                             + (x.shape[-1] - J,))], dim=-1)
+        return cx, x.new_zeros(x.shape[:-1] + (p, u.shape[-1]))
+
+    con = Constraint(fn, p, label, jac, equality=False, applies=applies)
+
+    def al_terms(X, U_pad, g, imu):
+        _, grow = fk_rows(data(X), X, with_jacobian=True)
+        lx = X.new_zeros(X.shape)
+        lxx = X.new_zeros(X.shape + (X.shape[-1],))
+        lx[..., :J] = (g[..., None] * grow).sum(-2)
+        lxx[..., :J, :J] = torch.einsum("...p,...pa,...pb->...ab", imu, grow,
+                                        grow)
+        return {"x": lx, "xx": lxx}
+
+    con.al_terms = al_terms
+    con.canon = canon
     return con
 
 

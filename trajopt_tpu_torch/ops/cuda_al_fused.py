@@ -17,10 +17,11 @@ versions: model-generic, they set the semantics and run on the CPU.
 ``fused_al_backward_cuda`` and ``fused_al_forward_cuda`` are the wrappers: a
 tensor on the CPU goes to the plain version, a CUDA tensor to the kernel,
 and anything the kernels do not take raises. The kernels carry the RK3 step
-of every model of ``ops/cuda_models.py``, with or without the n slack
-controls of the infeasible-start transform, as compile-time traits (ten
-instantiations each); the constraint stack, N and the batch are run-time
-arguments.
+of every model of ``ops/cuda_models.py`` (kuka's rigid-body chain step
+among them), with or without the n slack controls of the infeasible-start
+transform, as compile-time traits (twelve instantiations each); the
+constraint stack (with the forward-kinematics rows of a chain, K8), N and
+the batch are run-time arguments.
 
 λ and μ must arrive zero on invalid (knot, row) pairs: the constraint
 masks are not part of the canonical data (``ops/canonical.py``).
@@ -38,7 +39,9 @@ from trajopt_tpu_torch.ops.canonical import (
 from trajopt_tpu_torch.ops.cost import (
     Expansion, Objective, cost_expansion, total_cost,
 )
-from trajopt_tpu_torch.ops.cuda_models import cuda_model, find_cuda_model
+from trajopt_tpu_torch.ops.cuda_models import (
+    chain_table_ptr, cuda_model, find_cuda_model,
+)
 from trajopt_tpu_torch.ops.line_search import HostSyncs, line_search
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
@@ -148,10 +151,13 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
         obj.H.data_ptr(), obj.q.data_ptr(), obj.r.data_ptr(), rho.data_ptr(),
         canon.row_i.data_ptr(), canon.row_f.data_ptr(),
         canon.groups.data_ptr(), canon.col_ptr.data_ptr(),
-        canon.col_rows.data_ptr(), K.data_ptr(), d.data_ptr(), dV.data_ptr(),
+        canon.col_rows.data_ptr(), canon.fk_joint.data_ptr(),
+        canon.fk_point.data_ptr(), chain_table_ptr(model, cm, X.device),
+        K.data_ptr(), d.data_ptr(), dV.data_ptr(),
         fail.data_ptr(), Aout.data_ptr() if return_jacobians else None,
         Bout.data_ptr() if return_jacobians else None,
-        Bz, N, P, canon.groups.shape[0], cm.id, int(bool(reg_state)),
+        Bz, N, P, canon.groups.shape[0], canon.fk_joint.shape[0],
+        canon.fk_point.shape[0], cm.id, int(bool(reg_state)),
         float(atol), _build.stream(X.device))
     _build.check(err, "trajopt_fused_al_backward_f32")
     fused_al_backward_cuda.launches += 1
@@ -214,9 +220,12 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
         mu.data_ptr(), dt_traj.data_ptr(), obj.Q.data_ptr(),
         obj.R.data_ptr(), obj.H.data_ptr(), obj.q.data_ptr(),
         obj.r.data_ptr(), obj.c.data_ptr(), canon.row_i.data_ptr(),
-        canon.row_f.data_ptr(),
-        None if active is None else active.data_ptr(), Xout.data_ptr(),
-        Uout.data_ptr(), scal.data_ptr(), Bz, N, P, cm.id, int(ls_iters),
+        canon.row_f.data_ptr(), canon.fk_joint.data_ptr(),
+        canon.fk_point.data_ptr(),
+        None if active is None else active.data_ptr(),
+        chain_table_ptr(model, cm, dev), Xout.data_ptr(),
+        Uout.data_ptr(), scal.data_ptr(), Bz, N, P, canon.fk_joint.shape[0],
+        canon.fk_point.shape[0], cm.id, int(ls_iters),
         float(ls_lb), float(ls_ub),
         float(reg_min), float(reg_factor), float(reg_fp), float(atol),
         _build.stream(dev))

@@ -29,7 +29,7 @@ import torch
 
 from trajopt_tpu_torch.kernels import _build
 from trajopt_tpu_torch.ops.cost import Objective, cost_expansion, total_cost
-from trajopt_tpu_torch.ops.cuda_models import cuda_model
+from trajopt_tpu_torch.ops.cuda_models import CHAIN_LABELS, cuda_model
 from trajopt_tpu_torch.ops.line_search import HostSyncs, line_search
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
@@ -79,6 +79,12 @@ def fused_forward(model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho, alpha0,
 
 def _check_common(fn, model, X, U, dt_traj, obj):
     cm = cuda_model(model, fn)
+    if cm.label in CHAIN_LABELS:
+        raise NotImplementedError(
+            f"{fn}: K7a/K7b carry no rigid-body chain step ({cm.label!r}): "
+            "an unconstrained fused=True chain solve has no kernel on a CUDA "
+            "tensor (ROADMAP Queue 2, the chain step in K7a/K7b); "
+            "fused=False runs it phase-split on K5 and K2")
     Bz, N, n = X.shape
     m, dev = cm.m, X.device
     for name, t, shape in (

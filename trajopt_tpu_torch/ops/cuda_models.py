@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
+
 
 class CudaModel(NamedTuple):
     id: int        # ModelId of csrc/models.cuh
@@ -28,10 +30,13 @@ CUDA_STEPS = {
     "car_rk3": CudaModel(2, "car", 3, 2, 2),
     "pendulum_rk3": CudaModel(3, "pendulum", 2, 1, 1),
     "doubleintegrator_rk3": CudaModel(4, "doubleintegrator", 2, 1, 1),
+    # the 7-DOF arm: the Chain trait, which reads the model's chain table
+    "kuka_rk3": CudaModel(5, "kuka", 14, 7, 7),
 }
 # kModelSlack of csrc/models.cuh: a slack-augmented model's id is its base
-# model's plus this
-SLACK_ID = 5
+# model's plus this (tests/test_torch_rigidbody.py holds the two tables
+# equal)
+SLACK_ID = 6
 
 
 def with_slack(base: CudaModel) -> CudaModel:
@@ -71,6 +76,27 @@ def cuda_model(model, fn: str, slack_ok: bool = False) -> CudaModel:
             f"(n={model.n}, m={model.m}); the kernels carry the RK3 steps of "
             f"{sorted(c.label for c in CUDA_STEPS.values())}"
             + (", each with or without slack controls" if slack_ok else "")
-            + " (the rest of the zoo and the rigid-body chain step: ROADMAP "
-            "Queue 2, K6)")
+            + " (the rest of the zoo, and the chain step of the other "
+            "rigid-body rigs: ROADMAP Queue 2, K6)")
     return found
+
+
+def chain_table_ptr(model, cm: CudaModel, device):
+    """The device address of the chain table that the kernels take for a
+    chain model (``kuka``), else None (a null pointer): the model's float32
+    table (``models/rigidbody_lanes.py::chain_table``), copied to ``device``
+    once and kept on the model."""
+    if cm.label.split("_")[0] not in CHAIN_LABELS:
+        return None
+    table = getattr(model, "chain_table", None)
+    if table is None:
+        raise ValueError(f"model {getattr(model, 'name', model)!r} has the "
+                         f"CUDA step {cm.label!r} but no chain table")
+    on = model.chain_table_on
+    if device not in on:
+        on[device] = torch.as_tensor(table, device=device)
+    return on[device].data_ptr()
+
+
+# the CUDA steps that are rigid-body chains (the Chain trait)
+CHAIN_LABELS = ("kuka",)

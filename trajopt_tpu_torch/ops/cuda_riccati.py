@@ -18,10 +18,10 @@ from trajopt_tpu_torch.ops.cost import Expansion
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 
 # the (n, m) pairs csrc/riccati_sweep.cu instantiates: the quadrotor (full
-# and error state), cartpole, car, pendulum and double integrator, and each
-# with the n infeasible-start slacks (n, m + n)
+# and error state), cartpole, car, pendulum, double integrator and kuka, and
+# each with the n infeasible-start slacks (n, m + n)
 SHAPES = ((13, 4), (12, 4), (13, 17), (4, 1), (3, 2), (2, 1), (4, 5), (3, 5),
-          (2, 3))
+          (2, 3), (14, 7), (14, 21))
 
 
 def riccati_sweep_cuda(A, B, lx, lu, lxx, luu, lux, rho,

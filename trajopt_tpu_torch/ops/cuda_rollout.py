@@ -3,9 +3,10 @@
 ``rollout_closed_loop_cuda`` wraps ``csrc/rollout.cu``, the counterpart of
 ``trajopt_tpu/ops/pallas_rollout.py::rollout_closed_loop_pallas`` with the
 model's RK3 step inlined (``csrc/models.cuh``): the full-state rollout
-(``quat_slice=None``) for every model of ``ops/cuda_models.py``, with or
-without the slack controls of the infeasible-start transform, and the
-quaternion error state for the quadrotor. A tensor on the CPU goes to the plain version
+(``quat_slice=None``) for every model of ``ops/cuda_models.py`` (kuka's
+rigid-body chain step among them), with or without the slack controls of
+the infeasible-start transform, and the quaternion error state for the
+quadrotor. A tensor on the CPU goes to the plain version
 ``ops/rollout.py::rollout_closed_loop``; a CUDA tensor goes to the kernel,
 and anything the kernel does not take raises.
 """
@@ -17,7 +18,7 @@ import numbers
 import torch
 
 from trajopt_tpu_torch.kernels import _build
-from trajopt_tpu_torch.ops.cuda_models import cuda_model
+from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
 from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
 
 
@@ -62,13 +63,14 @@ def rollout_closed_loop_cuda(model, x0, X, U, K, d, alpha, dt,
         _build.check_input(fn, name, t, shape, X.device)
 
     lib = _build.load()
+    chain = chain_table_ptr(model, cm, X.device)
     Xout = torch.empty_like(X)
     Uout = torch.empty_like(U)
     ok = torch.empty((Bz,), dtype=torch.bool, device=X.device)
     err = lib.trajopt_rollout_f32(
         x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
         d.data_ptr(), alpha.data_ptr(), Xout.data_ptr(), Uout.data_ptr(),
-        ok.data_ptr(), Bz, N, cm.id, int(error_state), float(dt),
+        ok.data_ptr(), chain, Bz, N, cm.id, int(error_state), float(dt),
         float(max_state_value), float(max_control_value),
         _build.stream(X.device))
     _build.check(err, "trajopt_rollout_f32")

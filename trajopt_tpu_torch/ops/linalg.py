@@ -1,8 +1,9 @@
 """Small dense linear algebra, unrolled and batched.
 
 Counterpart of ``trajopt_tpu/ops/linalg.py``: the solve the scan Riccati
-sweep and the fused AL backward kernel share. Batched over any leading
-dimensions in place of ``vmap``.
+sweep and the fused AL backward kernel share, and the mass-matrix solve of
+the rigid-body chains. Batched over any leading dimensions in place of
+``vmap``.
 """
 from __future__ import annotations
 
@@ -59,3 +60,11 @@ def posdef_solve(S, rhs):
         X = X - (aug[..., :, i] * (row < i))[..., :, None] * r_i[..., None, :]
         X = torch.where((row == i)[:, None], r_i[..., None, :], X)
     return X * d[..., :, None], fail
+
+
+def spd_solve_vec(H, b):
+    """H⁻¹ b for small SPD matrices H (…, m, m) and vectors b (…, m): the
+    mass-matrix solve of the rigid-body dynamics (reference dynamics/*.jl
+    ``H\\…``). The elimination of :func:`posdef_solve`, solution only."""
+    x, _ = posdef_solve(H, b[..., None])
+    return x[..., 0]

@@ -20,10 +20,18 @@ class HostSyncs:
 
     def __init__(self):
         self.count = 0
+        # problems whose open-loop seed rollout blew up, so that the
+        # initial-rollout guard of ilqr_solve held x0 instead
+        self.held = 0
 
     def any(self, mask: torch.Tensor) -> bool:
         self.count += 1
         return bool(mask.any())
+
+    def item(self, t: torch.Tensor):
+        """One device value read to the host."""
+        self.count += 1
+        return t.item()
 
 
 def where_rows(mask, a, b):

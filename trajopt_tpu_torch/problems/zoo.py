@@ -14,9 +14,10 @@ import torch
 
 from trajopt_tpu_torch.models import zoo as dynamics
 from trajopt_tpu_torch.models.base import discretize
+from trajopt_tpu_torch.ops.canonical import fk_sphere_canon
 from trajopt_tpu_torch.ops.constraints import (
-    ConstraintSetBuilder, bound_constraint, goal_constraint,
-    obstacle_field_constraint,
+    ConstraintSetBuilder, bound_constraint, fk_sphere_constraint,
+    goal_constraint, obstacle_field_constraint,
 )
 from trajopt_tpu_torch.ops.cost import LQRObjective
 from trajopt_tpu_torch.problem import initial_states, problem
@@ -265,3 +266,52 @@ def quadrotor_maze(dtype=torch.float64, device=None):
     ])
     X_guess[3:7, :] = np.array(q0)[:, None]
     return initial_states(prob, interp_rows(N, tf, X_guess))
+
+
+def kuka_obstacles(dtype=torch.float64, device=None):
+    """(reference problems/kuka_obstacles.jl): the 7-DOF arm, collision
+    bubbles at links 3-6 and the end effector against 3 spheres and 3
+    cylinders, torque bounds, the goal constraint, the gravity-compensation
+    hold as the control seed. n = 14, m = 7, N = 41, tf = 5; no state seed
+    (a feasible start)."""
+    from trajopt_tpu_torch.models import robots
+
+    device = resolve_device(device)
+    model = dynamics.MODELS["kuka"]
+    chain = model.chain
+    model_d = discretize(model, "rk3")
+    n, m, N = 14, 7, 41
+    x0 = np.zeros(n)
+    x0[1:4] = np.pi / 2
+    xf = np.zeros(n)
+    xf[0] = np.pi / 2
+    xf[3] = np.pi / 2
+    obj = LQRObjective(np.diag(np.concatenate([np.ones(7), np.ones(7) * 100.0])),
+                       1e-2 * np.eye(m), 10.0 * np.eye(n), xf, N, dtype=dtype,
+                       device=device)
+
+    # collision bubbles (kuka_obstacles.jl:14-36): the frames of links 3-6
+    # (moving joints 2..5) and a point 4.5 cm along the last link; rows
+    # obstacle-major, the spheres' then the cylinders' (x, y only)
+    body_idx = [2, 3, 4, 5]
+    radii = np.array([0.1, 0.12, 0.09, 0.09, 0.05])
+    d = 0.25
+    spheres = np.array([[d, 0.0, 1.2, 0.2], [0.0, -d, 0.4, 0.15],
+                        [0.0, -d, 1.2, 0.15]])
+    cylinders = np.array([[d, -d, 0.08], [d, d, 0.08], [-d, -d, 0.08]])
+    points = [(b, None) for b in body_idx] + \
+        [(chain.ndof - 1, (0.0, 0.0, 0.045))]
+    rows = [(i, sp[:3], float((radii[i] + sp[3]) ** 2), (0, 1, 2))
+            for sp in spheres for i in range(5)]
+    rows += [(i, (cy[0], cy[1], 0.0), float((radii[i] + cy[2]) ** 2), (0, 1))
+             for cy in cylinders for i in range(5)]
+    obs = fk_sphere_constraint(fk_sphere_canon(chain, points, rows), "obs")
+
+    cons = ConstraintSetBuilder(N)
+    cons.add(bound_constraint(n, m, u_min=-80.0, u_max=80.0),
+             knots=range(0, N - 1))
+    cons.add(obs, knots=range(1, N - 1))
+    cons.add(goal_constraint(xf))
+    U0 = robots.kuka_hold_trajectory(chain, x0[:7], N).numpy()
+    return problem(model_d, obj, constraints=cons, x0=x0, xf=xf, N=N, tf=5.0,
+                   U0=U0, dtype=dtype, device=device)

@@ -343,9 +343,16 @@ def al_solve(prob: Problem, opts: ALOptions = ALOptions(),
     infeasible and minimum-time rows of ALTRO get their own penalty schedule
     (reference altro_solver.jl:26-53 options).
     """
+    return _al_solve_one(prob, opts, constraint_tolerance, mu_init,
+                         penalty_scaling, HostSyncs())
+
+
+def _al_solve_one(prob: Problem, opts: ALOptions, constraint_tolerance,
+                  mu_init, penalty_scaling, syncs: HostSyncs) -> ALResult:
+    """:func:`al_solve`, its loop tests counted in ``syncs``."""
     res = al_solve_batch(prob, opts, prob.x0[None], prob.X[None],
                          prob.U[None], constraint_tolerance, mu_init,
-                         penalty_scaling)
+                         penalty_scaling, syncs=syncs)
     return res._replace(
         **{k: getattr(res, k)[0] for k in res._fields if k != "history"},
         history={k: v[0] for k, v in res.history.items()})

@@ -29,8 +29,8 @@ from trajopt_tpu_torch.ops.constraints import (
 )
 from trajopt_tpu_torch.ops.cost import Objective
 from trajopt_tpu_torch.problem import Problem, update_problem
-from trajopt_tpu_torch.solvers.al import ALOptions, al_solve
-from trajopt_tpu_torch.solvers.ilqr import tvlqr_projection
+from trajopt_tpu_torch.solvers.al import ALOptions, _al_solve_one
+from trajopt_tpu_torch.solvers.ilqr import HostSyncs, tvlqr_projection
 from trajopt_tpu_torch.solvers.projected_newton import PNOptions, pn_solve
 
 
@@ -71,6 +71,8 @@ class ALTROResult(NamedTuple):
     gradient: torch.Tensor
     dt_traj: torch.Tensor  # per-interval dt
     tt: torch.Tensor       # total trajectory time
+    host_syncs: int        # device-to-host reads of the AL stages' loops
+    seed_held: int         # 1 if the open-loop seed blew up and x0 was held
 
 
 # ------------------------------------------------------------ constraint lift
@@ -124,6 +126,7 @@ def infeasible_problem(prob: Problem, R_inf: float = 1.0) -> Problem:
     # the fused AL kernels (ops/cuda_al_fused.py) inline the base step and
     # add the slack themselves
     model_inf.cuda_step = base.cuda_step
+    model_inf.chain_table = base.chain_table
 
     # structured Jacobian: the slacks enter linearly with an identity
     # block, so only the base step is differentiated (n + m tangents
@@ -132,8 +135,8 @@ def infeasible_problem(prob: Problem, R_inf: float = 1.0) -> Problem:
 
     def jac_inf(x, u, dt):
         A, Bm = base_jac(x, u[..., :m], dt)
-        return A, torch.cat([Bm, torch.eye(n, dtype=Bm.dtype,
-                                           device=Bm.device)], dim=-1)
+        eye = torch.eye(n, dtype=Bm.dtype, device=Bm.device)
+        return A, torch.cat([Bm, eye.expand(Bm.shape[:-1] + (n,))], dim=-1)
 
     model_inf._jac = jac_inf
 
@@ -208,6 +211,8 @@ def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
     onto the dynamics (``dynamically_feasible_projection``). ``c_max`` of
     the result is scored on the original constraints. A minimum-time problem
     (``minimum_time=True`` or ``tf == 0``) raises ``NotImplementedError``.
+    ``host_syncs`` counts the device-to-host reads of the AL stages' loop
+    tests; ``seed_held`` whether the initial-rollout guard held x0.
     """
     dtype = prob.U.dtype
     if infeasible is None:
@@ -235,8 +240,9 @@ def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
                            "kickout_max_penalty": kickout})
 
     mu0, sca = _penalty_rows(prob_altro.constraints, opts, dtype)
-    res_al = al_solve(prob_altro, opts_al, mu_init=mu0[None, :],
-                      penalty_scaling=sca)
+    syncs = HostSyncs()
+    res_al = _al_solve_one(prob_altro, opts_al, None, mu0[None, :], sca,
+                           syncs)
     X_a, U_a = res_al.X, res_al.U
     iterations_total = res_al.iterations_total
     J = res_al.J
@@ -269,8 +275,8 @@ def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
 
         if opts.resolve_feasible_problem:
             mu0f, scaf = _penalty_rows(prob_feas.constraints, opts, dtype)
-            res2 = al_solve(prob_feas, opts_al, mu_init=mu0f[None, :],
-                            penalty_scaling=scaf)
+            res2 = _al_solve_one(prob_feas, opts_al, None, mu0f[None, :],
+                                 scaf, syncs)
             iterations_total = iterations_total + res2.iterations_total
             J = res2.J
             X_out, U_out = res2.X, res2.U
@@ -285,4 +291,5 @@ def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
                        iterations=res_al.iterations,
                        iterations_total=iterations_total,
                        gradient=res_al.gradient, dt_traj=dt_out,
-                       tt=dt_out.sum())
+                       tt=dt_out.sum(), host_syncs=syncs.count,
+                       seed_held=syncs.held)

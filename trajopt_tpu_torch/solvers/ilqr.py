@@ -23,7 +23,11 @@ those reads. Four iteration paths are ported:
   default of a constrained solve whose constraints are all canonical):
   kernels K3 and K4 (``ops/cuda_al_fused.py``), for every model with a CUDA
   step, with or without the slack controls of the infeasible-start
-  transform.
+  transform. A stack with the forward-kinematics rows of a chain (kuka's
+  ``fk_sphere`` rows) is eligible only with ``fused_al_fk=True``, and then
+  runs the hybrid: the phase-split backward pass (K5) and the fused line
+  search (K4); K3 is never launched for such a stack (the JAX package's
+  rule, trajopt_tpu ilqr.py:1315-1326).
 
 ``tvlqr_projection`` (one backward pass and one closed-loop rollout at α = 0)
 runs on K5 and K2.
@@ -302,17 +306,24 @@ def _fused_al_eligible(model, opts: iLQROptions, meta, like=None):
     objective, the scan backward pass on the full state, the default
     limits), and for a CUDA tensor ``like`` the Hopper kernels' own:
     float32 and a model they carry (``ops/cuda_models.py``, with or without
-    slack controls). Nothing of the TPU dispatch (batch % 128, VMEM budgets,
-    chunking) applies."""
+    slack controls). A stack with fk rows needs ``fused_al_fk``. Nothing of
+    the TPU dispatch (batch % 128, VMEM budgets, chunking) applies."""
     ok = ((opts.fused or opts.fused_al)
           and meta is not None and meta.canon is not None
           and isinstance(meta.objective, Objective)
           and opts.bp_type == "scan" and not opts.square_root
           and not opts.error_state and opts.bp_step_limit == 0.0
           and opts.max_state_value == 1e8 and opts.max_control_value == 1e8)
+    ok = ok and (opts.fused_al_fk or not _canon_has_fk(meta.canon))
     if ok and like is not None and like.device.type == "cuda":
         ok = like.dtype == torch.float32 and cuda_model_supported(model)
     return ok
+
+
+def _canon_has_fk(canon) -> bool:
+    """Whether a canonical stack carries ``fk_sphere`` rows (a chain's
+    forward-kinematics bubbles, ``ops/canonical.py``)."""
+    return canon is not None and any(e[0] == "fk_sphere" for e in canon.spec)
 
 
 def _fused_eligible(model, opts: iLQROptions, objective, like=None):
@@ -361,6 +372,8 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
     _check_supported(opts)
     use_fused = _fused_eligible(model, opts, objective, like=X0)
     use_fused_al = _fused_al_eligible(model, opts, al_meta, like=X0)
+    # fk stacks run the hybrid: phase-split backward pass, fused line search
+    use_fused_al_bp = use_fused_al and not _canon_has_fk(al_meta.canon)
     if not (use_fused or use_fused_al):
         _check_card_path(model, X0, dt)
     syncs = HostSyncs() if syncs is None else syncs
@@ -384,13 +397,17 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
     if do_rollout:
         # initial rollout where there is no valid state seed (reference
         # rollout!, rollout.jl:25-31); an open-loop seed that blows up holds
-        # x0 instead, so J0 stays finite (trajopt_tpu ilqr.py:1276-1284)
+        # x0 instead, so J0 stays finite (trajopt_tpu ilqr.py:1276-1284: the
+        # kuka hold torques cancel gravity only to the rounding of the host
+        # that computed them, and the free arm diverges in float32);
+        # syncs.held counts the problems it held
         needs = ~torch.isfinite(X0).flatten(1).all(-1) & active
         if syncs.any(needs):
             X_roll = rollout(model, x0, U0, dt_traj)
             blew = ~torch.isfinite(X_roll).flatten(1).all(-1)
             X_roll = _where(blew, x0[:, None, :].expand_as(X_roll), X_roll)
             X0 = _where(needs, X_roll, X0)
+            syncs.held += syncs.item((blew & needs).sum())
 
     J0 = cost_fn(X0, U0)
     rho = per_problem(rho0, opts.bp_reg_initial).clone()
@@ -435,7 +452,7 @@ def ilqr_solve(model, cost_fn, expansion_fn, x0, X0, U0, dt,
 
             K_n, d_n, dV1, dV2, rho_n, drho_n = _rho_retry(
                 sweep, rho, drho, opts, active=go, syncs=syncs)
-        elif use_fused_al:
+        elif use_fused_al_bp:
             def sweep(rho_v):
                 return fused_al_backward_cuda(
                     model, canon, X, U, lam_al, mu_al, dt_traj, obj_al,
