@@ -373,10 +373,12 @@ def _line_seeded(prob):
 def _al_setup(name, slack, device):
     """Inputs of K3 and K4 for one (model, slack) pair at B = 16 on the
     problem's own stack: ``car_escape`` (P = 177, 180 with slacks),
-    ``cartpole``, ``pendulum`` (with slacks from a line seed) or the maze
-    without the transform; float64 and float32 copies."""
+    ``cartpole``, ``pendulum`` (with slacks from a line seed), the maze
+    without the transform, or a URDF rig's (``_rig_problem`` with a goal);
+    float64 and float32 copies."""
     factory = dict(car=problems.car_escape, cartpole=problems.cartpole,
-                   pendulum=problems.pendulum, quadrotor=quadrotor_maze)[name]
+                   pendulum=problems.pendulum, quadrotor=quadrotor_maze).get(
+        name, lambda **kw: _rig_problem(name, goal=True, **kw))
     out = {}
     rng = np.random.default_rng(9)
     for dtype in (torch.float64, torch.float32):
@@ -423,6 +425,10 @@ AL_CASES = [("car", True), ("car", False), ("cartpole", True),
 @pytest.mark.parametrize("name,slack", AL_CASES)
 def test_fused_al_kernels_match_plain_versions_for_every_model(
         cuda_device, name, slack):
+    _check_al_kernels(cuda_device, name, slack)
+
+
+def _check_al_kernels(cuda_device, name, slack):
     """K3 and K4 of one instantiation against their plain versions, B = 16,
     float32, benign duals, rho = 1: no failure, K and d at 2e-3 of scale
     (tests/test_fused_al.py:261-267) or three times the float32 plain
@@ -495,6 +501,7 @@ def test_fused_al_kernels_match_plain_versions_for_every_model(
     assert float(((Jk - Jp).abs() / Jp.abs().clamp(min=1.0))[calm].max()) \
         < max(1e-3, 3.0 * eJ)
     assert float((Xk - Xp)[calm].abs().max()) < max(1e-4 * scale, 3.0 * eX)
+    return st, k, ak
 
 
 def test_altro_solve_on_the_card(cuda_device):
@@ -535,10 +542,29 @@ def test_altro_solve_on_the_card(cuda_device):
 
 # ------------------------------------------------------ K5, K7a, K7b, K2
 
+def _rig_problem(rig, dtype, device, goal=False):
+    """URDF rig ``rig`` on its zoo problem, its model replaced, as the JAX
+    package solves it; with ``goal`` the double pendulum gets a goal
+    constraint (the acrobot problem's), for the kernels that need a
+    stack."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.constraints import (
+        ConstraintSetBuilder, goal_constraint)
+
+    prob = problems.rig_problem(rig, dtype=dtype, device=device)
+    if goal and prob.constraints.P == 0:
+        cons = ConstraintSetBuilder(prob.N)
+        cons.add(goal_constraint(prob.xf.cpu().numpy()))
+        prob = tt.update_problem(prob, constraints=cons.stack(device=device))
+    return prob
+
+
+RIGS = ["acrobot_urdf", "doublependulum_urdf", "cartpole_urdf"]
 MODEL_PROBLEMS = dict(quadrotor=lambda **kw: quadrotor_line(
     N=101, distance=5.0, **kw), cartpole=problems.cartpole,
     car=problems.parallel_park, pendulum=problems.pendulum,
-    doubleintegrator=problems.doubleintegrator)
+    doubleintegrator=problems.doubleintegrator,
+    **{rig: lambda r=rig, **kw: _rig_problem(r, **kw) for rig in RIGS})
 
 
 def _model_setup(name, device):
@@ -934,19 +960,216 @@ def test_kuka_solve_on_the_card(cuda_device, fk):
     assert (moved[1] == 0) == fk and (moved[3] == 2) == fk
 
 
-def test_unconstrained_fused_kuka_solve_raises_on_the_card(cuda_device):
-    """K7a/K7b carry no chain step: an unconstrained ``fused=True`` kuka
-    solve on a CUDA tensor raises NotImplementedError before any launch,
-    as a model without a CUDA step does, and nothing runs in K7a's place."""
+def test_unconstrained_fused_kuka_solve_on_the_card(cuda_device):
+    """K7a/K7b carry the chain step: an unconstrained ``fused=True`` kuka
+    solve on a CUDA tensor runs on them alone (K5 and K2 never launch), from
+    each start's own gravity hold, and its iterates stay finite."""
     import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.constraints import empty_constraints
+    from trajopt_tpu_torch.parallel.batch import solve_batch
 
     base = problems.kuka_obstacles(dtype=torch.float32, device=cuda_device)
-    prob = tt.problem(base.model, base.obj, x0=base.x0.cpu(),
-                      xf=base.xf.cpu(), N=base.N, dt=base.dt,
-                      U0=base.U.cpu(), dtype=torch.float32,
-                      device=cuda_device)
-    before = fused_backward_cuda.launches
-    with pytest.raises(NotImplementedError, match="K7a/K7b"):
-        tt.al_solve(prob, tt.ALOptions(opts_uncon=tt.iLQROptions(
-            iterations=2, fused=True)))
-    assert fused_backward_cuda.launches == before
+    prob = tt.update_problem(base, constraints=empty_constraints(
+        base.N, device=cuda_device))
+    rng = np.random.default_rng(0)
+    x0s = prob.x0[None] + torch.as_tensor(np.concatenate(
+        [rng.normal(size=(4, 7)) * 0.05, np.zeros((4, 7))], axis=1),
+        dtype=torch.float32, device=cuda_device)
+    q = x0s[:, :7]
+    U0s = prob.model.model.chain.bias_forces(q, torch.zeros_like(q))[
+        :, None].expand(-1, prob.N - 1, -1).contiguous()
+    counts = lambda: (fused_backward_cuda.launches_by["kuka"],  # noqa: E731
+                      fused_forward_cuda.launches_by["kuka"],
+                      riccati_sweep_cuda.launches,
+                      rollout_closed_loop_cuda.launches)
+    before = counts()
+    res = solve_batch(prob, tt.ALOptions(opts_uncon=tt.iLQROptions(
+        iterations=3, fused=True)), x0s, U0s)
+    torch.cuda.synchronize()
+    moved = [a - b for a, b in zip(counts(), before)]
+    assert moved[0] >= 3 and moved[1] >= 3 and moved[2:] == [0, 0]
+    assert bool(torch.isfinite(res.X).all())
+
+
+@pytest.mark.parametrize("rig", RIGS)
+def test_rig_fused_kernels_match_plain_versions(cuda_device, rig):
+    """The rigs' K7a, K7b, K2 (full state) and K5 (4, m) against their
+    plain versions, B = 16, N = 21 at each zoo problem's dt: K7a at rho = 1
+    (no failure, K and d at 1e-3 of scale, ΔV at 1e-4, or three times the
+    float32 plain version's distance from float64; its Jacobians at 1e-5
+    of scale); K7b on those gains with lane 11's search running out
+    (steps, rho and drho equal everywhere, X at 1e-5 of scale or three
+    times the float32 plain version's distance from float64); K2 at K7b's
+    steps; K5 on the ``torch.func`` Jacobians."""
+    ms = _model_setup(rig, cuda_device)
+    one = torch.ones(B, device=cuda_device)
+    before = fused_backward_cuda.launches_by[rig]
+    k = fused_backward_cuda(ms["model"], ms["X"], ms["U"], ms["dtt"],
+                            ms["obj"], one, return_jacobians=True)
+    torch.cuda.synchronize()
+    assert fused_backward_cuda.launches_by[rig] == before + 1
+    p = fused_backward(ms["model"], ms["X"], ms["U"], ms["dtt"], ms["obj"],
+                       one, return_jacobians=True)
+    p64 = fused_backward(ms["model"], ms["X64"], ms["U64"], ms["dt64"],
+                         ms["obj64"], one.double(), return_jacobians=True)
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
+        _close(k[i], p[i], p64[i], tol)
+    for i in (5, 6):
+        _close(k[i], p[i], p64[i], 1e-5)
+
+    K, d, v1, v2 = k[:4]
+    x0 = ms["X"][:, 0].contiguous()
+    J_prev = total_cost(ms["obj"], ms["X"], ms["U"], ms["dtt"]).contiguous()
+    J_prev[11] = -1e30
+    args = (ms["model"], x0, ms["X"], ms["U"], K, d, v1, v2, J_prev, one,
+            one, None, ms["dtt"], ms["obj"], LS_OPTS)
+    before = fused_forward_cuda.launches_by[rig]
+    Xk, Uk, Jk, rk, drk, ak = fused_forward_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_forward_cuda.launches_by[rig] == before + 1
+    Xp, Up, Jp, rp, drp, ap = fused_forward(*args)
+    assert torch.equal(ak, ap) and torch.equal(rk, rp)
+    assert torch.equal(drk, drp)
+    assert float(ak[11]) == 0.0 and torch.equal(Xk[11], ms["X"][11])
+    live = ak > 0
+    assert int(live.sum()) >= B // 2
+    X6 = rollout_closed_loop(ms["model"], x0.double(), ms["X64"], ms["U64"],
+                             K.double(), d.double(), ak.double(),
+                             ms["dt"])[0]
+    _close(Xk[live], Xp[live], X6[live], 1e-5)
+    torch.testing.assert_close(Jk[live], Jp[live], rtol=1e-4, atol=0)
+
+    ins = (ms["model"], x0, ms["X"], ms["U"], K, d, ak.contiguous(),
+           ms["dt"])
+    before = rollout_closed_loop_cuda.launches_by[rig]
+    Xr, Ur, okr = rollout_closed_loop_cuda(*ins)
+    torch.cuda.synchronize()
+    assert rollout_closed_loop_cuda.launches_by[rig] == before + 1
+    Xs, Us, oks = rollout_closed_loop(*ins)
+    assert torch.equal(okr, oks) and bool(okr.all())
+    _close(Xr, Xs, X6, 1e-5)
+
+    A, Bm = ms["model"].jacobian_traj(ms["X64"][:, :-1], ms["U64"],
+                                      ms["dt64"])
+    e = cost_expansion(ms["obj64"], ms["X64"], ms["U64"], ms["dt64"])
+    ins64 = [A, Bm, e.x, e.u, e.xx, e.uu, e.ux]
+    ins = [t.float().contiguous() for t in ins64]
+    k5 = riccati_sweep_cuda(*ins, one)
+    torch.cuda.synchronize()
+    p5 = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]), one)
+    q5 = scan_sweep(A, Bm, e, one.double())
+    assert torch.equal(k5[4], p5[4]) and not bool(k5[4].any())
+    for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
+        _close(k5[i], p5[i], q5[i], tol)
+
+
+@pytest.mark.parametrize("rig,slack", [(r, s) for r in RIGS
+                                       for s in (False, True)])
+def test_rig_al_kernels_match_plain_versions(cuda_device, rig, slack):
+    """The rigs' K3 and K4, with and without slacks, on each rig's zoo
+    stack (the double pendulum's with a goal constraint), at the bars of
+    ``test_fused_al_kernels_match_plain_versions_for_every_model``; then
+    K2 at K4's steps and K5 (4, m) on the AL expansion of the same inputs
+    (m = 5 or 6 with slacks)."""
+    from trajopt_tpu_torch.solvers.al import al_cost_fns
+
+    st, k, ak = _check_al_kernels(cuda_device, rig, slack)
+    p32, p64 = st["p32"], st["p64"]
+    X, U = st["data"][:2]
+    label = rig + ("_slack" if slack else "")
+    ones = torch.ones(B, device=cuda_device)
+    ins = [X[:, 0].contiguous(), X, U, k[0], k[1], ak.contiguous()]
+    before = rollout_closed_loop_cuda.launches_by[label]
+    Xr, Ur, okr = rollout_closed_loop_cuda(p32.model, *ins, p32.dt)
+    torch.cuda.synchronize()
+    assert rollout_closed_loop_cuda.launches_by[label] == before + 1
+    Xs, Us, oks = rollout_closed_loop(p32.model, *ins, p32.dt)
+    X6, _, _ = rollout_closed_loop(p64.model, *(a.double() for a in ins),
+                                   p32.dt)
+    assert torch.equal(okr, oks) and int(okr.sum()) >= B // 2
+    _close(Xr[okr], Xs[okr], X6[okr], 1e-5)
+
+    X64, U64, lam64, mu64 = st["data64"]
+    A, Bm = p64.model.jacobian_traj(X64[:, :-1], U64, p64.dt_traj())
+    e = al_cost_fns(p64.obj, p64.constraints, p64.dt_traj(), lam64,
+                    mu64)[1](X64, U64)
+    ins64 = [A, Bm, e.x, e.u, e.xx, e.uu, e.ux]
+    ins = [a.float().contiguous() for a in ins64]
+    before = riccati_sweep_cuda.launches_by[f"4x{p32.m}"]
+    k5 = riccati_sweep_cuda(*ins, ones)
+    torch.cuda.synchronize()
+    assert riccati_sweep_cuda.launches_by[f"4x{p32.m}"] == before + 1
+    p5 = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]), ones)
+    q5 = scan_sweep(A, Bm, e, ones.double())
+    assert torch.equal(k5[4], p5[4])
+    for i in (0, 1):
+        _close(k5[i], p5[i], q5[i], 1e-3)
+
+
+def test_kuka_fused_kernels_match_plain_versions(cuda_device):
+    """K7a and K7b ``kuka`` on the unconstrained arm, B = 16, N = 41: starts
+    with q noise 0.05, each start's own hold torques, the open-loop
+    rollouts (the held start where one leaves the finite numbers). K7a at
+    rho = 1: K and d at 2e-3 of scale or three times the float32 plain
+    version's distance from float64, its Jacobians at 1e-5 of their scale;
+    K7b on those gains, lane 11's search running out: steps, rho and drho
+    equal on at least 0.9 of the problems (the arm amplifies float32
+    rounding, as on the kuka stack), X at 1e-4 of scale or three times the
+    float32 plain version's distance from float64."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.constraints import empty_constraints
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        base = problems.kuka_obstacles(dtype=dtype, device=cuda_device)
+        out[dtype] = tt.update_problem(base, constraints=empty_constraints(
+            base.N, device=cuda_device))
+    p64, p32 = out[torch.float64], out[torch.float32]
+    rng = np.random.default_rng(5)
+    x0s = p64.x0[None] + torch.as_tensor(np.concatenate(
+        [rng.normal(size=(B, 7)) * 0.05, np.zeros((B, 7))], axis=1),
+        device=cuda_device)
+    q = x0s[:, :7]
+    U64 = p64.model.model.chain.bias_forces(q, torch.zeros_like(q))[
+        :, None].expand(-1, p64.N - 1, -1).contiguous()
+    X64 = rollout(p64.model, x0s, U64, p64.dt_traj())
+    blew = ~torch.isfinite(X64).flatten(1).all(-1)
+    X64[blew] = x0s[blew][:, None]
+    X, U = X64.float().contiguous(), U64.float().contiguous()
+    one = torch.ones(B, device=cuda_device)
+    dt = p32.dt_traj()
+    before = fused_backward_cuda.launches_by["kuka"]
+    k = fused_backward_cuda(p32.model, X, U, dt, p32.obj, one,
+                            return_jacobians=True)
+    torch.cuda.synchronize()
+    assert fused_backward_cuda.launches_by["kuka"] == before + 1
+    p = fused_backward(p32.model, X, U, dt, p32.obj, one,
+                       return_jacobians=True)
+    q64 = fused_backward(p64.model, X64, U64, p64.dt_traj(), p64.obj,
+                         one.double(), return_jacobians=True)
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i in (0, 1):
+        _close(k[i], p[i], q64[i], 2e-3)
+    for i in (5, 6):
+        _close(k[i], p[i], q64[i], 1e-5)
+
+    J_prev = total_cost(p32.obj, X, U, dt).contiguous()
+    J_prev[11] = -1e30
+    args = (p32.model, X[:, 0].contiguous(), X, U, k[0], k[1], k[2], k[3],
+            J_prev, one, one, None, dt, p32.obj, LS_OPTS)
+    before = fused_forward_cuda.launches_by["kuka"]
+    Xk, Uk, Jk, rk, drk, ak = fused_forward_cuda(*args)
+    torch.cuda.synchronize()
+    assert fused_forward_cuda.launches_by["kuka"] == before + 1
+    Xp, Up, Jp, rp, drp, ap = fused_forward(*args)
+    same = ak == ap
+    assert float(same.float().mean()) >= 0.9
+    assert torch.equal(rk[same], rp[same]) and torch.equal(drk[same],
+                                                           drp[same])
+    assert float(ak[11]) == 0.0 and torch.equal(Xk[11], X[11])
+    calm = same & (ak > 0)
+    X6 = rollout_closed_loop(p64.model, x0s, X64, U64, k[0].double(),
+                             k[1].double(), ak.double(), p32.dt)[0]
+    if bool(calm.any()):
+        _close(Xk[calm], Xp[calm], X6[calm], 1e-4)

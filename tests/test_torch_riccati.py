@@ -152,7 +152,7 @@ def test_riccati_wrapper_takes_the_ported_shapes():
     """Every (n, m) a ported model produces has an instantiation, with or
     without the slack controls (the quadrotor's (13, 17), the car's (3, 5),
     kuka's (14, 21), ...), and the error state (12, 4)."""
-    assert len(CUDA_MODELS) == 12
+    assert len(CUDA_MODELS) == 18
     for cm in CUDA_MODELS.values():
         assert (cm.n, cm.m) in SHAPES
     assert (12, 4) in SHAPES and (13, 17) in SHAPES and (3, 5) in SHAPES

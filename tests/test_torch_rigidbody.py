@@ -193,7 +193,9 @@ def test_model_ids_and_table_size_agree_with_models_cuh():
         r"kModel(\w+) = (\d+)", src))
     names = {"Quadrotor": "quadrotor", "Cartpole": "cartpole", "Car": "car",
              "Pendulum": "pendulum", "DoubleIntegrator": "doubleintegrator",
-             "Kuka": "kuka"}
+             "Kuka": "kuka", "AcrobotUrdf": "acrobot_urdf",
+             "DoublependulumUrdf": "doublependulum_urdf",
+             "CartpoleUrdf": "cartpole_urdf"}
     assert enum.pop("Slack") == SLACK_ID
     assert {names[k]: v for k, v in enum.items()} == {
         cm.label: cm.id for cm in CUDA_STEPS.values()}

@@ -49,6 +49,8 @@ MODELS = zoo.MODELS
 PROBLEMS = {name: getattr(problems_zoo, name) for name in (
     "doubleintegrator", "pendulum", "cartpole", "parallel_park", "car_3obs",
     "car_escape", "quadrotor_maze", "kuka_obstacles")}
+PROBLEMS.update(doublependulum=problems_zoo.doublependulum_problem,
+                acrobot=problems_zoo.acrobot_problem)
 OBJECTIVE_FIELDS = ("Q", "R", "H", "q", "r", "c")
 STATE_FIELDS = ("X", "U", "lam", "mu")
 

@@ -228,7 +228,7 @@ extern "C" int trajopt_fused_al_backward_f32(
     int npts, int model, int reg_state, float atol, void* stream) {
   if (batch <= 0 || N < 2 || P < 0 || J < 0 || J > kFkMaxJoints ||
       npts < 0 || npts > kFkMaxPoints ||
-      (model % kModelSlack == kModelKuka && chain == nullptr))
+      (is_chain_model(model) && chain == nullptr))
     return (int)cudaErrorInvalidValue;
   const ChainTable* ct = (const ChainTable*)chain;
   trajopt::CanonTables tab{(const int4*)row_i, (const float4*)row_f, groups,
@@ -250,6 +250,9 @@ extern "C" int trajopt_fused_al_backward_f32(
     TRAJOPT_AL_BACKWARD(Pendulum);
     TRAJOPT_AL_BACKWARD(DoubleIntegrator);
     TRAJOPT_AL_BACKWARD(Kuka);
+    TRAJOPT_AL_BACKWARD(AcrobotUrdf);
+    TRAJOPT_AL_BACKWARD(DoublependulumUrdf);
+    TRAJOPT_AL_BACKWARD(CartpoleUrdf);
   }
 #undef TRAJOPT_AL_BACKWARD
   return (int)cudaErrorInvalidValue;

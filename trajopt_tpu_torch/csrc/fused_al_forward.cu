@@ -255,7 +255,7 @@ extern "C" int trajopt_fused_al_forward_f32(
     float reg_factor, float reg_fp, float atol, void* stream) {
   if (batch <= 0 || N < 2 || P < 0 || J < 0 || J > kFkMaxJoints ||
       npts < 0 || npts > kFkMaxPoints ||
-      (model % kModelSlack == kModelKuka && chain == nullptr))
+      (is_chain_model(model) && chain == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a{x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
          R, H, q, r, c, active, (const ChainTable*)chain, Xout, Uout, scal,
@@ -280,6 +280,9 @@ extern "C" int trajopt_fused_al_forward_f32(
     TRAJOPT_AL_FORWARD(Pendulum);
     TRAJOPT_AL_FORWARD(DoubleIntegrator);
     TRAJOPT_AL_FORWARD(Kuka);
+    TRAJOPT_AL_FORWARD(AcrobotUrdf);
+    TRAJOPT_AL_FORWARD(DoublependulumUrdf);
+    TRAJOPT_AL_FORWARD(CartpoleUrdf);
   }
 #undef TRAJOPT_AL_FORWARD
   return (int)cudaErrorInvalidValue;

@@ -15,7 +15,11 @@
 // The TPU kernel linearizes its step with jax.linearize; here the Jacobians
 // come from forward-mode dual numbers through the model's templated RK3 step
 // (models.cuh), one tangent direction per lane: n state and m control
-// directions on n + m <= 17 lanes of the warp.
+// directions on n + m lanes of the warp (17 for the quadrotor, 21 for the
+// kuka arm). For a rigid-body chain (Chain<NDOF, NU>: kuka and the three
+// two-link rigs) each of those lanes walks the chain in Dual on its own,
+// the chain's table read from the device pointer the kernel is handed, its
+// arrays in local memory, as in K3.
 //
 // What bounds it on this card: latency, not bytes or operations. For the
 // quadrotor at B=128, N=101 a launch moves about 3.5 MB (the gains K
@@ -47,7 +51,8 @@ __global__ void __launch_bounds__(32) fused_backward_kernel(
     const float* __restrict__ dt, const float* __restrict__ Q,
     const float* __restrict__ R, const float* __restrict__ H,
     const float* __restrict__ q, const float* __restrict__ r,
-    const float* __restrict__ rho_in, float* __restrict__ K,
+    const float* __restrict__ rho_in, const ChainTable* __restrict__ chain,
+    float* __restrict__ K,
     float* __restrict__ d, float* __restrict__ dV,
     unsigned char* __restrict__ fail_out, float* __restrict__ Aout,
     float* __restrict__ Bout, int batch, int N, int reg_state) {
@@ -89,7 +94,7 @@ __global__ void __launch_bounds__(32) fused_backward_kernel(
 #pragma unroll
       for (int i = 0; i < NU; ++i)
         ud[i] = Dual(s.z[NX + i], lane == NX + i ? 1.f : 0.f);
-      M::template step<Dual>(xd, ud, dtv, out);
+      M::template step<Dual>(xd, ud, dtv, out, chain);
 #pragma unroll
       for (int i = 0; i < NX; ++i) {
         if (lane < NX) {
@@ -141,12 +146,12 @@ __global__ void __launch_bounds__(32) fused_backward_kernel(
 template <class M>
 int launch(const float* X, const float* U, const float* dt, const float* Q,
            const float* R, const float* H, const float* q, const float* r,
-           const float* rho, float* K, float* d, float* dV,
-           unsigned char* fail, float* Aout, float* Bout, int batch, int N,
-           int reg_state, cudaStream_t stream) {
+           const float* rho, const ChainTable* chain, float* K, float* d,
+           float* dV, unsigned char* fail, float* Aout, float* Bout,
+           int batch, int N, int reg_state, cudaStream_t stream) {
   fused_backward_kernel<M><<<batch, 32, 0, stream>>>(
-      X, U, dt, Q, R, H, q, r, rho, K, d, dV, fail, Aout, Bout, batch, N,
-      reg_state);
+      X, U, dt, Q, R, H, q, r, rho, chain, K, d, dV, fail, Aout, Bout, batch,
+      N, reg_state);
   return (int)cudaGetLastError();
 }
 
@@ -155,7 +160,8 @@ int launch(const float* X, const float* U, const float* dt, const float* Q,
 // C entry point (bound with ctypes from ops/cuda_fused.py). Contiguous
 // float32, batch-first, for the model `model` (models.cuh ModelId) with n
 // states and m controls: X (B,N,n), U (B,N-1,m), dt (N-1), Q (N,n,n),
-// R (N,m,m), H (N,m,n), q (N,n), r (N,m), rho (B) → K (B,N-1,m,n),
+// R (N,m,m), H (N,m,n), q (N,n), r (N,m), rho (B), chain (a chain model's
+// table, models.cuh ChainTable, on the device; else null) → K (B,N-1,m,n),
 // d (B,N-1,m), dV (2,B), fail (B) bytes, and where Aout/Bout are not null
 // the in-kernel Jacobians A (B,N-1,n,n), B (B,N-1,n,m). Returns the CUDA
 // error of the launch (0 on success), or cudaErrorInvalidValue for a model
@@ -163,19 +169,25 @@ int launch(const float* X, const float* U, const float* dt, const float* Q,
 extern "C" int trajopt_fused_backward_f32(
     const float* X, const float* U, const float* dt, const float* Q,
     const float* R, const float* H, const float* q, const float* r,
-    const float* rho, float* K, float* d, float* dV, unsigned char* fail,
-    float* Aout, float* Bout, int batch, int N, int model, int reg_state,
-    void* stream) {
-  if (batch <= 0 || N < 2) return (int)cudaErrorInvalidValue;
-#define TRAJOPT_FUSED_BACKWARD(M)                                          \
-  return launch<M>(X, U, dt, Q, R, H, q, r, rho, K, d, dV, fail, Aout, Bout, \
-                   batch, N, reg_state, (cudaStream_t)stream)
+    const float* rho, const float* chain, float* K, float* d, float* dV,
+    unsigned char* fail, float* Aout, float* Bout, int batch, int N,
+    int model, int reg_state, void* stream) {
+  if (batch <= 0 || N < 2 || (is_chain_model(model) && chain == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define TRAJOPT_FUSED_BACKWARD(M)                                            \
+  return launch<M>(X, U, dt, Q, R, H, q, r, rho, (const ChainTable*)chain,  \
+                   K, d, dV, fail, Aout, Bout, batch, N, reg_state,          \
+                   (cudaStream_t)stream)
   switch (model) {
     case kModelQuadrotor: TRAJOPT_FUSED_BACKWARD(Quadrotor);
     case kModelCartpole: TRAJOPT_FUSED_BACKWARD(Cartpole);
     case kModelCar: TRAJOPT_FUSED_BACKWARD(Car);
     case kModelPendulum: TRAJOPT_FUSED_BACKWARD(Pendulum);
     case kModelDoubleIntegrator: TRAJOPT_FUSED_BACKWARD(DoubleIntegrator);
+    case kModelKuka: TRAJOPT_FUSED_BACKWARD(Kuka);
+    case kModelAcrobotUrdf: TRAJOPT_FUSED_BACKWARD(AcrobotUrdf);
+    case kModelDoublependulumUrdf: TRAJOPT_FUSED_BACKWARD(DoublependulumUrdf);
+    case kModelCartpoleUrdf: TRAJOPT_FUSED_BACKWARD(CartpoleUrdf);
   }
 #undef TRAJOPT_FUSED_BACKWARD
   return (int)cudaErrorInvalidValue;

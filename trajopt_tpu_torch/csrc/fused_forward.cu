@@ -35,7 +35,9 @@
 // shuffle; the cost's matrix rows split over lanes, each lane keeps its own
 // partial cost over the knots and the warp sums once per candidate. For the
 // one-control models most lanes only repeat the step; one thread per problem
-// would use the card better there and is later work.
+// would use the card better there and is later work. A rigid-body chain's
+// step (kuka and the three two-link rigs) reads its table from the device
+// pointer the kernel is handed, on every lane, as in K4.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -52,6 +54,7 @@ struct Args {
   const float *x0, *X, *U, *K, *d, *dV1, *dV2, *Jprev, *rho, *drho, *alpha0;
   const float *dt, *Q, *R, *H, *q, *r, *c;
   const unsigned char* active;
+  const ChainTable* chain;   // a chain model's table, else null
   float *Xout, *Uout, *scal;
   int batch, N, ls_iters;
   float ls_lb, ls_ub, reg_min, reg_factor, reg_fp;
@@ -151,7 +154,7 @@ __global__ void __launch_bounds__(32) fused_forward_kernel(Args a) {
 
       // the step and the divergence guard
       float xn[NX];
-      M::template step<float>(x, u, dtv, xn);
+      M::template step<float>(x, u, dtv, xn, a.chain);
       bool good = true;
 #pragma unroll
       for (int i = 0; i < NX; ++i)
@@ -210,7 +213,9 @@ __global__ void __launch_bounds__(32) fused_forward_kernel(Args a) {
 // float32, batch-first, for the model `model` (models.cuh ModelId) with n
 // states and m controls: x0 (B,n), X (B,N,n), U (B,N-1,m), K (B,N-1,m,n),
 // d (B,N-1,m), dV1, dV2, J_prev, rho, drho, alpha0 (B), dt (N-1), Q (N,n,n),
-// R (N,m,m), H (N,m,n), q (N,n), r (N,m), c (N), active (B) bytes or null →
+// R (N,m,m), H (N,m,n), q (N,n), r (N,m), c (N), active (B) bytes or null,
+// chain (a chain model's table, models.cuh ChainTable, on the device; else
+// null) →
 // Xout (B,N,n), Uout (B,N-1,m), scal (4,B) = J, rho, drho and the step
 // used. Returns the CUDA error of the launch (0 on success), or
 // cudaErrorInvalidValue for a model that has no instantiation.
@@ -219,14 +224,15 @@ extern "C" int trajopt_fused_forward_f32(
     const float* d, const float* dV1, const float* dV2, const float* Jprev,
     const float* rho, const float* drho, const float* alpha0, const float* dt,
     const float* Q, const float* R, const float* H, const float* q,
-    const float* r, const float* c, const unsigned char* active, float* Xout,
-    float* Uout, float* scal, int batch, int N, int model, int ls_iters,
-    float ls_lb, float ls_ub, float reg_min, float reg_factor, float reg_fp,
-    void* stream) {
-  if (batch <= 0 || N < 2) return (int)cudaErrorInvalidValue;
+    const float* r, const float* c, const unsigned char* active,
+    const float* chain, float* Xout, float* Uout, float* scal, int batch,
+    int N, int model, int ls_iters, float ls_lb, float ls_ub, float reg_min,
+    float reg_factor, float reg_fp, void* stream) {
+  if (batch <= 0 || N < 2 || (is_chain_model(model) && chain == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a{x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, dt, Q, R, H, q,
-         r, c, active, Xout, Uout, scal, batch, N, ls_iters, ls_lb, ls_ub,
-         reg_min, reg_factor, reg_fp};
+         r, c, active, (const ChainTable*)chain, Xout, Uout, scal, batch, N,
+         ls_iters, ls_lb, ls_ub, reg_min, reg_factor, reg_fp};
 #define TRAJOPT_FUSED_FORWARD(M)                                         \
   fused_forward_kernel<M><<<batch, 32, 0, (cudaStream_t)stream>>>(a);    \
   return (int)cudaGetLastError()
@@ -236,6 +242,10 @@ extern "C" int trajopt_fused_forward_f32(
     case kModelCar: TRAJOPT_FUSED_FORWARD(Car);
     case kModelPendulum: TRAJOPT_FUSED_FORWARD(Pendulum);
     case kModelDoubleIntegrator: TRAJOPT_FUSED_FORWARD(DoubleIntegrator);
+    case kModelKuka: TRAJOPT_FUSED_FORWARD(Kuka);
+    case kModelAcrobotUrdf: TRAJOPT_FUSED_FORWARD(AcrobotUrdf);
+    case kModelDoublependulumUrdf: TRAJOPT_FUSED_FORWARD(DoublependulumUrdf);
+    case kModelCartpoleUrdf: TRAJOPT_FUSED_FORWARD(CartpoleUrdf);
   }
 #undef TRAJOPT_FUSED_FORWARD
   return (int)cudaErrorInvalidValue;

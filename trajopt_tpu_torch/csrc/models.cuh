@@ -10,9 +10,10 @@
 // (quadrotor_step_lanes, cartpole_step_lanes and the _rk3_lanes family:
 // car, pendulum, double integrator) with the same constants, of the
 // rigid-body chain step of trajopt_tpu/models/rigidbody_lanes.py
-// (make_chain_step_lanes: Chain<NDOF, NU> below, which reads its chain from
-// a table in device memory that the kernel is handed; the other models
-// take no table and ignore the argument), and of the slack step of the
+// (make_chain_step_lanes: Chain<NDOF, NU> below, for the arm and the three
+// two-link rigs, which reads its chain from a table in device memory that
+// the kernel is handed; the other models take no table and ignore the
+// argument), and of the slack step of the
 // infeasible-start model (solvers/altro.py: x⁺ = base_step(x, u[:m]) +
 // u[m:]), which WithSlack<M> adds to any of them.
 // Each dynamics function keeps the order of operations of its plain PyTorch
@@ -39,8 +40,17 @@ enum ModelId {
   kModelPendulum = 3,
   kModelDoubleIntegrator = 4,
   kModelKuka = 5,
-  kModelSlack = 6,      // id of WithSlack<M> = id of M + kModelSlack
+  kModelAcrobotUrdf = 6,
+  kModelDoublependulumUrdf = 7,
+  kModelCartpoleUrdf = 8,
+  kModelSlack = 9,      // id of WithSlack<M> = id of M + kModelSlack
 };
+
+// whether model id `model` (with or without slacks) is a rigid-body chain,
+// whose kernels need its ChainTable
+__host__ __device__ constexpr bool is_chain_model(int model) {
+  return model >= 0 && model % kModelSlack >= kModelKuka;
+}
 
 
 constexpr int kQuadN = 13;  // pos(3), quaternion [w,x,y,z](4), vel(3), omega(3)
@@ -589,5 +599,11 @@ struct Chain {
 
 // the 7-DOF arm (models/robots.py::kuka_model)
 using Kuka = Chain<7, 7>;
+// the two-link rigs (models/robots.py): the acrobot (elbow actuated) and the
+// cartpole (a prismatic slider, the slider actuated) differ only by their
+// tables; the double pendulum actuates both joints
+using AcrobotUrdf = Chain<2, 1>;
+using CartpoleUrdf = Chain<2, 1>;
+using DoublependulumUrdf = Chain<2, 2>;
 
 }  // namespace trajopt

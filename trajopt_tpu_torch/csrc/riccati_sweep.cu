@@ -111,14 +111,16 @@ extern "C" int trajopt_riccati_sweep_f32(
   TRAJOPT_RICCATI(13, 4);    // quadrotor
   TRAJOPT_RICCATI(12, 4);    // quadrotor, quaternion error state
   TRAJOPT_RICCATI(13, 17);   // quadrotor with the infeasible-start slacks
-  TRAJOPT_RICCATI(4, 1);     // cartpole
+  TRAJOPT_RICCATI(4, 1);     // cartpole, the acrobot and cartpole rigs
   TRAJOPT_RICCATI(3, 2);     // car
   TRAJOPT_RICCATI(2, 1);     // pendulum, double integrator
-  TRAJOPT_RICCATI(4, 5);     // cartpole with the slacks
+  TRAJOPT_RICCATI(4, 5);     // cartpole (and the two rigs) with the slacks
   TRAJOPT_RICCATI(3, 5);     // car with the slacks
   TRAJOPT_RICCATI(2, 3);     // pendulum, double integrator with the slacks
   TRAJOPT_RICCATI(14, 7);    // kuka
   TRAJOPT_RICCATI(14, 21);   // kuka with the slacks (~19 KB of shared memory)
+  TRAJOPT_RICCATI(4, 2);     // double pendulum rig
+  TRAJOPT_RICCATI(4, 6);     // double pendulum rig with the slacks
 #undef TRAJOPT_RICCATI
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,9 @@
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_rollout.py::_rollout_kernel
 // (front end rollout_closed_loop_pallas) with the model's step inlined
 // (models.cuh: the quadrotor, cartpole, car, pendulum, double integrator, the
-// 7-DOF kuka arm's rigid-body chain step, and each of them with the slack
-// controls of the infeasible-start transform)
+// rigid-body chain step of the 7-DOF kuka arm and of the three two-link URDF
+// rigs, and each of them with the slack controls of the infeasible-start
+// transform)
 // and, for the quadrotor's error-state solves,
 // quadrotor_state_diff_lanes (quaternion error state). For every problem and
 // knot k:
@@ -160,7 +161,7 @@ extern "C" int trajopt_rollout_f32(
   if (batch <= 0 || N < 2) return (int)cudaErrorInvalidValue;
   if (error_state && model != kModelQuadrotor)
     return (int)cudaErrorInvalidValue;
-  if (model % kModelSlack == kModelKuka && chain == nullptr)
+  if (is_chain_model(model) && chain == nullptr)
     return (int)cudaErrorInvalidValue;
 #define TRAJOPT_ROLLOUT(M, ES)                                              \
   return launch<M, ES>(x0, X, U, K, d, alpha, Xout, Uout, ok,              \
@@ -185,6 +186,15 @@ extern "C" int trajopt_rollout_f32(
       TRAJOPT_ROLLOUT(WithSlack<DoubleIntegrator>, false);
     case kModelKuka: TRAJOPT_ROLLOUT(Kuka, false);
     case kModelSlack + kModelKuka: TRAJOPT_ROLLOUT(WithSlack<Kuka>, false);
+    case kModelAcrobotUrdf: TRAJOPT_ROLLOUT(AcrobotUrdf, false);
+    case kModelSlack + kModelAcrobotUrdf:
+      TRAJOPT_ROLLOUT(WithSlack<AcrobotUrdf>, false);
+    case kModelDoublependulumUrdf: TRAJOPT_ROLLOUT(DoublependulumUrdf, false);
+    case kModelSlack + kModelDoublependulumUrdf:
+      TRAJOPT_ROLLOUT(WithSlack<DoublependulumUrdf>, false);
+    case kModelCartpoleUrdf: TRAJOPT_ROLLOUT(CartpoleUrdf, false);
+    case kModelSlack + kModelCartpoleUrdf:
+      TRAJOPT_ROLLOUT(WithSlack<CartpoleUrdf>, false);
   }
 #undef TRAJOPT_ROLLOUT
   return (int)cudaErrorInvalidValue;

@@ -52,14 +52,14 @@ SIGNATURES = {
         # reg_state, stream
         "trajopt_riccati_sweep_f32": (_P,) * 12 + (_I,) * 5 + (_P,)},
     "fused_backward": {
-        # X, U, dt, Q, R, H, q, r, rho, K, d, dV, fail, Aout, Bout, batch, N,
-        # model, reg_state, stream
-        "trajopt_fused_backward_f32": (_P,) * 15 + (_I,) * 4 + (_P,)},
+        # X, U, dt, Q, R, H, q, r, rho, chain, K, d, dV, fail, Aout, Bout,
+        # batch, N, model, reg_state, stream
+        "trajopt_fused_backward_f32": (_P,) * 16 + (_I,) * 4 + (_P,)},
     "fused_forward": {
         # x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, dt, Q, R, H, q,
-        # r, c, active, Xout, Uout, scal, batch, N, model, ls_iters, ls_lb,
-        # ls_ub, reg_min, reg_factor, reg_fp, stream
-        "trajopt_fused_forward_f32": (_P,) * 22 + (_I,) * 4 + (_F,) * 5
+        # r, c, active, chain, Xout, Uout, scal, batch, N, model, ls_iters,
+        # ls_lb, ls_ub, reg_min, reg_factor, reg_fp, stream
+        "trajopt_fused_forward_f32": (_P,) * 23 + (_I,) * 4 + (_F,) * 5
         + (_P,)},
     "fused_al_backward": {
         # X, U, lam, mu, dt, Q, R, H, q, r, rho, row_i, row_f, groups,

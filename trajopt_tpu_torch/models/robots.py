@@ -5,8 +5,7 @@ files (reference dynamics/urdf/*); here the same public parameters (KUKA
 iiwa 14 from the kuka_iiwa_description package; the cartpole, double
 pendulum and acrobot rigs) are Python structures built into
 :class:`RigidBodyChain` models, with no file I/O. ``model_from_urdf``
-(``models/rigidbody.py``) still reads a user's file. ``kuka_ee_ik`` is not
-ported (ROADMAP Queue 1).
+(``models/rigidbody.py``) still reads a user's file.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ from trajopt_tpu_torch.models.base import Model
 from trajopt_tpu_torch.models.rigidbody import (
     RigidBodyChain, UrdfJoint, UrdfLink, chain_model,
 )
+from trajopt_tpu_torch.utils.device import resolve_device
 
 _PI = float(np.pi)
 _HP = _PI / 2.0
@@ -158,3 +158,58 @@ def kuka_hold_trajectory(chain: RigidBodyChain, q, N: int,
     q = torch.as_tensor(np.asarray(q), dtype=dtype, device=device)
     tau = chain.bias_forces(q, torch.zeros_like(q))
     return tau.expand(N - 1, q.shape[0])
+
+
+def ik_descend(chain: RigidBodyChain, point, ee_point, q0s,
+               iterations: int, alpha: float):
+    """The Jacobian-transpose descent of :func:`kuka_ee_ik` from the
+    restarts ``q0s`` (A, ndof), all at once: ``iterations`` steps
+    q ← q + α Jᵀe, e = point − FK(q), J from ``torch.func.jacrev`` of the FK
+    point, ``torch.func.vmap`` over the restarts. Returns the final q (A,
+    ndof) and each one's error ‖point − FK(q)‖ (A,)."""
+    point = torch.as_tensor(np.asarray(point), dtype=q0s.dtype,
+                            device=q0s.device)
+    ee = torch.as_tensor(np.asarray(ee_point), dtype=q0s.dtype,
+                         device=q0s.device)
+
+    def fk_point(q):
+        return chain.forward_kinematics(q, point=ee)[1]
+
+    jac = torch.func.vmap(torch.func.jacrev(fk_point))
+    q = q0s
+    for _ in range(iterations):
+        e = point - fk_point(q)
+        q = q + alpha * (jac(q).transpose(-1, -2) @ e[..., None])[..., 0]
+    return q, torch.linalg.vector_norm(point - fk_point(q), dim=-1)
+
+
+def kuka_ee_ik(chain: RigidBodyChain, point, ee_point=(0.0, 0.0, 0.0),
+               iterations: int = 1000, attempts: int = 20, tol: float = 1e-2,
+               alpha: float = 0.1, seed: int = 0, dtype=torch.float64,
+               device=None):
+    """Inverse kinematics for the end-effector point: find q with
+    FK(q) ≈ ``point`` (reference kuka_ee_ik + jacobian_transpose_ik!,
+    dynamics/kuka.jl:63-116).
+
+    The reference retries random seeds one after another; here all
+    ``attempts`` restarts, uniform in [−π, π) from a ``torch.Generator``
+    seeded with ``seed`` (not the JAX package's ``jax.random`` draws), run as
+    one batched descent (:func:`ik_descend`), and the best configuration is
+    kept. A restart that diverges (NaN error) is never kept. Raises
+    RuntimeError if no attempt reaches ``tol`` (reference kuka.jl:79-81).
+    ``device`` None is the current CUDA device (``resolve_device``).
+    Returns (q, err).
+    """
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q0s = (torch.rand((attempts, chain.ndof), generator=gen, dtype=dtype,
+                      device=device) * 2.0 - 1.0) * _PI
+    qs, errs = ik_descend(chain, point, ee_point, q0s, iterations, alpha)
+    # argmin would pick a NaN restart, and NaN > tol is False
+    errs = torch.where(torch.isnan(errs), torch.inf, errs)
+    best = int(torch.argmin(errs))
+    if float(errs[best]) > tol:
+        raise RuntimeError(
+            f"IK cannot get sufficiently close to the goal "
+            f"(best err {float(errs[best]):.3g} > tol {tol})")
+    return qs[best], float(errs[best])

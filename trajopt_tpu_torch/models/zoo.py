@@ -1,10 +1,14 @@
 """Analytic dynamics models.
 
-Counterpart of ``trajopt_tpu/models/zoo.py``: the quaternion quadrotor and
-the four models whose scalar lane step the JAX package ships (pendulum,
-double integrator, car, cartpole); the rest of the zoo is ROADMAP Queue 1.
-``MODELS`` names them with the four rigid-body rigs of ``models/robots.py``
-(kuka and the URDF acrobot, double pendulum and cartpole). Every function
+Counterpart of ``trajopt_tpu/models/zoo.py``: the quaternion quadrotor, the
+four models whose scalar lane step the JAX package ships (pendulum, double
+integrator, car, cartpole) and the analytic two-link double pendulum and
+acrobot; the rest of the zoo is ROADMAP Queue 1. The JAX package registers
+no lane step for the two-link models, so no kernel carries them: on a CUDA
+tensor their solves raise, and their URDF rigs (``models/robots.py``) are
+the chain models the kernels carry. ``MODELS`` names the models here with
+the four rigid-body rigs (kuka and the URDF acrobot, double pendulum and
+cartpole). Every function
 takes states with any leading batch dimensions and works under
 ``torch.func.vmap``/``jacfwd``.
 
@@ -18,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from trajopt_tpu_torch.models.base import Model
+from trajopt_tpu_torch.ops.linalg import spd_solve_vec
 
 # ---------------------------------------------------------------- pendulum
 # reference dynamics/pendulum.jl:3-14
@@ -79,6 +84,60 @@ def cartpole_dynamics(x, u):
 
 
 cartpole = Model(cartpole_dynamics, 4, 1, name="cartpole")
+
+# ---------------------------------------------------- double pendulum family
+# reference dynamics/doublependulum.jl and acrobot.jl, built there from
+# dynamics/urdf/doublependulum.urdf: the same two-link mechanism (m1 = m2 = 1,
+# link 1 joint to joint 1 m, COM at 0.5 m, iyy1 = 0.083; link 2 COM at 1 m,
+# iyy2 = 0.33) by the planar manipulator equations. No damping: the
+# reference's RigidBodyDynamics.jl ignores the URDF's <dynamics damping>.
+
+_DP = dict(m1=1.0, m2=1.0, l1=1.0, lc1=0.5, lc2=1.0, I1=0.083, I2=0.33,
+           b1=0.0, b2=0.0, g=9.81)
+
+
+def _two_link_dynamics(x, tau):
+    p = _DP
+    q1, q2 = x[..., 0:1], x[..., 1:2]
+    qd1, qd2 = x[..., 2:3], x[..., 3:4]
+    c2, s2 = torch.cos(q2), torch.sin(q2)
+
+    # mass matrix of the 2R manipulator (Spong eq. 7.87)
+    a = p["I1"] + p["I2"] + p["m1"] * p["lc1"] ** 2 \
+        + p["m2"] * (p["l1"] ** 2 + p["lc2"] ** 2)
+    b = p["m2"] * p["l1"] * p["lc2"]
+    d = p["I2"] + p["m2"] * p["lc2"] ** 2
+    H11 = a + 2.0 * b * c2
+    H12 = d + b * c2
+    H22 = torch.full_like(H11, d)
+    H = torch.stack([torch.cat([H11, H12], -1), torch.cat([H12, H22], -1)],
+                    dim=-2)
+    # Coriolis and centrifugal terms
+    C = torch.cat([-b * s2 * qd2 * (2.0 * qd1 + qd2), b * s2 * qd1 * qd1],
+                  dim=-1)
+    # gravity, q measured from hanging straight down
+    s12 = torch.sin(q1 + q2)
+    g1 = (p["m1"] * p["lc1"] + p["m2"] * p["l1"]) * p["g"] * torch.sin(q1) \
+        + p["m2"] * p["lc2"] * p["g"] * s12
+    g2 = p["m2"] * p["lc2"] * p["g"] * s12
+    G = torch.cat([g1, g2], dim=-1)
+    damp = torch.cat([p["b1"] * qd1, p["b2"] * qd2], dim=-1)
+    qdd = spd_solve_vec(H, tau - C - G - damp)
+    return torch.cat([x[..., 2:], qdd], dim=-1)
+
+
+def doublependulum_dynamics(x, u):
+    return _two_link_dynamics(x, u)
+
+
+def acrobot_dynamics(x, u):
+    # elbow-only actuation (reference dynamics/acrobot.jl:6, B = [0; 1])
+    return _two_link_dynamics(x, torch.cat([torch.zeros_like(u[..., 0:1]),
+                                            u[..., 0:1]], dim=-1))
+
+
+doublependulum = Model(doublependulum_dynamics, 4, 2, name="doublependulum")
+acrobot = Model(acrobot_dynamics, 4, 1, name="acrobot")
 
 # -------------------------------------------------- quadrotor (quaternion)
 # reference dynamics/quadrotor.jl:1-73 + dynamics/quaternions.jl.
@@ -159,4 +218,5 @@ def _robot_models():
 
 MODELS = {"pendulum": pendulum, "doubleintegrator": doubleintegrator,
           "car": car, "cartpole": cartpole, "quadrotor": quadrotor,
+          "doublependulum": doublependulum, "acrobot": acrobot,
           **_robot_models()}

@@ -29,7 +29,7 @@ import torch
 
 from trajopt_tpu_torch.kernels import _build
 from trajopt_tpu_torch.ops.cost import Objective, cost_expansion, total_cost
-from trajopt_tpu_torch.ops.cuda_models import CHAIN_LABELS, cuda_model
+from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
 from trajopt_tpu_torch.ops.line_search import HostSyncs, line_search
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
@@ -79,12 +79,6 @@ def fused_forward(model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho, alpha0,
 
 def _check_common(fn, model, X, U, dt_traj, obj):
     cm = cuda_model(model, fn)
-    if cm.label in CHAIN_LABELS:
-        raise NotImplementedError(
-            f"{fn}: K7a/K7b carry no rigid-body chain step ({cm.label!r}): "
-            "an unconstrained fused=True chain solve has no kernel on a CUDA "
-            "tensor (ROADMAP Queue 2, the chain step in K7a/K7b); "
-            "fused=False runs it phase-split on K5 and K2")
     Bz, N, n = X.shape
     m, dev = cm.m, X.device
     for name, t, shape in (
@@ -118,7 +112,8 @@ def fused_backward_cuda(model, X, U, dt_traj, obj: Objective, rho,
     err = lib.trajopt_fused_backward_f32(
         X.data_ptr(), U.data_ptr(), dt_traj.data_ptr(), obj.Q.data_ptr(),
         obj.R.data_ptr(), obj.H.data_ptr(), obj.q.data_ptr(),
-        obj.r.data_ptr(), rho.data_ptr(), K.data_ptr(), d.data_ptr(),
+        obj.r.data_ptr(), rho.data_ptr(),
+        chain_table_ptr(model, cm, X.device), K.data_ptr(), d.data_ptr(),
         dV.data_ptr(), fail.data_ptr(),
         Aout.data_ptr() if return_jacobians else None,
         Bout.data_ptr() if return_jacobians else None,
@@ -177,8 +172,8 @@ def fused_forward_cuda(model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
         dt_traj.data_ptr(), obj.Q.data_ptr(), obj.R.data_ptr(),
         obj.H.data_ptr(), obj.q.data_ptr(), obj.r.data_ptr(),
         obj.c.data_ptr(), None if active is None else active.data_ptr(),
-        Xout.data_ptr(), Uout.data_ptr(), scal.data_ptr(), Bz, N, cm.id,
-        int(ls_iters), float(ls_lb), float(ls_ub), float(reg_min),
+        chain_table_ptr(model, cm, dev), Xout.data_ptr(), Uout.data_ptr(),
+        scal.data_ptr(), Bz, N, cm.id, int(ls_iters), float(ls_lb), float(ls_ub), float(reg_min),
         float(reg_factor), float(reg_fp), _build.stream(dev))
     _build.check(err, "trajopt_fused_forward_f32")
     fused_forward_cuda.launches += 1

@@ -30,13 +30,17 @@ CUDA_STEPS = {
     "car_rk3": CudaModel(2, "car", 3, 2, 2),
     "pendulum_rk3": CudaModel(3, "pendulum", 2, 1, 1),
     "doubleintegrator_rk3": CudaModel(4, "doubleintegrator", 2, 1, 1),
-    # the 7-DOF arm: the Chain trait, which reads the model's chain table
+    # the rigid-body chains: the Chain trait, which reads the model's chain
+    # table (the 7-DOF arm; the two-link URDF rigs of models/robots.py)
     "kuka_rk3": CudaModel(5, "kuka", 14, 7, 7),
+    "acrobot_urdf_rk3": CudaModel(6, "acrobot_urdf", 4, 1, 1),
+    "doublependulum_urdf_rk3": CudaModel(7, "doublependulum_urdf", 4, 2, 2),
+    "cartpole_urdf_rk3": CudaModel(8, "cartpole_urdf", 4, 1, 1),
 }
 # kModelSlack of csrc/models.cuh: a slack-augmented model's id is its base
 # model's plus this (tests/test_torch_rigidbody.py holds the two tables
 # equal)
-SLACK_ID = 6
+SLACK_ID = 9
 
 
 def with_slack(base: CudaModel) -> CudaModel:
@@ -76,17 +80,17 @@ def cuda_model(model, fn: str, slack_ok: bool = False) -> CudaModel:
             f"(n={model.n}, m={model.m}); the kernels carry the RK3 steps of "
             f"{sorted(c.label for c in CUDA_STEPS.values())}"
             + (", each with or without slack controls" if slack_ok else "")
-            + " (the rest of the zoo, and the chain step of the other "
-            "rigid-body rigs: ROADMAP Queue 2, K6)")
+            + " (no other model has a lane step, K6, in the JAX package "
+            "either: ROADMAP Queue 1)")
     return found
 
 
 def chain_table_ptr(model, cm: CudaModel, device):
     """The device address of the chain table that the kernels take for a
-    chain model (``kuka``), else None (a null pointer): the model's float32
+    chain model (``CHAIN_LABELS``), else None (a null pointer): the model's float32
     table (``models/rigidbody_lanes.py::chain_table``), copied to ``device``
     once and kept on the model."""
-    if cm.label.split("_")[0] not in CHAIN_LABELS:
+    if cm.label.removesuffix("_slack") not in CHAIN_LABELS:
         return None
     table = getattr(model, "chain_table", None)
     if table is None:
@@ -99,4 +103,5 @@ def chain_table_ptr(model, cm: CudaModel, device):
 
 
 # the CUDA steps that are rigid-body chains (the Chain trait)
-CHAIN_LABELS = ("kuka",)
+CHAIN_LABELS = ("kuka", "acrobot_urdf", "doublependulum_urdf",
+                "cartpole_urdf")

@@ -18,10 +18,11 @@ from trajopt_tpu_torch.ops.cost import Expansion
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 
 # the (n, m) pairs csrc/riccati_sweep.cu instantiates: the quadrotor (full
-# and error state), cartpole, car, pendulum, double integrator and kuka, and
-# each with the n infeasible-start slacks (n, m + n)
+# and error state), cartpole (and the acrobot and cartpole rigs), car,
+# pendulum, double integrator, kuka and the double pendulum rig, and each
+# with the n infeasible-start slacks (n, m + n)
 SHAPES = ((13, 4), (12, 4), (13, 17), (4, 1), (3, 2), (2, 1), (4, 5), (3, 5),
-          (2, 3), (14, 7), (14, 21))
+          (2, 3), (14, 7), (14, 21), (4, 2), (4, 6))
 
 
 def riccati_sweep_cuda(A, B, lx, lu, lxx, luu, lux, rho,

@@ -1,8 +1,9 @@
 """Problem zoo.
 
 Counterpart of ``trajopt_tpu/problems/zoo.py``: ``doubleintegrator``,
-``pendulum``, ``cartpole``, ``parallel_park``, ``car_3obs``, ``car_escape``,
-the unconstrained ``quadrotor_line`` and ``quadrotor_maze`` are ported
+``pendulum``, ``cartpole``, ``doublependulum_problem``, ``acrobot_problem``,
+``parallel_park``, ``car_3obs``, ``car_escape``, the unconstrained
+``quadrotor_line``, ``quadrotor_maze`` and ``kuka_obstacles`` are ported
 (ROADMAP Queue 1: the rest of the zoo comes after). Every factory builds on
 ``device``; None is the current CUDA device, and the CPU is asked for with
 ``device="cpu"``.
@@ -20,7 +21,7 @@ from trajopt_tpu_torch.ops.constraints import (
     goal_constraint, obstacle_field_constraint,
 )
 from trajopt_tpu_torch.ops.cost import LQRObjective
-from trajopt_tpu_torch.problem import initial_states, problem
+from trajopt_tpu_torch.problem import initial_states, problem, update_problem
 from trajopt_tpu_torch.utils.device import resolve_device
 from trajopt_tpu_torch.utils.interp import interp_rows
 
@@ -65,6 +66,49 @@ def cartpole(dtype=torch.float64, device=None):
         dynamics.cartpole, 1e-2, 1e-1, 100.0,
         np.array([0.0, np.pi, 0.0, 0.0]), N, 3.0, np.full((N - 1, 1), 0.01),
         dtype, device, tf=5.0)
+
+
+def _two_link_problem(model, N, constrained, dtype, device):
+    """The two-link swing-up from hanging down to upright, N knots at
+    dt = 0.01, U0 = 1, with the goal constraint where ``constrained``."""
+    device = resolve_device(device)
+    model_d = discretize(model, "rk3")
+    n, m = model.n, model.m
+    xf = np.array([np.pi, 0.0, 0.0, 0.0])
+    obj = LQRObjective(np.eye(n) * 1e-2, np.eye(m) * 1e-2, np.eye(n) * 100.0,
+                       xf, N, dtype=dtype, device=device)
+    cons = None
+    if constrained:
+        cons = ConstraintSetBuilder(N)
+        cons.add(goal_constraint(xf))
+    return problem(model_d, obj, constraints=cons, x0=np.zeros(n), xf=xf,
+                   N=N, dt=0.01, U0=np.ones((N - 1, m)), dtype=dtype,
+                   device=device)
+
+
+def doublependulum_problem(dtype=torch.float64, device=None):
+    """(reference problems/doublependulum.jl): N=101, dt=0.01, swing-up."""
+    return _two_link_problem(dynamics.doublependulum, 101, False, dtype,
+                             device)
+
+
+def acrobot_problem(dtype=torch.float64, device=None):
+    """(reference problems/acrobot.jl): N=151, dt=0.01, goal constraint."""
+    return _two_link_problem(dynamics.acrobot, 151, True, dtype, device)
+
+
+# each URDF rig of ``models.zoo.MODELS`` and the zoo problem it is solved on
+RIG_PROBLEMS = dict(acrobot_urdf=acrobot_problem,
+                    doublependulum_urdf=doublependulum_problem,
+                    cartpole_urdf=cartpole)
+
+
+def rig_problem(rig, dtype=torch.float64, device=None):
+    """The URDF rig ``rig`` on its zoo problem (``RIG_PROBLEMS``), the
+    problem's model replaced by the rig's under RK3, as the JAX package
+    solves a rig: ``update_problem(prob, model=discretize(rig, "rk3"))``."""
+    return update_problem(RIG_PROBLEMS[rig](dtype=dtype, device=device),
+                          model=discretize(dynamics.MODELS[rig], "rk3"))
 
 
 def parallel_park(dtype=torch.float64, device=None):
