@@ -9,7 +9,8 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
 1. device and build: the card's name and power limit from ``nvidia-smi``,
    TF32 off (``precise``), the CUDA kernels built from ``csrc/`` by nvcc,
    one compiler per source side by side (ptxas's register and spill report
-   printed), and each wrapper refusing a float64 CUDA input;
+   printed, and for every K2 and K4 instantiation its registers, stack and
+   spill), and each wrapper refusing a float64 CUDA input;
 2. kernel K1 (``csrc/sqrt_sweep.cu``) against its plain version on the
    card, float32, at the main path's shapes (B=128, N=101, error state
    n=12, m=4), on error-state linearizations of ``quadrotor_line`` around
@@ -17,7 +18,9 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
    the equilibrated Cholesky fallback and one fails outright;
 3. kernel K2 (``csrc/rollout.cu``, the quadrotor's error state) against its plain version on
    the card, float32, B=128, N=101, with two lanes forced to diverge, and on
-   stiff gains against the plain version in float64;
+   stiff gains against the plain version in float64; and its launch shapes:
+   the same problems at B = 128, 1024 and 1152 (tiled) and 33, bitwise
+   equal;
 4. slice 1: ``solve_batch_queued`` on ``quadrotor_line(N=101)`` in float32
    with the quadrotor benchmark's options, a pool of 512 perturbed starts
    over 128 lanes. K1's and K2's launch counters must move, the outcome
@@ -32,7 +35,9 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
    and the in-kernel Jacobians against ``jacobian_traj``;
 7. kernel K4 (``csrc/fused_al_forward.cu``) against its plain version on
    the card, same shapes, gains from K3, with lanes forced to diverge and
-   one whose search runs out;
+   one whose search runs out, the warps W a problem and the rounds of W
+   candidates the launch took, and its launch shapes (B = 128, 1024, 1152
+   and 33, bitwise equal; W differs between them);
 8. slice 2: ``solve_batch_queued_altro_retry`` on ``quadrotor_maze`` in
    float32 with the maze benchmark's options, a pool of 512 perturbed
    starts over 128 lanes. K3's and K4's counters must move, K1's and K2's must
@@ -94,7 +99,7 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
     ``car_escape`` phase-split; the maze without the transform;
 21.–25. slice 5 (``kuka_kernels``, ``kuka``, ``kuka_pool``,
     ``kuka_profile``, ``kuka_slack``): every kuka instantiation against its
-    plain version, ``altro_solve(kuka_obstacles())``, its pool in two
+    plain version (with K4's and K2's launch shapes on the arm), ``altro_solve(kuka_obstacles())``, its pool in two
     arms, their profile, the slack instantiations;
 26. slice 6's kernels (``rig_kernels``): K7a and K7b for kuka and the three
     URDF rigs, K3, K4, K2 and K5 for the rigs with and without slacks,
@@ -603,6 +608,14 @@ def phase_build(report):
         for line in path.with_suffix(".log").read_text().splitlines():
             if line.strip():
                 log("nvcc:", line.strip())
+    for stem in ("rollout", "fused_al_forward"):
+        for name, regs, stack, spill in ptxas_report(
+                libs[stem].with_suffix(".log").read_text()):
+            log(f"ptxas {stem}: {name}: {regs} registers, {stack} B stack, "
+                f"{spill} B spilled")
+    log("K2 launch shape: one warp a problem, blocks of "
+        "32 threads (csrc/rollout.cu kWarpsPerBlock = 1); K4: a block of "
+        "32·W threads a problem, W from the batch (printed by each K4 check)")
 
     dev = torch.device("cuda", 0)
     z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)  # noqa
@@ -684,6 +697,93 @@ def phase_build(report):
             log(f"{name}: refused ({e})")
         else:
             raise AssertionError(f"{name}: accepted")
+
+
+def ptxas_report(text):
+    """(kernel, registers, stack bytes, spill-store bytes) of every entry
+    function in an nvcc ``-Xptxas -v`` report, the names demangled by the
+    toolkit's ``cu++filt`` where it is found and cut to the template."""
+    import re
+    import shutil
+
+    rows, entry = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = [m.group(1), None, None, None]
+            rows.append(entry)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and entry is not None and entry[2] is None:
+            entry[2], entry[3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None and entry[1] is None:
+            entry[1] = int(m.group(1))
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and Path(filt).exists():
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if len(names) == len(rows):
+            for r, name in zip(rows, names):
+                name = re.sub(r"\(anonymous namespace\)::|trajopt::", "",
+                              name)
+                r[0] = re.sub(r"\((const )?float \*.*$|\(Args.*$", "", name)
+    return [tuple(r) for r in rows]
+
+
+def launch_shapes(tag, fn, args, batched, **kw):
+    """The kernel behind the wrapper ``fn`` at B = 128 on ``args`` (its
+    positions ``batched`` batch-first), at B = 1024 and 1152 (the 128
+    problems tiled 8 and 9 times) and at the ragged B = 33 (the first 33):
+    every output of every problem bitwise equal across the launches. K4's W
+    differs between them: 8 at B = 128 and 33; at B = 1024 2 where a thread
+    takes at most 128 registers (K4's maze and kuka instantiations), and 1
+    at B = 1152, the serial search."""
+    import torch
+
+    base = torch.arange(B, device=args[min(batched)].device)
+    outs, shapes = {}, {}
+    for count, idx in ((128, base), (1024, base.repeat(8)),
+                       (1152, base.repeat(9)), (33, base[:33])):
+        a = [t[idx].contiguous() if i in batched else t
+             for i, t in enumerate(args)]
+        outs[count] = (idx, fn(*a, **kw))
+        shapes[count] = getattr(fn, "warps", 1)
+    torch.cuda.synchronize()
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    ref = outs[128][1]
+    for count, (idx, out) in outs.items():
+        for k, (o, r) in enumerate(zip(out, ref)):
+            check(torch.equal(bits(o), bits(r[idx])),
+                  f"{tag}: output {k} at B={count} differs bitwise from "
+                  "B=128")
+    log(f"{tag} launch shapes: B=128, 1024, 1152, 33 bitwise equal per "
+        f"problem (warps a problem: {shapes})")
+
+
+def log_rounds(tag, alpha0, alpha_used, ls_iters):
+    """Print the launch shape of the last K4 launch and the rounds of W
+    candidates its searches took, each from its step: the candidate
+    j = log2(α0/α) that was accepted, or all ls_iters + 1 where the search
+    ran out (α = 0)."""
+    import torch
+    from trajopt_tpu_torch.ops.cuda_al_fused import fused_al_forward_cuda
+
+    W = fused_al_forward_cuda.warps
+    j = torch.log2(alpha0 / alpha_used.clamp(min=1e-30)).round()
+    rounds = torch.where(alpha_used > 0,
+                         torch.div(j, W, rounding_mode="floor") + 1,
+                         torch.full_like(j, -(-(ls_iters + 1) // W)))
+    hist = {int(r): int((rounds == r).sum()) for r in rounds.unique()}
+    log(f"{tag}: W = {W} warps a problem (blocks of {32 * W} threads, "
+        f"{alpha_used.shape[0]} blocks); the launch took "
+        f"{int(rounds.max())} rounds of {W} candidates (problems by rounds: "
+        f"{hist})")
 
 
 def quadrotor_objective(dtype):
@@ -843,6 +943,8 @@ def phase_k2(report, lin):
         B * (N - 1) * (60 + mm(4, 1, 12) + 3 * 120 + 100),
         nbytes(*ins) + nbytes(Xk, Uk, okk))
     log(f"K2 bound: {bound_ms:.5f} ms by {bound_by}")
+    launch_shapes("K2 quadrotor_error_state", rollout_closed_loop_cuda,
+                  [model, *ins, dt], range(1, 7), **kw)
     report["kernels"].append(dict(
         name="rollout_closed_loop_quadrotor_error_state", route="cuda",
         source="trajopt_tpu_torch/csrc/rollout.cu",
@@ -1314,6 +1416,9 @@ def phase_k4(report, ms):
     log(f"K4 branches: lanes {K4_DIVERGE} (diverging first candidates) took "
         f"alpha {[float(ak[i]) for i in K4_DIVERGE]}; lane {ex} ran out: "
         f"alpha 0, rho {float(rk[ex]):g}, drho {float(drk[ex]):g}")
+    log_rounds("K4 quadrotor_slack", alpha0, ak, LS_OPTS[2])
+    launch_shapes("K4 quadrotor_slack", fused_al_forward_cuda, args,
+                  range(2, 15))
 
     ms_k = cuda_time_ms(lambda: fused_al_forward_cuda(*args), reps=10)
     plain_ms = cuda_time_ms(lambda: fused_al_forward(*args), reps=1, warmup=0)
@@ -2739,6 +2844,10 @@ def al_case(report, st):
         f"{[float(ak[i]) for i in K4_DIVERGE]} (first candidate "
         f"diverged on lanes {died}); lane {ex} ran out: alpha 0, rho "
         f"{float(rk[ex]):g}")
+    log_rounds(tag, alpha0, ak, ls_opts[2])
+    if st.get("shapes"):
+        launch_shapes(f"K4 {label}", fused_al_forward_cuda, args,
+                      range(2, 15))
     ms_k = cuda_time_ms(lambda: fused_al_forward_cuda(*args), reps=10)
     cands = torch.where(
         ak > 0, torch.log2(alpha0 / ak.clamp(min=1e-30)).round() + 1,
@@ -2807,6 +2916,9 @@ def al_case(report, st):
                  replaces="trajopt_tpu/ops/pallas_rollout.py:260",
                  max_abs_err=float((Xk - Xp)[okk].abs().max()), ms=ms_k,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if st.get("shapes"):
+        launch_shapes(f"K2 {label}", rollout_closed_loop_cuda,
+                      [model, *ins, p32.dt], range(1, 7))
 
     # ... and K5's (n, m + n) shape on the AL expansion of al_cost_fns
     if any(e["name"] == f"riccati_sweep_{n}x{m}"
@@ -3225,7 +3337,8 @@ def phase_kuka_kernels(report):
 
     for slack in (False, True):
         st = kuka_setup(slack)
-        al_case(report, st)
+        # the launch shapes of K4 and K2 on a chain: the arm's
+        al_case(report, dict(st, shapes=not slack))
         label, p32, p64, Nk = st["label"], st["p32"], st["p64"], st["Nk"]
         n, m = p32.n, p32.m
         dev = p32.device

@@ -296,6 +296,115 @@ def test_fused_al_forward_kernel_matches_plain_version(maze):
         1.0, float(Up[calm].abs().max()))
 
 
+def _bits(t):
+    """A float32 tensor's bits (bool tensors as they are), so that equal
+    NaNs compare equal."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _tiled(args, batched, count):
+    """``args`` with their batch-first positions ``batched`` cut or tiled to
+    ``count`` problems (problem b is problem b mod B)."""
+    idx = torch.arange(count, device=args[min(batched)].device) % B
+    return idx, [a[idx].contiguous() if i in batched else a
+                 for i, a in enumerate(args)]
+
+
+def _maze_search(maze, ls_opts=LS_OPTS):
+    """K4's inputs on the maze fixture, as in
+    test_fused_al_forward_kernel_matches_plain_version: problem 5's
+    feedforward blown up, problem 11 with a cost no candidate beats."""
+    p = maze["prob"]
+    dev = maze["X"].device
+    K, d, dV1, dV2, fail = _backward(maze, fused_al_backward_cuda)
+    assert not bool(fail.any())
+    X, U, lam, mu = (maze[k] for k in ("X", "U", "lam", "mu"))
+    dt = p.dt_traj()
+    J_prev = (total_cost(p.obj, X, U, dt)
+              + canon_al_cost(maze["canon"], X, pad_terminal(U), lam,
+                              mu)).contiguous()
+    d = d.clone()
+    d[5] *= 1e6
+    J_prev[11] = -1e30
+    alpha0 = (0.5 ** (6 + torch.arange(B, device=dev) % 4)).float()
+    ones = torch.ones(B, device=dev)
+    return [p.model, maze["canon"], X[:, 0].contiguous(), X, U, K, d, dV1,
+            dV2, J_prev, ones, ones, alpha0, lam, mu, dt, p.obj, ls_opts]
+
+
+@pytest.mark.parametrize("count", [1, 33, 129])
+def test_fused_al_forward_kernel_ragged_batches(maze, count):
+    """K4 on the maze problems cut or tiled to 1, 33 and 129: every output
+    of every problem bitwise equal to the 16-problem launch's."""
+    args = _maze_search(maze)
+    ref = fused_al_forward_cuda(*args)
+    idx, cut = _tiled(args, range(2, 15), count)
+    out = fused_al_forward_cuda(*cut)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.equal(_bits(o), _bits(r[idx]))
+
+
+def test_fused_al_forward_kernel_active_mask(maze):
+    """Problems outside ``active`` get X, U and J_prev back with α = 0 and ρ,
+    dρ unchanged; the others the result of the launch without a mask."""
+    args = _maze_search(maze)
+    ref = fused_al_forward_cuda(*args)
+    active = torch.arange(B, device=maze["X"].device) % 3 != 1
+    Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args, active=active)
+    torch.cuda.synchronize()
+    off = ~active
+    assert torch.equal(Xk[off], args[3][off])
+    assert torch.equal(Uk[off], args[4][off])
+    assert torch.equal(Jk[off], args[9][off]) and not bool(ak[off].any())
+    assert torch.equal(rk[off], args[10][off])
+    assert torch.equal(drk[off], args[11][off])
+    for o, r in zip((Xk, Uk, Jk, rk, drk, ak), ref):
+        assert torch.equal(_bits(o[active]), _bits(r[active]))
+
+
+def test_fused_al_forward_kernel_accepts_in_a_later_round(maze):
+    """Problem 5 (the blown-up feedforward) accepts a candidate j past the
+    launch's first round of W: its step, J and trajectory are the plain
+    version's, as a serial search gives them."""
+    args = _maze_search(maze)
+    Xk, Uk, Jk, rk, drk, ak = fused_al_forward_cuda(*args)
+    torch.cuda.synchronize()
+    W = fused_al_forward_cuda.warps
+    Xp, Up, Jp, rp, drp, ap = fused_al_forward(*args)
+    alpha0 = args[12]
+    j = int(torch.log2(alpha0[5] / ak[5]).round())
+    assert float(ak[5]) > 0.0 and W > 1 and j >= W
+    assert float(ak[5]) == float(ap[5]) and float(rk[5]) == float(rp[5])
+    torch.testing.assert_close(Jk[5], Jp[5], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("count", [1, 33, 129])
+def test_rollout_kernel_ragged_batches(linearization, count):
+    """K2 (error state, one warp a problem) on the inputs of
+    test_rollout_kernel_matches_twin cut or tiled to 1, 33 and 129 problems:
+    every output of every problem bitwise equal to the 16-problem launch's,
+    the 16-problem launch within the plain version's tolerance (K2 has no
+    active mask: every problem rolls out)."""
+    A, Bm, e, X, U, dt = linearization
+    K, d, _, _, _ = sqrt_sweep_cuda(A, Bm, e.x, e.u, e.xx, e.uu, e.ux,
+                                    torch.zeros(B, device=A.device))
+    d = d.clone()
+    d[5] *= 1e9
+    alpha = torch.full((B,), 0.5, device=A.device)
+    model = discretize(zoo.quadrotor, "rk3")
+    args = [model, X[:, 0].contiguous(), X, U, K, d, alpha, dt]
+    ref = rollout_closed_loop_cuda(*args, quat_slice=(3, 7))
+    idx, cut = _tiled(args, range(1, 7), count)
+    out = rollout_closed_loop_cuda(*cut, quat_slice=(3, 7))
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.equal(_bits(o), _bits(r[idx]))
+    Xt, Ut, okt = rollout_closed_loop(*args, quat_slice=(3, 7))
+    assert torch.equal(ref[2], okt) and not bool(okt[5])
+    torch.testing.assert_close(ref[0][okt], Xt[okt], rtol=0, atol=1e-4)
+
+
 def test_constrained_solve_outside_the_fused_path_raises_on_the_card(maze):
     """With fused_al off a constrained maze solve on a CUDA tensor no longer
     raises: it runs phase-split on K5 (13, 17) and K2's slack instantiation,

@@ -4,7 +4,16 @@
 // templated on the scalar type, so float rolls a trajectory out and Dual (a
 // value and one tangent, below) carries one direction through the same code
 // for the forward-mode Jacobians of the fused backward sweeps, which the TPU
-// kernels take with jax.linearize.
+// kernels take with jax.linearize; and the warp form of the float step, for
+// the kernels that give each problem a warp (K2, K4):
+//   kChain            whether the step reads a chain table
+//   kWarpScratch      floats of shared memory the warp step needs per warp
+//   step_warp(x, u, dt, out, tab, scr, lane)
+// called on all 32 lanes of a warp with the same x and u on every lane, it
+// leaves the same out on every lane. A scalar model's warp step is its step,
+// run in registers on every lane (RegisterStep); a chain's is computed by
+// the warp together, from its table staged in shared memory
+// (stage_chain_table, chain_dynamics_warp).
 //
 // Counterpart of the lane steps of trajopt_tpu/ops/pallas_rollout.py
 // (quadrotor_step_lanes, cartpole_step_lanes and the _rk3_lanes family:
@@ -28,6 +37,8 @@
 // form.
 #pragma once
 #include <cuda_runtime.h>
+
+#include "warp_linalg.cuh"
 
 namespace trajopt {
 
@@ -178,10 +189,12 @@ __device__ __forceinline__ void quad_dynamics(const T* x, const T* u, T* xd) {
 }
 
 // x⁺ = x + (k1 + 4 k2 + k3)/6 with k1 = dt f(x), k2 = dt f(x + k1/2),
-// k3 = dt f(x − k1 + 2 k2); the sums in the order of ops/integration.py::rk3
-template <class Dyn, class T>
+// k3 = dt f(x − k1 + 2 k2); the sums in the order of ops/integration.py::rk3.
+// ctx is what Dyn's dynamics take besides x and u: a chain's table, or the
+// warp's context of the warp step (WarpStep)
+template <class Dyn, class T, class Ctx>
 __device__ __forceinline__ void rk3_step(const T* x, const T* u, float dt,
-                                         T* out, const ChainTable* chain) {
+                                         T* out, Ctx chain) {
   constexpr int NX = Dyn::NX;
   T k1[NX], k2[NX], k3[NX], xt[NX];
   Dyn::template dynamics<T>(x, u, k1, chain);
@@ -204,8 +217,23 @@ __device__ __forceinline__ void rk3_step(const T* x, const T* u, float dt,
   }
 }
 
+// The warp step of a model whose step needs no table: every lane runs the
+// float step in registers (Self: the trait itself).
+template <class Self>
+struct RegisterStep {
+  static constexpr bool kChain = false;
+  static constexpr int kWarpScratch = 0;
+  static __device__ __forceinline__ void step_warp(const float* x,
+                                                   const float* u, float dt,
+                                                   float* out,
+                                                   const ChainTable*, float*,
+                                                   int) {
+    Self::template step<float>(x, u, dt, out);
+  }
+};
+
 // the quaternion quadrotor (quad_dynamics above)
-struct Quadrotor {
+struct Quadrotor : RegisterStep<Quadrotor> {
   static constexpr int NX = kQuadN, NU = kQuadM;
   template <class T>
   static __device__ __forceinline__ void dynamics(
@@ -224,6 +252,8 @@ struct Quadrotor {
 template <class M>
 struct WithSlack {
   static constexpr int NX = M::NX, NU = M::NU + M::NX;
+  static constexpr bool kChain = M::kChain;
+  static constexpr int kWarpScratch = M::kWarpScratch;
   template <class T>
   static __device__ __forceinline__ void step(
       const T* x, const T* u, float dt, T* out,
@@ -232,12 +262,21 @@ struct WithSlack {
 #pragma unroll
     for (int i = 0; i < NX; ++i) out[i] = out[i] + u[M::NU + i];
   }
+  static __device__ __forceinline__ void step_warp(const float* x,
+                                                   const float* u, float dt,
+                                                   float* out,
+                                                   const ChainTable* tab,
+                                                   float* scr, int lane) {
+    M::step_warp(x, u, dt, out, tab, scr, lane);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) out[i] = out[i] + u[M::NU + i];
+  }
 };
 
 // cart-pole by the manipulator equations, the 2x2 mass-matrix solve written
 // as an explicit inverse (cartpole_dynamics_lanes): mc = 1, mp = 0.2,
 // l = 0.5, g = 9.81; state [x, theta, v, omega]
-struct Cartpole {
+struct Cartpole : RegisterStep<Cartpole> {
   static constexpr int NX = 4, NU = 1;
   template <class T>
   static __device__ __forceinline__ void dynamics(
@@ -267,7 +306,7 @@ struct Cartpole {
 };
 
 // Dubins car: state [x, y, theta], controls [v, omega]
-struct Car {
+struct Car : RegisterStep<Car> {
   static constexpr int NX = 3, NU = 2;
   template <class T>
   static __device__ __forceinline__ void dynamics(
@@ -285,7 +324,7 @@ struct Car {
 };
 
 // damped pendulum: m = 1, b = 0.1, lc = 0.5, I = 0.25, g = 9.81
-struct Pendulum {
+struct Pendulum : RegisterStep<Pendulum> {
   static constexpr int NX = 2, NU = 1;
   template <class T>
   static __device__ __forceinline__ void dynamics(
@@ -302,7 +341,7 @@ struct Pendulum {
   }
 };
 
-struct DoubleIntegrator {
+struct DoubleIntegrator : RegisterStep<DoubleIntegrator> {
   static constexpr int NX = 2, NU = 1;
   template <class T>
   static __device__ __forceinline__ void dynamics(
@@ -328,8 +367,10 @@ struct DoubleIntegrator {
 // joint's parent (−1: the root) and kind; gravity, the joint and control
 // counts. Coefficients below 1e-12 are exact zeros, so the dense sums below
 // add exact zeros where the JAX lane code skips a term. The kernels take it
-// as a device pointer, like the fk rows' tables of canon.cuh: every thread
-// of a warp reads the same entry at the same time, one cached load.
+// as a device pointer, like the fk rows' tables of canon.cuh; the
+// one-thread dynamics below read it there (every thread of a warp reads the
+// same entry at the same time, one cached load), the warp dynamics from the
+// block's copy in shared memory (stage_chain_table).
 constexpr int kChainMaxDof = 8;
 
 struct ChainTable {
@@ -342,6 +383,25 @@ struct ChainTable {
   float prismatic[kChainMaxDof];
   float gravity, ndof, m;
 };
+constexpr int kChainTableFloats = sizeof(ChainTable) / sizeof(float);
+
+// The block copies the table of a chain model M (WithSlack<M> too) from
+// device memory to `dst`, shared memory, and waits for it: called by every
+// thread of the block before any of them returns. Returns the copy, or null
+// for a model without a chain.
+template <class M>
+__device__ __forceinline__ const ChainTable* stage_chain_table(
+    const ChainTable* src, float* dst) {
+  if constexpr (M::kChain) {
+    const float* from = reinterpret_cast<const float*>(src);
+    for (int e = threadIdx.x; e < kChainTableFloats; e += blockDim.x)
+      dst[e] = from[e];
+    __syncthreads();
+    return reinterpret_cast<const ChainTable*>(dst);
+  } else {
+    return nullptr;
+  }
+}
 
 template <class T>
 __device__ __forceinline__ void cross3(const T* a, const T* b, T* out) {
@@ -435,18 +495,273 @@ __device__ __forceinline__ void posdef_solve_thread(T* S, T* rhs) {
   for (int i = 0; i < M; ++i) rhs[i] = rhs[i] * dsc[i];
 }
 
+// ------------------------------------- the chain's dynamics over one warp
+//
+// The warp's shared-memory scratch for one evaluation of a chain's
+// dynamics: the stage's state and controls, then every intermediate of the
+// CRBA and the RNEA (for kuka 784 floats, 3.1 KB).
+template <int NDOF>
+struct ChainScratch {
+  float x[2 * NDOF];       // the stage's state [q; q̇]
+  float u[kChainMaxDof];   // the controls
+  float sc[NDOF][2];       // sin q, cos q of each joint (q, 0: prismatic)
+  float Xup[NDOF][36];
+  float Ic[NDOF][36];      // composite inertias
+  float XtI[36];           // Xupᵀ Ic of the CRBA's current joint
+  float H[NDOF * NDOF];    // the mass matrix, then its elimination
+  float v[NDOF][6], a[NDOF][6], f[NDOF][6];
+  float vJ[6], Iv[6];      // the RNEA's current joint
+  float rhs[NDOF], dsc[NDOF];
+};
+
+// what the warp form of a chain's dynamics takes besides x and u: the
+// block's table in shared memory, the warp's scratch and the lane
+struct WarpStep {
+  const ChainTable* tab;
+  float* scr;
+  int lane;
+};
+
+// component c of a × b, as cross3 computes it
+__device__ __forceinline__ float cross_c(const float* a, const float* b,
+                                         int c) {
+  const int c1 = c == 2 ? 0 : c + 1, c2 = c == 0 ? 2 : c - 1;
+  return a[c1] * b[c2] - a[c2] * b[c1];
+}
+
+// The dynamics of Chain<NDOF, NU>::dynamics below (float), computed by one
+// warp together from the state and controls in s.x and s.u (written and
+// synced by the caller) and the table `tab` in shared memory; q̈ comes back
+// in qdd on every lane. Every entry is summed in the one-thread form's
+// order (k ascending, the same pivot clamps 1e-30 and 1e-7), so each value
+// is the same float32 arithmetic and only FMA contraction can differ. The
+// work over the lanes: Xup for all joints at once (NDOF × 36 entries); each
+// 6×6 product of the CRBA's Xupᵀ Ic Xup with one output entry a lane (lanes
+// 0–3 take a second); H's columns one a lane once the composite inertias
+// are final (each column walks up the chain from its joint: a joint's parent
+// has a lower index, so Ic[i] is final when the sequential form uses it);
+// the RNEA's 6-vectors on lanes 0–5, the joints in order, as the tree
+// requires; the equilibrated NDOF × NDOF solve with row j on lane j (pivots
+// in order, row updates in parallel), the back substitution on every lane
+// from shared memory, which leaves q̈ in every lane's registers. (Running
+// the CRBA and the RNEA on the two halves of the warp side by side was
+// measured slower: a warp issues its diverged halves in turn.)
+template <int NDOF, int NU>
+__device__ __forceinline__ void chain_dynamics_warp(
+    const ChainTable* __restrict__ tab, ChainScratch<NDOF>& s, float* qdd,
+    int lane) {
+  if (lane < NDOF) {
+    const bool pri = tab->prismatic[lane] != 0.0f;
+    const float q = s.x[lane];
+    s.sc[lane][0] = pri ? q : sinf(q);
+    s.sc[lane][1] = pri ? 0.0f : cosf(q);
+  }
+  __syncwarp();
+  for (int e = lane; e < NDOF * 36; e += 32) {
+    const int k = e / 36, i = e - 36 * k;
+    s.Xup[k][i] = tab->C[k][0][i] + tab->C[k][1][i] * s.sc[k][0]
+                  + tab->C[k][2][i] * s.sc[k][1];
+    s.Ic[k][i] = tab->I[k][i];
+  }
+  for (int e = lane; e < NDOF * NDOF; e += 32) s.H[e] = 0.0f;
+  __syncwarp();
+
+  // CRBA: Ic[p] += Xupᵀ Ic[i] Xup from the leaves in
+#pragma unroll 1
+  for (int i = NDOF - 1; i >= 0; --i) {
+    const int p = (int)tab->parent[i];
+    if (p < 0) continue;
+    for (int e = lane; e < 36; e += 32) {
+      const int ra = e / 6, cb = e - 6 * ra;
+      float acc = s.Xup[i][ra] * s.Ic[i][cb];
+#pragma unroll
+      for (int k = 1; k < 6; ++k)
+        acc = acc + s.Xup[i][k * 6 + ra] * s.Ic[i][k * 6 + cb];
+      s.XtI[e] = acc;
+    }
+    __syncwarp();
+    for (int e = lane; e < 36; e += 32) {
+      const int ra = e / 6, cb = e - 6 * ra;
+      float acc = s.XtI[ra * 6] * s.Xup[i][cb];
+#pragma unroll
+      for (int k = 1; k < 6; ++k)
+        acc = acc + s.XtI[ra * 6 + k] * s.Xup[i][k * 6 + cb];
+      s.Ic[p][e] = s.Ic[p][e] + acc;
+    }
+    __syncwarp();
+  }
+  // H's column i on lane i: F = Ic S, H_ii = S·F, then up the chain
+  if (lane < NDOF) {
+    const int i = lane;
+    float F[6], G[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      float acc = s.Ic[i][r * 6] * tab->S[i][0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) acc = acc + s.Ic[i][r * 6 + c] * tab->S[i][c];
+      F[r] = acc;
+    }
+    float h = tab->S[i][0] * F[0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) h = h + tab->S[i][c] * F[c];
+    s.H[i * NDOF + i] = h;
+    int j = i;
+    while ((int)tab->parent[j] >= 0) {
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        float acc = s.Xup[j][r] * F[0];
+#pragma unroll
+        for (int k = 1; k < 6; ++k) acc = acc + s.Xup[j][k * 6 + r] * F[k];
+        G[r] = acc;
+      }
+#pragma unroll
+      for (int r = 0; r < 6; ++r) F[r] = G[r];
+      j = (int)tab->parent[j];
+      float hj = tab->S[j][0] * F[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) hj = hj + tab->S[j][c] * F[c];
+      s.H[i * NDOF + j] = hj;
+      s.H[j * NDOF + i] = hj;
+    }
+  }
+
+  // RNEA with q̈ = 0, joint by joint, component r of each 6-vector on lane r
+  const int r = lane;
+#pragma unroll 1
+  for (int i = 0; i < NDOF; ++i) {
+    const int p = (int)tab->parent[i];
+    float ta = 0.0f;
+    if (lane < 6) {
+      const float vJ = tab->S[i][r] * s.x[NDOF + i];
+      const float* A = s.Xup[i] + r * 6;
+      if (p >= 0) {
+        float tv = A[0] * s.v[p][0];
+#pragma unroll
+        for (int k = 1; k < 6; ++k) tv = tv + A[k] * s.v[p][k];
+        s.v[i][r] = tv + vJ;
+        ta = A[0] * s.a[p][0];
+#pragma unroll
+        for (int k = 1; k < 6; ++k) ta = ta + A[k] * s.a[p][k];
+      } else {
+        s.v[i][r] = vJ;
+        const float g[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, tab->gravity};
+        ta = A[0] * g[0];
+#pragma unroll
+        for (int k = 1; k < 6; ++k) ta = ta + A[k] * g[k];
+      }
+      s.vJ[r] = vJ;
+    }
+    __syncwarp();
+    // a = Xup a_parent + v × vJ (crm6; each sum written out whole, so that
+    // it contracts as the one-thread form's does)
+    const float* v = s.v[i];
+    if (lane < 3)
+      s.a[i][r] = ta + cross_c(v, s.vJ, r);
+    else if (lane < 6)
+      s.a[i][r] = ta + (cross_c(v + 3, s.vJ, r - 3)
+                        + cross_c(v, s.vJ + 3, r - 3));
+    __syncwarp();
+    float Ia = 0.0f;
+    if (lane < 6) {
+      const float* Ir = tab->I[i] + r * 6;
+      Ia = Ir[0] * s.a[i][0];
+      float Iv = Ir[0] * s.v[i][0];
+#pragma unroll
+      for (int k = 1; k < 6; ++k) {
+        Ia = Ia + Ir[k] * s.a[i][k];
+        Iv = Iv + Ir[k] * s.v[i][k];
+      }
+      s.Iv[r] = Iv;
+    }
+    __syncwarp();
+    // f = I a + v ×* (I v) (crf6)
+    if (lane < 3)
+      s.f[i][r] = Ia + (cross_c(v, s.Iv, r) + cross_c(v + 3, s.Iv + 3, r));
+    else if (lane < 6)
+      s.f[i][r] = Ia + cross_c(v, s.Iv + 3, r - 3);
+    __syncwarp();
+  }
+#pragma unroll 1
+  for (int i = NDOF - 1; i >= 0; --i) {
+    const int p = (int)tab->parent[i];
+    if (p < 0) continue;
+    if (lane < 6) {   // f[p] += Xupᵀ f[i]
+      float t = s.Xup[i][r] * s.f[i][0];
+#pragma unroll
+      for (int k = 1; k < 6; ++k) t = t + s.Xup[i][k * 6 + r] * s.f[i][k];
+      s.f[p][r] = s.f[p][r] + t;
+    }
+    __syncwarp();
+  }
+
+  // row i on lane i: rhs = Bact u − bias − damping q̇, the equilibration
+  float dsc = 0.0f;
+  if (lane < NDOF) {
+    const int i = lane;
+    float tau = tab->S[i][0] * s.f[i][0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) tau = tau + tab->S[i][c] * s.f[i][c];
+    float bu = tab->Bact[i][0] * s.u[0];
+#pragma unroll
+    for (int j = 1; j < NU; ++j) bu = bu + tab->Bact[i][j] * s.u[j];
+    s.rhs[i] = bu - tau - tab->damping[i] * s.x[NDOF + i];
+    dsc = 1.0f / sqrtf(fmaxf(s.H[i * NDOF + i], 1e-30f));
+    s.dsc[i] = dsc;
+  }
+  __syncwarp();
+  if (lane < NDOF) {
+    const int i = lane;
+#pragma unroll
+    for (int c = 0; c < NDOF; ++c)
+      s.H[i * NDOF + c] = s.H[i * NDOF + c] * dsc * s.dsc[c];
+    s.rhs[i] = s.rhs[i] * dsc;
+  }
+  __syncwarp();
+  // elimination: pivot i in order, rows j > i on their lanes
+#pragma unroll 1
+  for (int i = 0; i < NDOF - 1; ++i) {
+    if (lane > i && lane < NDOF) {
+      const int j = lane;
+      const float inv = 1.0f / fmaxf(s.H[i * NDOF + i], 1e-7f);
+      const float fj = s.H[j * NDOF + i] * inv;
+      for (int c = i + 1; c < NDOF; ++c)
+        s.H[j * NDOF + c] = s.H[j * NDOF + c] - fj * s.H[i * NDOF + c];
+      s.rhs[j] = s.rhs[j] - fj * s.rhs[i];
+    }
+    __syncwarp();
+  }
+  // back substitution on every lane (H_ii is final once pivot i is taken)
+  float sol[NDOF];
+#pragma unroll
+  for (int i = NDOF - 1; i >= 0; --i) {
+    float acc = s.rhs[i];
+#pragma unroll
+    for (int j = i + 1; j < NDOF; ++j) acc = acc - s.H[i * NDOF + j] * sol[j];
+    sol[i] = acc / fmaxf(s.H[i * NDOF + i], 1e-7f);
+  }
+#pragma unroll
+  for (int i = 0; i < NDOF; ++i) qdd[i] = sol[i] * s.dsc[i];
+  __syncwarp();   // the scratch is read: the next evaluation may overwrite it
+}
+
 // A rigid-body chain of NDOF joints and NU controls, state [q; q̇]: the
 // dynamics of make_chain_dynamics_lanes (Xup from the affine coefficients,
 // the CRBA for H, the RNEA with q̈ = 0 for the bias, then the solve),
-// written for one thread. Not inlined: the RK3 step calls it three times,
-// and its ~700 values (7 Xup, 7 composite inertias, v, a, f, H) live in
-// local memory whatever the inlining. For the same reason the sweeps over
-// the joints are not unrolled (a joint's parent is read from the table):
-// unrolled, the Dual form of K3 took nvcc about two minutes.
+// written for one thread, and the same dynamics over one warp
+// (chain_dynamics_warp) in step_warp, which K2 and K4 call. The one-thread
+// form stays for K3, K7a and K7b (in float and in Dual) until their own
+// redesigns. Not inlined: the RK3 step calls it three times, and its ~700
+// values (7 Xup, 7 composite inertias, v, a, f, H) live in local memory
+// whatever the inlining. For the same reason the sweeps over the joints are
+// not unrolled (a joint's parent is read from the table): unrolled, the
+// Dual form of K3 took nvcc about two minutes.
 template <int NDOF, int NU_>
 struct Chain {
   static constexpr int NX = 2 * NDOF, NU = NU_;
   static_assert(NDOF <= kChainMaxDof && NU <= kChainMaxDof, "table size");
+  static constexpr bool kChain = true;
+  static constexpr int kWarpScratch =
+      sizeof(ChainScratch<NDOF>) / sizeof(float);
 
   template <class T>
   static __device__ __noinline__ void dynamics(
@@ -594,6 +909,44 @@ struct Chain {
                                               float dt, T* out,
                                               const ChainTable* chain) {
     rk3_step<Chain, T>(x, u, dt, out, chain);
+  }
+
+  // The same dynamics over one warp (chain_dynamics_warp), with the
+  // one-thread form's interface, so that step_warp is rk3_step itself, and
+  // not inlined, as the one-thread form: compiled on its own, its
+  // arithmetic and the RK3 combination around the call come out bit for bit
+  // as the one-thread step's (on the H100, for every chain; inlined, the
+  // compiler contracted the two-link chains' steps otherwise in a few
+  // percent of states, which the cartpole rig's chaotic line-search lanes
+  // amplify past K4's checks).
+  template <class T>
+  static __device__ __noinline__ void dynamics(const T* x, const T* u, T* xd,
+                                               WarpStep w) {
+    ChainScratch<NDOF>& s = *reinterpret_cast<ChainScratch<NDOF>*>(w.scr);
+#pragma unroll
+    for (int i = 0; i < NX; ++i)
+      if (w.lane == i) s.x[i] = x[i];
+#pragma unroll
+    for (int j = 0; j < NU; ++j)
+      if (w.lane == j) s.u[j] = u[j];
+    __syncwarp();
+    T qdd[NDOF];
+    chain_dynamics_warp<NDOF, NU>(w.tab, s, qdd, w.lane);
+#pragma unroll
+    for (int i = 0; i < NDOF; ++i) {
+      xd[i] = x[NDOF + i];
+      xd[NDOF + i] = qdd[i];
+    }
+  }
+
+  // tab is the block's table in shared memory, scr the warp's kWarpScratch
+  // floats
+  static __device__ __forceinline__ void step_warp(const float* x,
+                                                   const float* u, float dt,
+                                                   float* out,
+                                                   const ChainTable* tab,
+                                                   float* scr, int lane) {
+    rk3_step<Chain, float>(x, u, dt, out, WarpStep{tab, scr, lane});
   }
 };
 

@@ -19,20 +19,29 @@
 // What bounds it on this card: latency. Each problem is a chain of N-1
 // dependent RK3 steps (for the quadrotor three dynamics evaluations, ~300
 // flops); the quadrotor error-state path reads 128 x 100 x (13 + 4 + 48 + 4)
-// floats (~3.5 MB) per launch, far below what bandwidth would notice. The
-// kuka step is ~15k flops (three CRBA + RNEA + 7x7 solves) whose ~700
-// intermediate values per dynamics call spill to local memory, so a kuka
-// thread mostly waits on its own local-memory traffic.
+// floats (~3.5 MB) per launch, far below what bandwidth would notice. A
+// chain's step is ~13.6k operations (three CRBA + RNEA + NDOF x NDOF
+// solves for kuka), most of them independent within a joint.
 //
-// Design: one thread per problem; state, control and the gain row live in
-// registers, and the model's widths are compile-time constants, one
-// instantiation per model (and one more for the quadrotor's error state,
-// ns = 12). Loads are strided across threads (batch-first layout, as the
-// solver holds the arrays); a lane-major layout or one warp per problem is
-// later work. For the two-state models most of a thread's time is waiting
-// on its own loads. No fast-math and no rsqrtf: the quaternion norm uses
-// 1.0f / sqrtf, because an approximate reciprocal square root compounds
-// over the horizon (ops/pallas_rollout.py:53-55).
+// Design: one warp per problem, a few problems per block (kWarpsPerBlock
+// below), so that the main paths' 128 problems spread over the SMs. Every
+// lane holds the state in registers. Lane i < m computes control i from its
+// gain row (the rows of one knot are contiguous, so the warp's reads are
+// coalesced) and the controls go to every lane by shuffle; for the error
+// state every lane computes state_diff. A scalar model's step runs in
+// registers on every lane; a chain's is computed by the warp together
+// (models.cuh chain_dynamics_warp), from the table that the block stages in
+// shared memory, its ~780 intermediate values in the warp's scratch there
+// (only the RK3 stage vectors pass through local memory, as in the
+// one-thread step, so that the step rounds bit for bit as that one does).
+// Knot k+1's
+// rows (X, U, K, d) are loaded into registers while knot k's step runs: they
+// do not depend on the state, so the dependent RK3 chain never waits on a
+// global load. Lane i < n writes state i. The model's widths are
+// compile-time constants, one instantiation per model (and one more for the
+// quadrotor's error state, ns = 12). No fast-math and no rsqrtf: the
+// quaternion norm uses 1.0f / sqrtf, because an approximate reciprocal
+// square root compounds over the horizon (ops/pallas_rollout.py:53-55).
 #include <cuda_runtime.h>
 
 #include "models.cuh"
@@ -65,9 +74,21 @@ __device__ __forceinline__ void state_diff(const float* x, const float* xr,
   for (int i = 6; i < 12; ++i) dx[i] = x[i + 1] - xr[i + 1];
 }
 
+// problems (warps) per block: at B = 128 one block per SM for 128 of the
+// 132 SMs; more warps a block only stack problems on fewer SMs
+constexpr int kWarpsPerBlock = 1;
+
+// shared memory a block of M's instantiation needs: the chain's table and
+// each warp's scratch (none for a scalar model)
+template <class M>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * ((M::kChain ? kChainTableFloats : 0)
+                          + kWarpsPerBlock * M::kWarpScratch);
+}
+
 // ErrorState: the quadrotor's quaternion error state, gains of width 12
 template <class M, bool ErrorState>
-__global__ void rollout_kernel(
+__global__ void __launch_bounds__(32 * kWarpsPerBlock) rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ X,
     const float* __restrict__ U, const float* __restrict__ K,
     const float* __restrict__ d, const float* __restrict__ alpha,
@@ -77,38 +98,71 @@ __global__ void rollout_kernel(
   constexpr int kN = M::NX;
   constexpr int kNs = ErrorState ? M::NX - 1 : M::NX;
   constexpr int kM = M::NU;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  static_assert(kN <= 32 && kM <= 32, "one lane per state and per control");
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const ChainTable* tab = stage_chain_table<M>(chain, smem);
+  float* scr = smem + (M::kChain ? kChainTableFloats : 0)
+               + w * M::kWarpScratch;
+  const int b = blockIdx.x * kWarpsPerBlock + w;
   if (b >= batch) return;
   const int Nm1 = N - 1;
+  const float* Xb = X + (size_t)b * N * kN;
+  const float* Ub = U + (size_t)b * Nm1 * kM;
+  const float* Kb = K + (size_t)b * Nm1 * kM * kNs;
+  const float* db = d + (size_t)b * Nm1 * kM;
+  float* Xo = Xout + (size_t)b * N * kN;
+  float* Uo = Uout + (size_t)b * Nm1 * kM;
+
   float x[kN];
 #pragma unroll
-  for (int i = 0; i < kN; ++i) {
-    x[i] = x0[(size_t)b * kN + i];
-    Xout[(size_t)b * N * kN + i] = x[i];
-  }
+  for (int i = 0; i < kN; ++i) x[i] = x0[(size_t)b * kN + i];
+  if (lane < kN) Xo[lane] = x0[(size_t)b * kN + lane];
   const float a = alpha[b];
+
+  // knot k's rows: X_k on every lane, lane i < m its gain row, U and d
+  float xr_n[kN], K_n[kNs] = {}, U_n = 0.0f, d_n = 0.0f;
+  auto load = [&](int k) {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) xr_n[i] = Xb[(size_t)k * kN + i];
+    if (lane < kM) {
+      const float* Kr = Kb + ((size_t)k * kM + lane) * kNs;
+#pragma unroll
+      for (int c = 0; c < kNs; ++c) K_n[c] = Kr[c];
+      U_n = Ub[(size_t)k * kM + lane];
+      d_n = db[(size_t)k * kM + lane];
+    }
+  };
+  load(0);
   bool alive = true;
   for (int k = 0; k < Nm1; ++k) {
-    const size_t bk = (size_t)b * Nm1 + k;
-    const float* Xk = X + ((size_t)b * N + k) * kN;
-    float xr[kN], dx[kNs], u[kM], xn[kN];
+    float xr[kN], Kr[kNs];
 #pragma unroll
-    for (int i = 0; i < kN; ++i) xr[i] = Xk[i];
+    for (int i = 0; i < kN; ++i) xr[i] = xr_n[i];
+#pragma unroll
+    for (int c = 0; c < kNs; ++c) Kr[c] = K_n[c];
+    const float Uk = U_n, dk = d_n;
+    if (k + 1 < Nm1) load(k + 1);   // in flight while this knot steps
+
+    float dx[kNs];
     if constexpr (ErrorState) {
       state_diff(x, xr, dx);
     } else {
 #pragma unroll
       for (int i = 0; i < kN; ++i) dx[i] = x[i] - xr[i];
     }
-    const float* Kk = K + bk * kM * kNs;
+    // u_i = U_i + K_i·δx + α d_i on lane i, then to every lane
+    float u_mine = 0.0f;
+    if (lane < kM) {
+      float acc = Kr[0] * dx[0];
 #pragma unroll
-    for (int i = 0; i < kM; ++i) {
-      float acc = Kk[i * kNs] * dx[0];
-#pragma unroll
-      for (int c = 1; c < kNs; ++c) acc = acc + Kk[i * kNs + c] * dx[c];
-      u[i] = U[bk * kM + i] + acc + a * d[bk * kM + i];
+      for (int c = 1; c < kNs; ++c) acc = acc + Kr[c] * dx[c];
+      u_mine = Uk + acc + a * dk;
     }
-    M::template step<float>(x, u, dt, xn, chain);
+    float u[kM], xn[kN];
+#pragma unroll
+    for (int i = 0; i < kM; ++i) u[i] = __shfl_sync(kFullMask, u_mine, i);
+    M::step_warp(x, u, dt, xn, tab, scr, lane);
     bool good = true;
 #pragma unroll
     for (int i = 0; i < kN; ++i)
@@ -116,16 +170,13 @@ __global__ void rollout_kernel(
 #pragma unroll
     for (int i = 0; i < kM; ++i) good = good && fabsf(u[i]) < max_control;
     alive = alive && good;
-    float* Xo = Xout + ((size_t)b * N + k + 1) * kN;
 #pragma unroll
-    for (int i = 0; i < kN; ++i) {
+    for (int i = 0; i < kN; ++i)
       if (alive) x[i] = xn[i];
-      Xo[i] = x[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kM; ++i) Uout[bk * kM + i] = u[i];
+    if (lane < kN) Xo[(size_t)(k + 1) * kN + lane] = lane_value(x, lane);
+    if (lane < kM) Uo[(size_t)k * kM + lane] = u_mine;
   }
-  ok[b] = alive ? 1 : 0;
+  if (lane == 0) ok[b] = alive ? 1 : 0;
 }
 
 template <class M, bool ErrorState>
@@ -134,11 +185,12 @@ int launch(const float* x0, const float* X, const float* U, const float* K,
            unsigned char* ok, const ChainTable* chain, int batch, int N,
            float dt, float max_state, float max_control,
            cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (batch + threads - 1) / threads;
-  rollout_kernel<M, ErrorState><<<blocks, threads, 0, stream>>>(
-      x0, X, U, K, d, alpha, Xout, Uout, ok, chain, batch, N, dt, max_state,
-      max_control);
+  static_assert(smem_bytes<M>() <= 48 * 1024, "static shared memory limit");
+  const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  rollout_kernel<M, ErrorState>
+      <<<blocks, 32 * kWarpsPerBlock, smem_bytes<M>(), stream>>>(
+          x0, X, U, K, d, alpha, Xout, Uout, ok, chain, batch, N, dt,
+          max_state, max_control);
   return (int)cudaGetLastError();
 }
 

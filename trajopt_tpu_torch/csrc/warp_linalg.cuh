@@ -31,6 +31,17 @@ __device__ __forceinline__ void warp_mm(float* C, int ldc, const float* A,
   __syncwarp();
 }
 
+// v[lane] of a register array with compile-time indices (v[0] on lanes
+// past its end), without moving v to local memory
+template <int N>
+__device__ __forceinline__ float lane_value(const float (&v)[N], int lane) {
+  float out = v[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i)
+    if (lane == i) out = v[i];
+  return out;
+}
+
 // Sum over the warp, the same value on every lane, in a fixed order.
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points by source file, and their argument types (see csrc/*.cu)
 SIGNATURES = {
     "sqrt_sweep": {
@@ -67,12 +68,14 @@ SIGNATURES = {
         # Bout, batch, N, P, G, J, npts, model, reg_state, atol, stream
         "trajopt_fused_al_backward_f32": (_P,) * 25 + (_I,) * 8 + (_F, _P)},
     "fused_al_forward": {
+        # model, batch -> the warps a block takes (W)
+        "trajopt_fused_al_forward_warps": (_I, _I),
         # x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, lam, mu, dt, Q,
-        # R, H, q, r, c, row_i, row_f, fk_joint, fk_point, active, chain,
-        # Xout, Uout, scal, batch, N, P, J, npts, model, ls_iters, ls_lb,
-        # ls_ub, reg_min, reg_factor, reg_fp, atol, stream
-        "trajopt_fused_al_forward_f32": (_P,) * 29 + (_I,) * 7 + (_F,) * 6
-        + (_P,)},
+        # R, H, q, r, c, row_i, row_f, fk_joint, fk_point, active, chain, ws,
+        # ws_floats, Xout, Uout, scal, batch, N, P, J, npts, model, ls_iters,
+        # ls_lb, ls_ub, reg_min, reg_factor, reg_fp, atol, stream
+        "trajopt_fused_al_forward_f32": (_P,) * 27 + (_L,) + (_P,) * 3
+        + (_I,) * 7 + (_F,) * 6 + (_P,)},
 }
 
 

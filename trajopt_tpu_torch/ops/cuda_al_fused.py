@@ -10,7 +10,9 @@ iteration is two programs:
   the Gauss-Newton AL expansion lx += cxᵀg, lxx += cxᵀIμcx (g = Iμ∘c + λ)
   of the canonical constraint stack, then the Riccati step;
 - forward (K4, ``csrc/fused_al_forward.cu``): the whole backtracking line
-  search, with the AL cost J + Σ λᵀc + ½cᵀIμc of every candidate rollout.
+  search, with the AL cost J + Σ λᵀc + ½cᵀIμc of every candidate rollout;
+  a block of W warps per problem tries W candidates at a time and takes
+  the lowest accepted one, which is the serial search's result.
 
 ``fused_al_backward`` and ``fused_al_forward`` are the plain PyTorch
 versions: model-generic, they set the semantics and run on the CPU.
@@ -183,7 +185,10 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
     """The whole AL line search on kernel K4. Arguments and results as
     :func:`fused_al_forward` (``syncs`` counts the plain version's loop
     tests; the kernel makes none). CPU tensors run the plain version; CUDA
-    tensors must be contiguous float32."""
+    tensors must be contiguous float32. The kernel picks W, the candidates
+    a problem tries at once, from the batch and its occupancy
+    (``trajopt_fused_al_forward_warps``); the wrapper allocates the
+    candidates' workspace for it and records it as ``warps``."""
     if X.device.type == "cpu":
         return fused_al_forward(model, canon, x0, X, U, K, d, dV1, dV2,
                                 J_prev, rho, drho, alpha0, lam, mu, dt_traj,
@@ -210,6 +215,14 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
     ls_lb, ls_ub, ls_iters, reg_min, reg_factor, reg_fp = opts_t
 
     lib = _build.load()
+    # W warps a problem, from the batch and the kernel's occupancy; with
+    # W > 1 each warp's candidate goes to its own buffer in a workspace
+    W = lib.trajopt_fused_al_forward_warps(cm.id, Bz)
+    if W < 1:
+        raise RuntimeError(f"{fn}: no launch shape for {cm.label!r} at "
+                           f"B={Bz}")
+    ws = torch.empty(Bz * W * (N * cm.n + (N - 1) * cm.m) if W > 1 else 0,
+                     dtype=X.dtype, device=dev)
     Xout, Uout = torch.empty_like(X), torch.empty_like(U)
     # per problem: J, rho, drho, alpha_used
     scal = torch.empty((4, Bz), dtype=X.dtype, device=dev)
@@ -223,7 +236,8 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
         canon.row_f.data_ptr(), canon.fk_joint.data_ptr(),
         canon.fk_point.data_ptr(),
         None if active is None else active.data_ptr(),
-        chain_table_ptr(model, cm, dev), Xout.data_ptr(),
+        chain_table_ptr(model, cm, dev),
+        ws.data_ptr() if ws.numel() else None, ws.numel(), Xout.data_ptr(),
         Uout.data_ptr(), scal.data_ptr(), Bz, N, P, canon.fk_joint.shape[0],
         canon.fk_point.shape[0], cm.id, int(ls_iters),
         float(ls_lb), float(ls_ub),
@@ -232,8 +246,11 @@ def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
     _build.check(err, "trajopt_fused_al_forward_f32")
     fused_al_forward_cuda.launches += 1
     fused_al_forward_cuda.launches_by[cm.label] += 1
+    fused_al_forward_cuda.warps = W
     return Xout, Uout, scal[0], scal[1], scal[2], scal[3]
 
 
 fused_al_forward_cuda.launches = 0
 fused_al_forward_cuda.launches_by = collections.Counter()
+# the warps a problem took in the last launch (its block is 32·W threads)
+fused_al_forward_cuda.warps = None

@@ -6,7 +6,8 @@ model's RK3 step inlined (``csrc/models.cuh``): the full-state rollout
 (``quat_slice=None``) for every model of ``ops/cuda_models.py`` (kuka's
 rigid-body chain step among them), with or without the slack controls of
 the infeasible-start transform, and the quaternion error state for the
-quadrotor. A tensor on the CPU goes to the plain version
+quadrotor; one warp a problem, a chain's step computed by the warp
+together. A tensor on the CPU goes to the plain version
 ``ops/rollout.py::rollout_closed_loop``; a CUDA tensor goes to the kernel,
 and anything the kernel does not take raises.
 """
