@@ -9,8 +9,8 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
 1. device and build: the card's name and power limit from ``nvidia-smi``,
    TF32 off (``precise``), the CUDA kernels built from ``csrc/`` by nvcc,
    one compiler per source side by side (ptxas's register and spill report
-   printed, and for every K2 and K4 instantiation its registers, stack and
-   spill), and each wrapper refusing a float64 CUDA input;
+   printed, and for every K2, K3, K4 and K7b instantiation its registers,
+   stack and spill), and each wrapper refusing a float64 CUDA input;
 2. kernel K1 (``csrc/sqrt_sweep.cu``) against its plain version on the
    card, float32, at the main path's shapes (B=128, N=101, error state
    n=12, m=4), on error-state linearizations of ``quadrotor_line`` around
@@ -32,7 +32,10 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
 6. kernel K3 (``csrc/fused_al_backward.cu``) against its plain version on
    the card, float32, B=128, N=101, on the infeasible-start maze stack
    (P = 89): benign duals, late-schedule duals, a problem made indefinite,
-   and the in-kernel Jacobians against ``jacobian_traj``;
+   and the in-kernel Jacobians against ``jacobian_traj``; its block (Wc
+   consumer and Wp producer warps, the ring's S slots, shared memory) and
+   its launch shapes (B = 128, 1024, 1152 and 33, bitwise equal; the block
+   differs between them);
 7. kernel K4 (``csrc/fused_al_forward.cu``) against its plain version on
    the card, same shapes, gains from K3, with lanes forced to diverge and
    one whose search runs out, the warps W a problem and the rounds of W
@@ -55,7 +58,8 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
     against ``jacobian_traj``, for all five models;
 12. kernel K7b (``csrc/fused_forward.cu``) against its plain version, with
     lanes forced to diverge and one whose search runs out, for all five
-    models;
+    models, the rounds of W candidates each launch took, and the
+    quadrotor's launch shapes;
 13. kernel K2's new instantiations (the full state of the quadrotor, of the
     slack-augmented quadrotor and of the four scalar models) against
     ``rollout_closed_loop``;
@@ -99,11 +103,12 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
     ``car_escape`` phase-split; the maze without the transform;
 21.–25. slice 5 (``kuka_kernels``, ``kuka``, ``kuka_pool``,
     ``kuka_profile``, ``kuka_slack``): every kuka instantiation against its
-    plain version (with K4's and K2's launch shapes on the arm), ``altro_solve(kuka_obstacles())``, its pool in two
+    plain version (with K3's, K4's and K2's launch shapes on the arm),
+    ``altro_solve(kuka_obstacles())``, its pool in two
     arms, their profile, the slack instantiations;
 26. slice 6's kernels (``rig_kernels``): K7a and K7b for kuka and the three
-    URDF rigs, K3, K4, K2 and K5 for the rigs with and without slacks,
-    each against its plain version;
+    URDF rigs (K7b's launch shapes on the cartpole rig), K3, K4, K2 and K5
+    for the rigs with and without slacks, each against its plain version;
 27. slice 6's paths (``slice6``): ``solve_batch`` on the unconstrained kuka
     and on the rigs' zoo problems, fused and phase-split, held to the JAX
     package's outcomes (``tools/slice6_gates_jax.py``) and to float64 CPU
@@ -608,14 +613,17 @@ def phase_build(report):
         for line in path.with_suffix(".log").read_text().splitlines():
             if line.strip():
                 log("nvcc:", line.strip())
-    for stem in ("rollout", "fused_al_forward"):
+    for stem in ("rollout", "fused_al_forward", "fused_al_backward",
+                 "fused_forward"):
         for name, regs, stack, spill in ptxas_report(
                 libs[stem].with_suffix(".log").read_text()):
             log(f"ptxas {stem}: {name}: {regs} registers, {stack} B stack, "
                 f"{spill} B spilled")
     log("K2 launch shape: one warp a problem, blocks of "
-        "32 threads (csrc/rollout.cu kWarpsPerBlock = 1); K4: a block of "
-        "32·W threads a problem, W from the batch (printed by each K4 check)")
+        "32 threads (csrc/rollout.cu kWarpsPerBlock = 1); K4 and K7b: a "
+        "block of 32·W threads a problem, W from the batch (printed by each "
+        "K4 and K7b check); K3: Wc consumer and Wp producer warps a problem "
+        "(printed by each K3 check)")
 
     dev = torch.device("cuda", 0)
     z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)  # noqa
@@ -737,10 +745,12 @@ def launch_shapes(tag, fn, args, batched, **kw):
     """The kernel behind the wrapper ``fn`` at B = 128 on ``args`` (its
     positions ``batched`` batch-first), at B = 1024 and 1152 (the 128
     problems tiled 8 and 9 times) and at the ragged B = 33 (the first 33):
-    every output of every problem bitwise equal across the launches. K4's W
-    differs between them: 8 at B = 128 and 33; at B = 1024 2 where a thread
-    takes at most 128 registers (K4's maze and kuka instantiations), and 1
-    at B = 1152, the serial search."""
+    every output of every problem bitwise equal across the launches. The
+    launch shape differs between them: K4's and K7b's W is 8 at B = 128
+    and 33; at B = 1024 2 where a thread takes at most 128 registers, and
+    1 at B = 1152, the serial search; K3's (Wc, Wp) is (4, 4) at B = 128
+    and 33, at B = 1024 (1, 1) where a thread takes at most 128 registers,
+    else the lone warp (1, 0), and (1, 0) at B = 1152."""
     import torch
 
     base = torch.arange(B, device=args[min(batched)].device)
@@ -766,15 +776,15 @@ def launch_shapes(tag, fn, args, batched, **kw):
         f"problem (warps a problem: {shapes})")
 
 
-def log_rounds(tag, alpha0, alpha_used, ls_iters):
-    """Print the launch shape of the last K4 launch and the rounds of W
-    candidates its searches took, each from its step: the candidate
-    j = log2(α0/α) that was accepted, or all ls_iters + 1 where the search
-    ran out (α = 0)."""
+def log_rounds(tag, alpha0, alpha_used, ls_iters, fn=None):
+    """Print the launch shape of the last launch of the line-search wrapper
+    ``fn`` (K4's by default, or K7b's) and the rounds of W candidates its
+    searches took, each from its step: the candidate j = log2(α0/α) that
+    was accepted, or all ls_iters + 1 where the search ran out (α = 0)."""
     import torch
     from trajopt_tpu_torch.ops.cuda_al_fused import fused_al_forward_cuda
 
-    W = fused_al_forward_cuda.warps
+    W = (fn or fused_al_forward_cuda).warps
     j = torch.log2(alpha0 / alpha_used.clamp(min=1e-30)).round()
     rounds = torch.where(alpha_used > 0,
                          torch.div(j, W, rounding_mode="floor") + 1,
@@ -784,6 +794,18 @@ def log_rounds(tag, alpha0, alpha_used, ls_iters):
         f"{alpha_used.shape[0]} blocks); the launch took "
         f"{int(rounds.max())} rounds of {W} candidates (problems by rounds: "
         f"{hist})")
+
+
+def log_k3_shape(tag):
+    """Print the block of the last K3 launch (the check's own, at B = 128):
+    its consumer and producer warps, the slots of its ring and its
+    shared-memory bytes."""
+    from trajopt_tpu_torch.ops.cuda_al_fused import fused_al_backward_cuda
+
+    sh = fused_al_backward_cuda.shape
+    log(f"{tag}: (Wc, Wp, S) = ({sh['consumers']}, {sh['producers']}, "
+        f"{sh['slots']}), {32 * (sh['consumers'] + sh['producers'])} "
+        f"threads and {sh['smem_bytes']} B of shared memory a block")
 
 
 def quadrotor_objective(dtype):
@@ -1309,6 +1331,9 @@ def phase_k3(report):
     compare("(c) problem 7 indefinite at knot 40", k, p, p64)
 
     args = (prob.model, canon, X, U, ms["lam"], ms["mu"], dt, prob.obj, rho1)
+    log_k3_shape("K3 quadrotor_slack")
+    launch_shapes("K3 quadrotor_slack", fused_al_backward_cuda, args,
+                  (2, 3, 4, 5, 8))
     ms_k = cuda_time_ms(lambda: fused_al_backward_cuda(*args), reps=20)
     plain_ms = cuda_time_ms(lambda: fused_al_backward(*args), reps=2,
                             warmup=1)
@@ -2034,15 +2059,17 @@ def rollout_eps(model64, ins, dt, Xp, Up, calm):
 
 def phase_k7b(report, setups):
     for name in MODELS:
-        k7b_case(report, setups[name])
+        k7b_case(report, setups[name], shapes=name == "quadrotor")
 
 
-def k7b_case(report, st, alpha_share=None, ls_opts=LS_OPTS, j_own=False):
+def k7b_case(report, st, alpha_share=None, ls_opts=LS_OPTS, j_own=False,
+             shapes=False):
     """K7b on one set-up of ``k7a_case`` against its plain version, with
     lanes forced to diverge and one whose search runs out: α, ρ and dρ equal
     on every problem (with ``alpha_share``, α on at least that share and ρ,
     dρ, J and X compared where α is equal, as K4 is held), J, X and U as
-    K7B_J_TOL and K7B_X_TOL say."""
+    K7B_J_TOL and K7B_X_TOL say; the rounds the launch took, and with
+    ``shapes`` its launch shapes."""
     import torch
     from trajopt_tpu_torch.ops.cost import total_cost
     from trajopt_tpu_torch.ops.cuda_fused import (
@@ -2130,6 +2157,9 @@ def k7b_case(report, st, alpha_share=None, ls_opts=LS_OPTS, j_own=False):
         check(len(died) == len(K4_DIVERGE) and all(
             float(ak[i]) > 0 for i in K4_DIVERGE),
             f"{tag}: the diverging lanes did not diverge and recover")
+    log_rounds(tag, alpha0, ak, ls_opts[2], fused_forward_cuda)
+    if shapes:
+        launch_shapes(tag, fused_forward_cuda, args, range(1, 12))
 
     ms_k = cuda_time_ms(lambda: fused_forward_cuda(*args), reps=10)
     cands = torch.where(
@@ -2749,6 +2779,10 @@ def al_case(report, st):
         log(f"{tag}: problem 7 fails alone in kernel and plain version")
 
     args = (model, canon, X, U, lam, mu, dt, obj, one)
+    log_k3_shape(tag)
+    if st.get("shapes"):
+        launch_shapes(f"K3 {label}", fused_al_backward_cuda, args,
+                      (2, 3, 4, 5, 8))
     ms_k = cuda_time_ms(lambda: fused_al_backward_cuda(*args), reps=20)
     # (timed again: the first call of a plain version sets torch.func up)
     _, plain_ms = timed(lambda: fused_al_backward(*args))
@@ -3337,7 +3371,7 @@ def phase_kuka_kernels(report):
 
     for slack in (False, True):
         st = kuka_setup(slack)
-        # the launch shapes of K4 and K2 on a chain: the arm's
+        # the launch shapes of K3, K4 and K2 on a chain: the arm's
         al_case(report, dict(st, shapes=not slack))
         label, p32, p64, Nk = st["label"], st["p32"], st["p64"], st["Nk"]
         n, m = p32.n, p32.m
@@ -3787,7 +3821,7 @@ def phase_rig_kernels(report):
     for rig in RIGS:
         k7b_case(report, k7a_case(report, model_setup(rig), jac_rtol=JAC_TOL,
                                   hold_d=False), ls_opts=LS_OPTS_CHAIN,
-                 j_own=True)
+                 j_own=True, shapes=rig == "cartpole_urdf")
     # the arm's float32 rounding is amplified as in K3/K4 (ROADMAP Q3-20):
     # the bars K3 and K4 are held to on the kuka stack
     st = k7a_case(report, kuka_free_setup(), kd_tol=AL_KD_TOL,

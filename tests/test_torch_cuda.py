@@ -7,9 +7,10 @@ On a machine with an NVIDIA GPU and nvcc:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Small shapes (B=16, N=21 for K1, K2, K5, K7a and K7b; B=16 on the N=101 maze
-stack and on each other model's own stack for K3 and K4) in float32, at the f32 tolerances of tests/test_pallas.py
-and of chip_smoke.py, which repeats the comparisons at the main paths'
-shapes.
+stack and on each other model's own stack for K3 and K4) in float32, at the
+f32 tolerances of tests/test_pallas.py and of chip_smoke.py, which repeats
+the comparisons at the main paths' shapes; and batches cut or tiled to other
+sizes, where the kernels take other launch shapes, bitwise equal.
 """
 import numpy as np
 import pytest
@@ -255,6 +256,80 @@ def test_fused_al_backward_kernel_fail_branch(maze):
     assert not bool(k[0][7, 40].any()) and not bool(k[1][7, 40].any())
     live = ~k[4]
     assert (k[0] - p[0])[live].abs().max() < 1e-2 * p[0][live].abs().max()
+
+
+def _maze_sweep(maze, mu=None):
+    """K3's arguments on the maze fixture (ρ = 1), ``mu`` in place of its
+    penalties where given."""
+    p = maze["prob"]
+    return [p.model, maze["canon"], maze["X"], maze["U"], maze["lam"],
+            maze["mu"] if mu is None else mu, p.dt_traj(), p.obj,
+            torch.ones(B, device=maze["X"].device)]
+
+
+@pytest.mark.parametrize("count", [1, 33, 129])
+def test_fused_al_backward_kernel_ragged_batches(maze, count):
+    """K3 on the maze problems cut or tiled to 1, 33 and 129: K, d, ΔV and
+    the fail flags of every problem bitwise equal to the 16-problem
+    launch's, whose block has producer warps."""
+    args = _maze_sweep(maze)
+    ref = fused_al_backward_cuda(*args)
+    assert fused_al_backward_cuda.warps[1] > 0
+    idx, cut = _tiled(args, (2, 3, 4, 5, 8), count)
+    out = fused_al_backward_cuda(*cut)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.equal(_bits(o), _bits(r[idx]))
+
+
+def test_fused_al_backward_kernel_fails_with_the_pipeline_full(maze):
+    """The fail branch's inputs (problem 7 indefinite at knot 40, in the
+    middle of the sweep, the producers' ring full ahead of it) at 16
+    problems and tiled to 129: exactly the copies of problem 7 fail, their
+    gains at the failed stage are zero and the sweep goes on past it (the
+    gains before it are the plain version's), bitwise equal between the
+    two launches."""
+    mu = maze["mu"].clone()
+    r0, r1 = maze["prob"].constraints.row_slice("infeasible")
+    mu[7, 40, r0:r1] = -1e3
+    args = _maze_sweep(maze, mu)
+    k = fused_al_backward_cuda(*args)
+    Wc, Wp = fused_al_backward_cuda.warps
+    slots = fused_al_backward_cuda.shape["slots"]
+    assert Wp > 0 and slots >= Wp
+    idx, cut = _tiled(args, (2, 3, 4, 5, 8), 129)
+    big = fused_al_backward_cuda(*cut)
+    torch.cuda.synchronize()
+    p = fused_al_backward(*args)
+    assert k[4].nonzero().flatten().tolist() == [7]
+    assert torch.equal(k[4], p[4])
+    assert big[4].nonzero().flatten().tolist() == (
+        idx == 7).nonzero().flatten().tolist()
+    assert not bool(k[0][7, 40].any()) and not bool(k[1][7, 40].any())
+    assert bool(k[0][7, :40].any())
+    assert (k[0][7, :40] - p[0][7, :40]).abs().max() < 1e-2 * p[0][7].abs(
+        ).max()
+    for o, r in zip(big, k):
+        assert torch.equal(_bits(o), _bits(r[idx]))
+
+
+def test_fused_al_backward_kernel_jacobians_from_the_producers(maze):
+    """``return_jacobians``: A and B are written by the producer warps at 16
+    problems and by the lone warp of each problem at 1,100 (tiled; more
+    blocks than the card holds at any larger shape): bitwise equal, and
+    within 1e-5 of ``jacobian_traj``."""
+    args = _maze_sweep(maze)
+    k = fused_al_backward_cuda(*args, return_jacobians=True)
+    assert fused_al_backward_cuda.warps[1] > 0
+    idx, cut = _tiled(args, (2, 3, 4, 5, 8), 1100)
+    big = fused_al_backward_cuda(*cut, return_jacobians=True)
+    assert fused_al_backward_cuda.warps == (1, 0)
+    torch.cuda.synchronize()
+    p = fused_al_backward(*args, return_jacobians=True)
+    for o, r in zip(big, k):
+        assert torch.equal(_bits(o), _bits(r[idx]))
+    torch.testing.assert_close(k[5], p[5], rtol=0, atol=1e-5)
+    torch.testing.assert_close(k[6], p[6], rtol=0, atol=1e-5)
 
 
 def test_fused_al_forward_kernel_matches_plain_version(maze):
@@ -816,6 +891,70 @@ def test_fused_forward_kernel_matches_plain_version(cuda_device, name):
     torch.testing.assert_close(Jk[calm], Jp[calm], rtol=1e-4, atol=0)
     assert (Xk - Xp)[calm].abs().max() < 1e-5 * max(
         1.0, float(Xp[calm].abs().max()))
+
+
+def _k7b_search(name, device):
+    """K7b's arguments on ``name``'s set-up, as in
+    test_fused_forward_kernel_matches_plain_version: problem 5's
+    feedforward blown up, problem 11 with a cost no candidate beats."""
+    ms = _model_setup(name, device)
+    one = torch.ones(B, device=device)
+    K, d, v1, v2, fail = fused_backward_cuda(
+        ms["model"], ms["X"], ms["U"], ms["dtt"], ms["obj"], one)
+    assert not bool(fail.any())
+    d = d.clone()
+    d[5] *= 1e5
+    J_prev = total_cost(ms["obj"], ms["X"], ms["U"], ms["dtt"]).contiguous()
+    J_prev[11] = -1e30
+    return [ms["model"], ms["X"][:, 0].contiguous(), ms["X"], ms["U"], K, d,
+            v1, v2, J_prev, one, one.clone(), one.clone(), ms["dtt"],
+            ms["obj"], LS_OPTS]
+
+
+@pytest.mark.parametrize("count", [1, 33, 129])
+def test_fused_forward_kernel_ragged_batches(cuda_device, count):
+    """K7b on the quadrotor's searches cut or tiled to 1, 33 and 129: every
+    output of every problem bitwise equal to the 16-problem launch's."""
+    args = _k7b_search("quadrotor", cuda_device)
+    ref = fused_forward_cuda(*args)
+    idx, cut = _tiled(args, range(1, 12), count)
+    out = fused_forward_cuda(*cut)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert torch.equal(_bits(o), _bits(r[idx]))
+
+
+def test_fused_forward_kernel_active_mask(cuda_device):
+    """Problems outside ``active`` get X, U and J_prev back with α = 0 and ρ,
+    dρ unchanged; the others the result of the launch without a mask."""
+    args = _k7b_search("quadrotor", cuda_device)
+    ref = fused_forward_cuda(*args)
+    active = torch.arange(B, device=cuda_device) % 3 != 1
+    Xk, Uk, Jk, rk, drk, ak = fused_forward_cuda(*args, active=active)
+    torch.cuda.synchronize()
+    off = ~active
+    assert torch.equal(Xk[off], args[2][off])
+    assert torch.equal(Uk[off], args[3][off])
+    assert torch.equal(Jk[off], args[8][off]) and not bool(ak[off].any())
+    assert torch.equal(rk[off], args[9][off])
+    assert torch.equal(drk[off], args[10][off])
+    for o, r in zip((Xk, Uk, Jk, rk, drk, ak), ref):
+        assert torch.equal(_bits(o[active]), _bits(r[active]))
+
+
+def test_fused_forward_kernel_accepts_in_a_later_round(cuda_device):
+    """Problem 5 (the blown-up feedforward) accepts a candidate j past the
+    launch's first round of W: its step, ρ and J are the plain version's, as
+    a serial search gives them."""
+    args = _k7b_search("quadrotor", cuda_device)
+    Xk, Uk, Jk, rk, drk, ak = fused_forward_cuda(*args)
+    torch.cuda.synchronize()
+    W = fused_forward_cuda.warps
+    Xp, Up, Jp, rp, drp, ap = fused_forward(*args)
+    j = int(torch.log2(1.0 / ak[5]).round())
+    assert float(ak[5]) > 0.0 and W > 1 and j >= W
+    assert float(ak[5]) == float(ap[5]) and float(rk[5]) == float(rp[5])
+    torch.testing.assert_close(Jk[5], Jp[5], rtol=1e-4, atol=0)
 
 
 @pytest.mark.parametrize("name", ["quadrotor", "cartpole", "car", "pendulum",

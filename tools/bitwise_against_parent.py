@@ -1,0 +1,366 @@
+#!/usr/bin/env python3
+"""Hold kernels K3, K4, K5, K7a and K7b bitwise against another tree's, on
+one GPU.
+
+    python3 tools/bitwise_against_parent.py PARENT
+
+PARENT is the root of another checkout of this repository (for example the
+parent commit, unpacked by ``git archive`` into a directory that
+``.gitignore`` lists). Its ``fused_al_backward.cu`` (K3),
+``fused_al_forward.cu`` (K4), ``riccati_sweep.cu`` (K5),
+``fused_backward.cu`` (K7a) and ``fused_forward.cu`` (K7b) are built by
+nvcc with the flags of ``kernels/_build.py`` under
+``build/parent_kernels/``, side by side, and called through the C
+interfaces they had before the pipelined K3 and the shared round header
+(K3 without the shape argument, K7b without the workspace: its serial
+search). On the inputs of ``chip_smoke.py``'s checks at B = 128, each
+output of this tree's kernel is compared with the other's bit for bit: K3
+for every (model, slack) instantiation at ρ = 1 and 0 (the maze's and
+kuka's stacks among them), the in-kernel Jacobians too; K4 on the maze's
+search with its branch lanes; K5 (control and state regularization) and
+K7a on the five scalar models and the three rigs, K7b on their searches.
+Each case is also timed, both trees in turns (other, this, this, other;
+CUDA events over 10 launches each), and the ones of ``chip_smoke.py``'s
+main paths at B = 1024 too (K3's cartpole, slice 3 arm (c); K7b's
+quadrotor, arm (a)). Prints one line per case and the card's
+``nvidia-smi`` line; exits non-zero if any output differs.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
+# the other tree's C entry points and their arguments
+PARENT = {
+    "fused_al_backward": ("trajopt_fused_al_backward_f32",
+                          (_P,) * 25 + (_I,) * 8 + (_F, _P)),
+    "fused_al_forward": ("trajopt_fused_al_forward_f32",
+                         (_P,) * 27 + (_L,) + (_P,) * 3 + (_I,) * 7
+                         + (_F,) * 6 + (_P,)),
+    "fused_forward": ("trajopt_fused_forward_f32",
+                      (_P,) * 23 + (_I,) * 4 + (_F,) * 5 + (_P,)),
+    "riccati_sweep": ("trajopt_riccati_sweep_f32",
+                      (_P,) * 12 + (_I,) * 5 + (_P,)),
+    "fused_backward": ("trajopt_fused_backward_f32",
+                       (_P,) * 16 + (_I,) * 4 + (_P,)),
+}
+
+
+def build(parent: Path):
+    from trajopt_tpu_torch.kernels import _build
+
+    csrc = parent / "trajopt_tpu_torch" / "csrc"
+    out = _build.BUILD_DIR / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for stem in PARENT:
+        lib = out / f"lib{stem}.so"
+        jobs[stem] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{csrc}", "-o", str(lib),
+             str(csrc / f"{stem}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for stem, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(log)
+        name, argtypes = PARENT[stem]
+        fn = getattr(ctypes.CDLL(str(lib)), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        fns[stem] = fn
+    return fns
+
+
+def ms_per_launch(fn, reps=10):
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def same(label, run_mine, run_theirs, theirs):
+    """Run both trees' kernels once (``run_theirs`` fills ``theirs`` and
+    returns the CUDA error), count the entries of each output that differ
+    bitwise, time both in turns, print, and return whether none differs."""
+    import torch
+
+    if run_theirs():
+        raise RuntimeError(f"{label}: the other tree's launch failed")
+    mine = run_mine()
+    torch.cuda.synchronize()
+    diffs = []
+    for a, b in zip(mine, theirs):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        diffs.append(int((a != b).sum()))
+    t0, m0, m1, t1 = (ms_per_launch(f) for f in (run_theirs, run_mine,
+                                                 run_mine, run_theirs))
+    print(f"{label}: entries that differ, by output: {diffs}; ms a launch: "
+          f"this tree {(m0 + m1) / 2:.4f}, the other {(t0 + t1) / 2:.4f}",
+          flush=True)
+    return not any(diffs)
+
+
+def k3_case(fn, label, model, canon, X, U, lam, mu, dt, obj, rho):
+    import torch
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.ops.cuda_al_fused import fused_al_backward_cuda
+    from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
+
+    cm = cuda_model(model, "bitwise_against_parent", slack_ok=True)
+    Bz, N, n = X.shape
+    dev = X.device
+    new = lambda *s: torch.empty(s, device=dev)  # noqa: E731
+    K, d, dV = new(Bz, N - 1, cm.m, n), new(Bz, N - 1, cm.m), new(2, Bz)
+    fail = torch.empty(Bz, dtype=torch.bool, device=dev)
+    A, Bo = new(Bz, N - 1, n, n), new(Bz, N - 1, n, cm.m_base)
+    def theirs():
+        return fn(X.data_ptr(), U.data_ptr(), lam.data_ptr(), mu.data_ptr(),
+                  dt.data_ptr(), obj.Q.data_ptr(), obj.R.data_ptr(),
+                  obj.H.data_ptr(), obj.q.data_ptr(), obj.r.data_ptr(),
+                  rho.data_ptr(), canon.row_i.data_ptr(),
+                  canon.row_f.data_ptr(), canon.groups.data_ptr(),
+                  canon.col_ptr.data_ptr(), canon.col_rows.data_ptr(),
+                  canon.fk_joint.data_ptr(), canon.fk_point.data_ptr(),
+                  chain_table_ptr(model, cm, dev), K.data_ptr(), d.data_ptr(),
+                  dV.data_ptr(), fail.data_ptr(), A.data_ptr(),
+                  Bo.data_ptr(), Bz, N, canon.P, canon.groups.shape[0],
+                  canon.fk_joint.shape[0], canon.fk_point.shape[0], cm.id, 0,
+                  0.0, _build.stream(dev))
+
+    def mine():
+        out = fused_al_backward_cuda(model, canon, X, U, lam, mu, dt, obj,
+                                     rho, return_jacobians=True)
+        return out[:6] + (out[6][..., :cm.m_base],)
+
+    mine()          # (its block, for the label)
+    return same(f"K3 {label} B={Bz} rho={float(rho[0]):g} "
+                f"(Wc, Wp) = {fused_al_backward_cuda.warps}", mine, theirs,
+                (K, d, dV[0], dV[1], fail, A, Bo))
+
+
+def k4_case(fn, args):
+    """K4 on chip_smoke's maze search (``args`` as phase_k4 builds them)."""
+    import torch
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.ops.cuda_al_fused import fused_al_forward_cuda
+    from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
+
+    (model, canon, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho, alpha0, lam,
+     mu, dt, obj, opts) = args
+    cm = cuda_model(model, "bitwise_against_parent", slack_ok=True)
+    Bz, N, _ = X.shape
+    dev = X.device
+    W = _build.load().trajopt_fused_al_forward_warps(cm.id, Bz)
+    ws = torch.empty(Bz * W * (N * cm.n + (N - 1) * cm.m), device=dev)
+    Xo, Uo = torch.empty_like(X), torch.empty_like(U)
+    scal = torch.empty(4, Bz, device=dev)
+    lb, ub, iters, reg_min, reg_factor, reg_fp = opts
+    def theirs():
+        return fn(x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
+                  d.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
+                  J_prev.data_ptr(), rho.data_ptr(), drho.data_ptr(),
+                  alpha0.data_ptr(), lam.data_ptr(), mu.data_ptr(),
+                  dt.data_ptr(), obj.Q.data_ptr(), obj.R.data_ptr(),
+                  obj.H.data_ptr(), obj.q.data_ptr(), obj.r.data_ptr(),
+                  obj.c.data_ptr(), canon.row_i.data_ptr(),
+                  canon.row_f.data_ptr(), canon.fk_joint.data_ptr(),
+                  canon.fk_point.data_ptr(), None,
+                  chain_table_ptr(model, cm, dev), ws.data_ptr(), ws.numel(),
+                  Xo.data_ptr(), Uo.data_ptr(), scal.data_ptr(), Bz, N,
+                  canon.P, canon.fk_joint.shape[0], canon.fk_point.shape[0],
+                  cm.id, int(iters), lb, ub, reg_min, reg_factor, reg_fp,
+                  0.0, _build.stream(dev))
+
+    return same(f"K4 {cm.label} B={Bz} W={W}",
+                lambda: fused_al_forward_cuda(*args), theirs,
+                (Xo, Uo, *scal))
+
+
+def k5_case(fn, label, ins, reg_state):
+    import torch
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
+
+    A, Bm = ins[0], ins[1]
+    Bz, N1, n, m = Bm.shape
+    dev = A.device
+    rho = torch.ones(Bz, device=dev)
+    K, d = torch.empty(Bz, N1, m, n, device=dev), torch.empty(Bz, N1, m,
+                                                             device=dev)
+    dV = torch.empty(2, Bz, device=dev)
+    fail = torch.empty(Bz, dtype=torch.bool, device=dev)
+    def theirs():
+        return fn(*(t.data_ptr() for t in (*ins, rho, K, d, dV, fail)), Bz,
+                  N1 + 1, n, m, int(reg_state), _build.stream(dev))
+
+    return same(f"K5 {label} ({n},{m}) reg_state={reg_state}",
+                lambda: riccati_sweep_cuda(*ins, rho, reg_state=reg_state),
+                theirs, (K, d, dV[0], dV[1], fail))
+
+
+def k7a_case(fn, label, st):
+    import torch
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.ops.cuda_fused import fused_backward_cuda
+    from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
+
+    model, X, U, dt, obj = (st[k] for k in ("model", "X", "U", "dt_traj",
+                                             "obj"))
+    cm = cuda_model(model, "bitwise_against_parent")
+    Bz, N, n = X.shape
+    dev = X.device
+    rho = torch.ones(Bz, device=dev)
+    new = lambda *s: torch.empty(s, device=dev)  # noqa: E731
+    K, d, dV = new(Bz, N - 1, cm.m, n), new(Bz, N - 1, cm.m), new(2, Bz)
+    fail = torch.empty(Bz, dtype=torch.bool, device=dev)
+    A, Bo = new(Bz, N - 1, n, n), new(Bz, N - 1, n, cm.m)
+    def theirs():
+        return fn(X.data_ptr(), U.data_ptr(), dt.data_ptr(),
+                  obj.Q.data_ptr(), obj.R.data_ptr(), obj.H.data_ptr(),
+                  obj.q.data_ptr(), obj.r.data_ptr(), rho.data_ptr(),
+                  chain_table_ptr(model, cm, dev), K.data_ptr(), d.data_ptr(),
+                  dV.data_ptr(), fail.data_ptr(), A.data_ptr(),
+                  Bo.data_ptr(), Bz, N, cm.id, 0, _build.stream(dev))
+
+    return same(f"K7a {label}", lambda: fused_backward_cuda(
+        model, X, U, dt, obj, rho, return_jacobians=True), theirs,
+        (K, d, dV[0], dV[1], fail, A, Bo))
+
+
+def k7b_case(fn, label, args):
+    import torch
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.ops.cuda_fused import fused_forward_cuda
+    from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
+
+    (model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho, alpha0, dt, obj,
+     opts) = args
+    cm = cuda_model(model, "bitwise_against_parent")
+    Bz, N, _ = X.shape
+    dev = X.device
+    Xo, Uo = torch.empty_like(X), torch.empty_like(U)
+    scal = torch.empty(4, Bz, device=dev)
+    lb, ub, iters, reg_min, reg_factor, reg_fp = opts
+    def theirs():
+        return fn(x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
+                  d.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
+                  J_prev.data_ptr(), rho.data_ptr(), drho.data_ptr(),
+                  alpha0.data_ptr(), dt.data_ptr(), obj.Q.data_ptr(),
+                  obj.R.data_ptr(), obj.H.data_ptr(), obj.q.data_ptr(),
+                  obj.r.data_ptr(), obj.c.data_ptr(), None,
+                  chain_table_ptr(model, cm, dev), Xo.data_ptr(),
+                  Uo.data_ptr(), scal.data_ptr(), Bz, N, cm.id, int(iters),
+                  lb, ub, reg_min, reg_factor, reg_fp, _build.stream(dev))
+
+    fused_forward_cuda(*args)
+    return same(f"K7b {label} B={Bz} W={fused_forward_cuda.warps}",
+                lambda: fused_forward_cuda(*args), theirs, (Xo, Uo, *scal))
+
+
+def main():
+    import torch
+    import chip_smoke as cs
+    from trajopt_tpu_torch.ops.canonical import canon_al_cost, pad_terminal
+    from trajopt_tpu_torch.ops.cost import total_cost
+    from trajopt_tpu_torch.ops.cuda_al_fused import fused_al_backward_cuda
+    from trajopt_tpu_torch.ops.cuda_fused import fused_backward_cuda
+
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("bitwise_against_parent: no CUDA device", file=sys.stderr)
+        return 1
+    print(cs.nvidia_smi_line(), flush=True)
+    fns = build(Path(sys.argv[1]))
+    dev = torch.device("cuda", 0)
+    B = cs.B
+    one, zero = torch.ones(B, device=dev), torch.zeros(B, device=dev)
+    ok = True
+
+    # K3: the maze, every other (model, slack) pair, kuka with the fk rows
+    ms = cs.maze_setup(torch.float32, B)
+    maze = (ms["prob"].model, ms["canon"], ms["X"], ms["U"], ms["lam"],
+            ms["mu"], ms["dt"], ms["prob"].obj)
+    for rho in (one, zero):
+        ok &= k3_case(fns["fused_al_backward"], "quadrotor_slack", *maze,
+                      rho)
+    setups = [cs.al_setup(name, slack) for name in (
+        "car", "cartpole", "pendulum", "doubleintegrator", "quadrotor",
+        *cs.RIGS) for slack in (False, True) if (name, slack) != (
+        "quadrotor", True)]
+    setups += [cs.kuka_setup(slack) for slack in (False, True)]
+    for st in setups:
+        p = st["p32"]
+        for rho in (one, zero):
+            ok &= k3_case(fns["fused_al_backward"], st["label"], p.model,
+                          st["canon"], *st["data"], p.dt_traj(), p.obj, rho)
+
+    # K4: the maze's search as phase_k4 builds it
+    prob = ms["prob"]
+    canon, X, U, lam, mu, dt = maze[1:7]
+    K, d, dV1, dV2, _ = fused_al_backward_cuda(prob.model, canon, X, U, lam,
+                                               mu, dt, prob.obj, one)
+    J_prev = (total_cost(prob.obj, X, U, dt) + canon_al_cost(
+        canon, X, pad_terminal(U), lam, mu)).contiguous()
+    d = d.clone()
+    for lane in cs.K4_DIVERGE:
+        d[lane] *= 1e6
+    J_prev[cs.K4_EXHAUST] = -1e30
+    alpha0 = (0.5 ** (6 + torch.arange(B, device=dev) % 4)).float()
+    ok &= k4_case(fns["fused_al_forward"], (
+        prob.model, canon, X[:, 0].contiguous(), X, U, K, d, dV1, dV2,
+        J_prev, one, one.clone(), alpha0, lam, mu, dt, prob.obj,
+        cs.LS_OPTS))
+
+    # K5 and K7a on chip_smoke's K7a set-ups, K7b on their searches
+    for name in (*cs.MODELS, *cs.RIGS):
+        st = cs.model_setup(name)
+        ins = cs.sweep_inputs(st, torch.float32)
+        for reg_state in (False, True):
+            ok &= k5_case(fns["riccati_sweep"], name, ins, reg_state)
+        ok &= k7a_case(fns["fused_backward"], name, st)
+        K, d, dV1, dV2, _ = fused_backward_cuda(
+            st["model"], st["X"], st["U"], st["dt_traj"], st["obj"], one)
+        st.update(K=K, d=d, dV1=dV1, dV2=dV2)
+        x0, d, J_prev, alpha0 = cs.search_inputs(st)
+        opts = cs.LS_OPTS_CHAIN if name in cs.RIGS else cs.LS_OPTS
+        ok &= k7b_case(fns["fused_forward"], name, (
+            st["model"], x0, st["X"], st["U"], K, d, dV1, dV2, J_prev, one,
+            one.clone(), alpha0, st["dt_traj"], st["obj"], opts))
+        if name == "quadrotor":      # slice 3 arm (a): B = 1024
+            tile = torch.arange(B, device=dev).repeat(8)
+            big = [t[tile].contiguous() for t in (
+                x0, st["X"], st["U"], K, d, dV1, dV2, J_prev, one, one,
+                alpha0)]
+            ok &= k7b_case(fns["fused_forward"], name, (
+                st["model"], *big, st["dt_traj"], st["obj"], opts))
+    # K3's cartpole at B = 1024 (slice 3 arm (c))
+    st = next(st for st in setups if st["label"] == "cartpole")
+    p = st["p32"]
+    tile = torch.arange(B, device=dev).repeat(8)
+    X, U, lam, mu = (t[tile].contiguous() for t in st["data"])
+    ok &= k3_case(fns["fused_al_backward"], "cartpole", p.model, st["canon"],
+                  X, U, lam, mu, p.dt_traj(), p.obj,
+                  torch.ones(8 * B, device=dev))
+    print("every output bitwise equal" if ok else "outputs differ",
+          flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

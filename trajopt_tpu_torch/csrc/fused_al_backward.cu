@@ -17,7 +17,7 @@
 // The TPU kernel linearizes its step with jax.linearize; here the Jacobians
 // come from forward-mode dual numbers through the model's templated RK3 step
 // (models.cuh), one tangent direction per lane: n state and m_base control
-// directions fill n + m_base lanes of the warp (17 for the quadrotor, 3 for
+// directions fill n + m_base lanes of a warp (17 for the quadrotor, 3 for
 // the pendulum), and the n slack columns are the identity and are never
 // differentiated (_step_jac_cols of the TPU kernel takes the same shortcut).
 //
@@ -25,18 +25,37 @@
 // for the slack-augmented quadrotor at B=128, N=101, P=89 moves about 23 MB
 // (λ, μ and the gains K dominate) and does about 0.8 GFLOP, microseconds of
 // either at the card's rates; but each problem is a chain of N − 1 dependent
-// knots, each a chain of small dependent products and an m-pivot elimination.
+// knots, each a chain of small dependent products and an m-pivot
+// elimination.
 //
-// Design: one warp per problem (one block of 32 threads) whatever the
-// model, the knot loop inside the kernel, every matrix of the step in shared
-// memory (about 15 KB for the slack-augmented quadrotor), the lanes
-// splitting the entries of each product. 128 problems put one warp on each
-// of 128 SMs, so nothing hides the chain's latency yet; packing several
-// problems into one block, or several warps on one problem's products, is
-// later work. The model and the slack flag are template parameters, so n,
-// m_base and m are compile-time constants, one instantiation per (model,
-// slack) pair; P, the stack's tables, N and the batch are arguments.
+// Design: a knot pipeline. Only the Riccati step depends on the carry
+// (Sx, Sxx); a knot's Jacobians, stage and AL expansion read only X, U, λ,
+// μ and the objective. So one block takes one problem with Wc consumer
+// warps and Wp producer warps. Producer p expands the knots k = N−2−p,
+// N−2−p−Wp, … ahead of the sweep into a ring of S slots in shared memory
+// (KnotInputs: A, B, lx … lux, 4.4 KB a slot for the maze), each slot with
+// a full and an empty mbarrier; producers never wait on the carry. The Wc
+// consumer warps run the Riccati step on each slot in knot order together
+// (riccati_step.cuh: the entries of each phase over 32·Wc threads, the
+// consumers' own named barrier), and own the carry, the fail flag and the
+// ΔV sums. Every entry keeps its summation order, so K, d, ΔV and the fail
+// flag do not depend on (Wc, Wp, S). With Wp = 0 a block is one warp that
+// expands and consumes each knot in turn, through the same code: that is
+// the shape when the batch fills the card anyway.
+//
+// The shape comes from the batch and the occupancy: the first entry of the
+// preference list (kShapes below, from tools/k3_launch_shape.py) whose B
+// blocks fit on the card in one wave
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor × the SM count), else one
+// warp. A thread takes up to 255 registers (a chain's Dual step; 128 for
+// the scalar models), so a block has at most 8 warps: at B = 128 every
+// instantiation takes (4, 4); at B = 1024 a scalar model's (1, 1), a
+// chain's one warp a problem. The model and the slack flag are
+// template parameters, so n, m_base and m are compile-time constants, one
+// instantiation per (model, slack) pair; P, the stack's tables, N and the
+// batch are arguments.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "canon.cuh"
 #include "models.cuh"
@@ -46,160 +65,406 @@ namespace {
 
 using namespace trajopt;
 
+constexpr int kMaxWarps = 8;
+
+// (Wc, Wp) in order of preference, the largest block first. Measured by
+// tools/k3_launch_shape.py (H100, ms a launch at B = 128; the lone warp,
+// then the best shape with Wc = 1, 2 and 4):
+//   maze quadrotor_slack  2.89 | (1,3) 1.86 | (2,1) 1.29 | (4,4) 1.07
+//   car_slack             0.87 | (1,2) 0.36 | (2,2) 0.34 | (4,4) 0.34
+//   cartpole rig          3.14 | (1,4) 0.87 | (2,4) 0.90 | (4,4) 0.86
+//   kuka (checks only)    8.92 | (1,7) 4.76 | (2,6) 4.90 | (4,4) 5.04
+// so (4, 4) first; at B = 1024 (1, 1) beats the lone warp by 1.2-1.3x on
+// the maze, car_slack and the cartpole.
+struct Shape {
+  int Wc, Wp;
+};
+constexpr int kNumShapes = 3;
+constexpr Shape kShapes[kNumShapes] = {{4, 4}, {2, 2}, {1, 1}};
+
+struct Args {
+  const float *X, *U, *lam, *mu, *dt, *Q, *R, *H, *q, *r, *rho;
+  const ChainTable* chain;   // a chain model's table, else null
+  float *K, *d, *dV;
+  unsigned char* fail;
+  float *Aout, *Bout;        // the Jacobians, where asked for
+  int batch, N, reg_state;
+  float atol;
+};
+
+// ------------------------------------------------------------ mbarriers
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival (release: this thread's shared-memory writes come first)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// waits until the phase of parity `parity` has completed (acquire)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// ------------------------------------------------------- shared memory
+
+// a warp's scratch for one knot's expansion; g and Iμ of the P rows follow
 template <int NX, int NU>
-struct Shared {
-  RiccatiWork<NX, NU> w;
+struct Expansion {
   FkWork fk;
   float z[NX + NU];
   float alx[NX], alu[NU], alxx[NX * NX], aluu_d[NU];
 };
 
-// M: the base model's trait; Slack: NX slack controls after its MB controls
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+
+// The block's dynamic shared memory at (Wc, Wp) and P rows: 2S mbarriers,
+// S = 2Wp slots (one without producers), the consumers' Riccati state,
+// and Wp + 1 expansion scratches (the consumers' one for the terminal
+// knot, or the lone warp's).
+template <int NX, int NU>
+struct Layout {
+  int S, Wp, P;
+  __host__ __device__ Layout(int Wp_, int P_)
+      : S(Wp_ > 0 ? 2 * Wp_ : 1), Wp(Wp_), P(P_) {}
+  __host__ __device__ size_t slot_bytes() const {
+    return align16(sizeof(KnotInputs<NX, NU>));
+  }
+  __host__ __device__ size_t scratch_bytes() const {
+    return align16(sizeof(Expansion<NX, NU>) + 2 * sizeof(float) * P);
+  }
+  __host__ __device__ size_t slots() const { return align16(16 * S); }
+  __host__ __device__ size_t state() const {
+    return slots() + S * slot_bytes();
+  }
+  __host__ __device__ size_t scratch() const {
+    return state() + align16(sizeof(RiccatiState<NX, NU>));
+  }
+  __host__ __device__ size_t bytes() const {
+    return scratch() + (Wp + 1) * scratch_bytes();
+  }
+};
+
+// ------------------------------------------------------------ the knots
+
+// One knot's inputs by one warp into `in`: the Dual Jacobians, the stage
+// expansion and the AL expansion of the stack (lux gets no AL term); the
+// Jacobians also to Aout / Bout where asked for.
 template <class M, bool Slack>
-__global__ void __launch_bounds__(32) fused_al_backward_kernel(
-    const float* __restrict__ X, const float* __restrict__ U,
-    const float* __restrict__ lam, const float* __restrict__ mu,
-    const float* __restrict__ dt, const float* __restrict__ Q,
-    const float* __restrict__ R, const float* __restrict__ H,
-    const float* __restrict__ q, const float* __restrict__ r,
-    const float* __restrict__ rho_in, CanonTables tab,
-    const ChainTable* __restrict__ chain, float* __restrict__ K,
-    float* __restrict__ d, float* __restrict__ dV,
-    unsigned char* __restrict__ fail_out, float* __restrict__ Aout,
-    float* __restrict__ Bout, int batch, int N, int reg_state, float atol) {
+__device__ __forceinline__ void expand_knot(
+    const Args& a, const CanonTables& tab, int b, int k,
+    KnotInputs<M::NX, Slack ? M::NU + M::NX : M::NU>& in,
+    Expansion<M::NX, Slack ? M::NU + M::NX : M::NU>& s, float* g_s,
+    float* imu_s, int lane) {
   constexpr int NX = M::NX, MB = M::NU, NU = Slack ? MB + NX : MB;
-  __shared__ Shared<NX, NU> s;
-  extern __shared__ float dyn[];       // g and Iμ of the P rows
-  float* g_s = dyn;
-  float* imu_s = dyn + tab.P;
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int P = tab.P;
-  const float rho = rho_in[b];
-  RiccatiWork<NX, NU>& w = s.w;
-
-  // terminal knot: Sx = Q_N x_N + q_N + alx, Sxx = Q_N + alxx (u = 0)
-  const float* xN = X + ((size_t)b * N + (N - 1)) * NX;
-  for (int e = lane; e < NX + NU; e += 32) s.z[e] = e < NX ? xN[e] : 0.0f;
-  __syncwarp();
-  fk_knot_warp(tab, s.z, s.fk, lane);
-  canon_al_expansion_warp<NX, NU>(
-      tab, s.z, s.fk, lam + ((size_t)b * N + (N - 1)) * P,
-      mu + ((size_t)b * N + (N - 1)) * P, atol, g_s, imu_s, s.alx, s.alu,
-      s.alxx, s.aluu_d, lane);
-  const float* QN = Q + (size_t)(N - 1) * NX * NX;
-  if (lane < NX) {
-    float acc = QN[lane * NX] * s.z[0];
-    for (int j = 1; j < NX; ++j) acc = acc + QN[lane * NX + j] * s.z[j];
-    w.Sx[lane] = acc + q[(size_t)(N - 1) * NX + lane] + s.alx[lane];
-  }
-  for (int e = lane; e < NX * NX; e += 32) w.Sxx[e] = QN[e] + s.alxx[e];
-  if constexpr (Slack) {
-    // the slack columns of B are the identity, once and for all
-    for (int e = lane; e < NX * NX; e += 32)
-      w.B[(e / NX) * NU + MB + e % NX] = (e / NX == e % NX) ? 1.0f : 0.0f;
-  }
+  const int N = a.N, P = tab.P;
+  const size_t bk = (size_t)b * (N - 1) + k;
+  const float* xk = a.X + ((size_t)b * N + k) * NX;
+  const float* uk = a.U + bk * NU;
+  const float dtv = a.dt[k];
+  for (int e = lane; e < NX + NU; e += 32)
+    s.z[e] = e < NX ? xk[e] : uk[e - NX];
   __syncwarp();
 
-  float dV1 = 0.0f, dV2 = 0.0f;
-  bool fail = false;
-  for (int k = N - 2; k >= 0; --k) {
-    const size_t bk = (size_t)b * (N - 1) + k;
-    const float* xk = X + ((size_t)b * N + k) * NX;
-    const float* uk = U + bk * NU;
-    const float dtv = dt[k];
-    for (int e = lane; e < NX + NU; e += 32)
-      s.z[e] = e < NX ? xk[e] : uk[e - NX];
-    __syncwarp();
-
-    // Jacobians: lane j < n + m_base pushes tangent e_j of [x; u_base]
-    // through the RK3 step; row i of its result is A[i][j] or
-    // B_base[i][j − n]
-    if (lane < NX + MB) {
-      Dual xd[NX], ud[MB], out[NX];
+  // Jacobians: lane j < n + m_base pushes tangent e_j of [x; u_base]
+  // through the RK3 step; row i of its result is A[i][j] or
+  // B_base[i][j − n]
+  if (lane < NX + MB) {
+    Dual xd[NX], ud[MB], out[NX];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) xd[i] = Dual(s.z[i], lane == i ? 1.f : 0.f);
+    for (int i = 0; i < NX; ++i) xd[i] = Dual(s.z[i], lane == i ? 1.f : 0.f);
 #pragma unroll
-      for (int i = 0; i < MB; ++i)
-        ud[i] = Dual(s.z[NX + i], lane == NX + i ? 1.f : 0.f);
-      M::template step<Dual>(xd, ud, dtv, out, chain);
+    for (int i = 0; i < MB; ++i)
+      ud[i] = Dual(s.z[NX + i], lane == NX + i ? 1.f : 0.f);
+    M::template step<Dual>(xd, ud, dtv, out, a.chain);
 #pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        if (lane < NX) {
-          w.A[i * NX + lane] = out[i].d;
-          if (Aout) Aout[(bk * NX + i) * NX + lane] = out[i].d;
-        } else {
-          w.B[i * NU + lane - NX] = out[i].d;
-          if (Bout) Bout[(bk * NX + i) * MB + lane - NX] = out[i].d;
-        }
+    for (int i = 0; i < NX; ++i) {
+      if (lane < NX) {
+        in.A[i * NX + lane] = out[i].d;
+        if (a.Aout) a.Aout[(bk * NX + i) * NX + lane] = out[i].d;
+      } else {
+        in.B[i * NU + lane - NX] = out[i].d;
+        if (a.Bout) a.Bout[(bk * NX + i) * MB + lane - NX] = out[i].d;
       }
     }
-
-    // quadratic stage expansion: lx = dt(Qx + q + Hᵀu), lu = dt(Ru + r + Hx),
-    // lxx = dtQ, luu = dtR, lux = dtH
-    const float* Qk = Q + (size_t)k * NX * NX;
-    const float* Rk = R + (size_t)k * NU * NU;
-    const float* Hk = H + (size_t)k * NU * NX;
-    const float* x = s.z;
-    const float* u = s.z + NX;
-    if (lane < NX) {
-      float a = Qk[lane * NX] * x[0];
-      for (int j = 1; j < NX; ++j) a = a + Qk[lane * NX + j] * x[j];
-      float h = Hk[lane] * u[0];
-      for (int j = 1; j < NU; ++j) h = h + Hk[j * NX + lane] * u[j];
-      w.lx[lane] = (a + q[(size_t)k * NX + lane] + h) * dtv;
-    }
-    if (lane < NU) {
-      float a = Rk[lane * NU] * u[0];
-      for (int j = 1; j < NU; ++j) a = a + Rk[lane * NU + j] * u[j];
-      float h = Hk[lane * NX] * x[0];
-      for (int j = 1; j < NX; ++j) h = h + Hk[lane * NX + j] * x[j];
-      w.lu[lane] = (a + r[(size_t)k * NU + lane] + h) * dtv;
-    }
-    for (int e = lane; e < NX * NX; e += 32) w.lxx[e] = Qk[e] * dtv;
-    for (int e = lane; e < NU * NU; e += 32) w.luu[e] = Rk[e] * dtv;
-    for (int e = lane; e < NU * NX; e += 32) w.lux[e] = Hk[e] * dtv;
-    __syncwarp();
-
-    // AL expansion of the stack; lux gets no AL term
-    fk_knot_warp(tab, s.z, s.fk, lane);
-    canon_al_expansion_warp<NX, NU>(tab, s.z, s.fk,
-                                    lam + ((size_t)b * N + k) * P,
-                                    mu + ((size_t)b * N + k) * P, atol, g_s,
-                                    imu_s, s.alx, s.alu, s.alxx, s.aluu_d,
-                                    lane);
-    if (lane < NX) w.lx[lane] = w.lx[lane] + s.alx[lane];
-    if (lane < NU) {
-      w.lu[lane] = w.lu[lane] + s.alu[lane];
-      w.luu[lane * NU + lane] = w.luu[lane * NU + lane] + s.aluu_d[lane];
-    }
-    for (int e = lane; e < NX * NX; e += 32) w.lxx[e] = w.lxx[e] + s.alxx[e];
-    __syncwarp();
-
-    const bool fail_k = riccati_step_warp<NX, NU>(
-        w, rho, reg_state != 0, K + bk * NU * NX, d + bk * NU, dV1, dV2, lane);
-    fail = fail || fail_k;
   }
-  if (lane == 0) {
-    dV[b] = dV1;
-    dV[batch + b] = dV2;
-    fail_out[b] = fail ? 1 : 0;
+
+  // quadratic stage expansion: lx = dt(Qx + q + Hᵀu), lu = dt(Ru + r + Hx),
+  // lxx = dtQ, luu = dtR, lux = dtH
+  const float* Qk = a.Q + (size_t)k * NX * NX;
+  const float* Rk = a.R + (size_t)k * NU * NU;
+  const float* Hk = a.H + (size_t)k * NU * NX;
+  const float* x = s.z;
+  const float* u = s.z + NX;
+  if (lane < NX) {
+    float v = Qk[lane * NX] * x[0];
+    for (int j = 1; j < NX; ++j) v = v + Qk[lane * NX + j] * x[j];
+    float h = Hk[lane] * u[0];
+    for (int j = 1; j < NU; ++j) h = h + Hk[j * NX + lane] * u[j];
+    in.lx[lane] = (v + a.q[(size_t)k * NX + lane] + h) * dtv;
+  }
+  if (lane < NU) {
+    float v = Rk[lane * NU] * u[0];
+    for (int j = 1; j < NU; ++j) v = v + Rk[lane * NU + j] * u[j];
+    float h = Hk[lane * NX] * x[0];
+    for (int j = 1; j < NX; ++j) h = h + Hk[lane * NX + j] * x[j];
+    in.lu[lane] = (v + a.r[(size_t)k * NU + lane] + h) * dtv;
+  }
+  for (int e = lane; e < NX * NX; e += 32) in.lxx[e] = Qk[e] * dtv;
+  for (int e = lane; e < NU * NU; e += 32) in.luu[e] = Rk[e] * dtv;
+  for (int e = lane; e < NU * NX; e += 32) in.lux[e] = Hk[e] * dtv;
+  __syncwarp();
+
+  fk_knot_warp(tab, s.z, s.fk, lane);
+  canon_al_expansion_warp<NX, NU>(tab, s.z, s.fk,
+                                  a.lam + ((size_t)b * N + k) * P,
+                                  a.mu + ((size_t)b * N + k) * P, a.atol, g_s,
+                                  imu_s, s.alx, s.alu, s.alxx, s.aluu_d, lane);
+  if (lane < NX) in.lx[lane] = in.lx[lane] + s.alx[lane];
+  if (lane < NU) {
+    in.lu[lane] = in.lu[lane] + s.alu[lane];
+    in.luu[lane * NU + lane] = in.luu[lane * NU + lane] + s.aluu_d[lane];
+  }
+  for (int e = lane; e < NX * NX; e += 32) in.lxx[e] = in.lxx[e] + s.alxx[e];
+  __syncwarp();
+}
+
+// M: the base model's trait; Slack: NX slack controls after its MB controls.
+// A block of 32·Wc threads (Wp = 0) or 32·(Wc + Wp) threads.
+template <class M, bool Slack>
+__global__ void __launch_bounds__(32 * kMaxWarps) fused_al_backward_kernel(
+    Args a, CanonTables tab, int Wc, int Wp) {
+  constexpr int NX = M::NX, MB = M::NU, NU = Slack ? MB + NX : MB;
+  using In = KnotInputs<NX, NU>;
+  using Ex = Expansion<NX, NU>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout<NX, NU> L(Wp, tab.P);
+  const int S = L.S, N = a.N, P = tab.P, b = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + S;
+  auto slot = [&](int s) -> In& {
+    return *reinterpret_cast<In*>(smem + L.slots() + s * L.slot_bytes());
+  };
+  RiccatiState<NX, NU>& w =
+      *reinterpret_cast<RiccatiState<NX, NU>*>(smem + L.state());
+  auto scratch = [&](int i) -> Ex& {
+    return *reinterpret_cast<Ex*>(smem + L.scratch() + i * L.scratch_bytes());
+  };
+
+  // the barriers, and the slack columns of every slot's B: the identity,
+  // once and for all
+  const bool solo = Wp == 0;
+  if (threadIdx.x == 0 && !solo) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 32 * Wc);
+    }
+  }
+  if constexpr (Slack) {
+    for (int s = 0; s < S; ++s)
+      for (int e = threadIdx.x; e < NX * NX; e += blockDim.x)
+        slot(s).B[(e / NX) * NU + MB + e % NX] =
+            (e / NX == e % NX) ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+
+  const bool cons = warp < Wc, prod = solo || !cons;
+  const int nt = 32 * Wc;
+  const NamedSync sync{1, nt};
+  const float rho = a.rho[b];
+  if (cons) {
+    // terminal knot: Sx = Q_N x_N + q_N + alx, Sxx = Q_N + alxx (u = 0)
+    if (warp == 0) {
+      Ex& s = scratch(0);
+      float* g_s = reinterpret_cast<float*>(&s + 1);
+      const float* xN = a.X + ((size_t)b * N + (N - 1)) * NX;
+      for (int e = lane; e < NX + NU; e += 32) s.z[e] = e < NX ? xN[e] : 0.0f;
+      __syncwarp();
+      fk_knot_warp(tab, s.z, s.fk, lane);
+      canon_al_expansion_warp<NX, NU>(
+          tab, s.z, s.fk, a.lam + ((size_t)b * N + (N - 1)) * P,
+          a.mu + ((size_t)b * N + (N - 1)) * P, a.atol, g_s, g_s + P, s.alx,
+          s.alu, s.alxx, s.aluu_d, lane);
+      const float* QN = a.Q + (size_t)(N - 1) * NX * NX;
+      if (lane < NX) {
+        float v = QN[lane * NX] * s.z[0];
+        for (int j = 1; j < NX; ++j) v = v + QN[lane * NX + j] * s.z[j];
+        w.Sx[lane] = v + a.q[(size_t)(N - 1) * NX + lane] + s.alx[lane];
+      }
+      for (int e = lane; e < NX * NX; e += 32) w.Sxx[e] = QN[e] + s.alxx[e];
+    }
+    sync();
+  }
+
+  // sweep index i = N − 2 − k: the producers take i = p, p + Wp, …, the
+  // consumers every i in turn, slot i mod S in its generation i / S
+  const int first = solo || cons ? 0 : warp - Wc;
+  const int stride = solo || cons ? 1 : Wp;
+  Ex& mine = scratch(solo || cons ? 0 : 1 + warp - Wc);
+  float* g_s = reinterpret_cast<float*>(&mine + 1);
+  float dV1 = 0.0f, dV2 = 0.0f;
+  bool fail = false;
+  for (int i = first; i < N - 1; i += stride) {
+    const int k = N - 2 - i, s = i % S;
+    const unsigned gen = i / S;
+    In& in = slot(s);
+    if (prod) {
+      if (!solo && gen > 0) mbar_wait(empty + s, (gen - 1) & 1);
+      expand_knot<M, Slack>(a, tab, b, k, in, mine, g_s, g_s + P, lane);
+      if (!solo) mbar_arrive(full + s);
+    }
+    if (cons) {
+      if (!solo) mbar_wait(full + s, gen & 1);
+      const size_t bk = (size_t)b * (N - 1) + k;
+      const bool fail_k = riccati_step<NX, NU>(
+          in, w, rho, a.reg_state != 0, a.K + bk * NU * NX, a.d + bk * NU,
+          dV1, dV2, threadIdx.x, nt, sync);
+      fail = fail || fail_k;
+      if (!solo) mbar_arrive(empty + s);
+    }
+  }
+  if (threadIdx.x == 0) {
+    a.dV[b] = dV1;
+    a.dV[a.batch + b] = dV2;
+    a.fail[b] = fail ? 1 : 0;
   }
 }
 
+// ------------------------------------------------------------ the launch
+
+// The kernel's dynamic shared memory raised to `need` bytes where that is
+// above the default 48 KB (once per device and size)
 template <class M, bool Slack>
-int launch(const float* X, const float* U, const float* lam, const float* mu,
-           const float* dt, const float* Q, const float* R, const float* H,
-           const float* q, const float* r, const float* rho,
-           const CanonTables& tab, const ChainTable* chain, float* K,
-           float* d, float* dV, unsigned char* fail, float* Aout,
-           float* Bout, int batch, int N, int reg_state, float atol,
-           cudaStream_t stream) {
-  const size_t dyn = 2 * (size_t)tab.P * sizeof(float);
-  fused_al_backward_kernel<M, Slack><<<batch, 32, dyn, stream>>>(
-      X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, chain, K, d, dV, fail,
-      Aout, Bout, batch, N, reg_state, atol);
+cudaError_t allow_smem(int dev, size_t need) {
+  static size_t allowed[16];
+  if (need <= 48 * 1024 || dev >= 16 || need <= allowed[dev])
+    return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fused_al_backward_kernel<M, Slack>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+  if (e == cudaSuccess) allowed[dev] = need;
+  return e;
+}
+
+// Launches the sweep at (Wc, Wp); returns the CUDA error and the block's
+// shared-memory bytes in `bytes`.
+template <class M, bool Slack>
+int launch_shape(const Args& a, const CanonTables& tab, Shape sh,
+                 size_t* bytes, cudaStream_t stream) {
+  constexpr int NU = Slack ? M::NU + M::NX : M::NU;
+  const size_t need = Layout<M::NX, NU>(sh.Wp, tab.P).bytes();
+  if (bytes) *bytes = need;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = allow_smem<M, Slack>(dev, need);
+  if (e != cudaSuccess) return (int)e;
+  fused_al_backward_kernel<M, Slack>
+      <<<a.batch, 32 * (sh.Wc + sh.Wp), need, stream>>>(a, tab, sh.Wc,
+                                                          sh.Wp);
   return (int)cudaGetLastError();
+}
+
+// The first shape of kShapes whose `batch` blocks fit on the card in one
+// wave, else one warp a problem; Wc = 0 when the device cannot be queried.
+// The blocks an SM holds are cached per device, shape and P.
+template <class M, bool Slack>
+Shape shape_for(int batch, int P) {
+  constexpr int NU = Slack ? M::NU + M::NX : M::NU;
+  static int cached_P[16][kNumShapes], per_sm[16][kNumShapes];
+  int dev = 0, sms = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16 ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return {0, 0};
+  for (int i = 0; i < kNumShapes; ++i) {
+    const Shape sh = kShapes[i];
+    if (cached_P[dev][i] != P + 1) {
+      const size_t need = Layout<M::NX, NU>(sh.Wp, P).bytes();
+      int n = 0;
+      if (need <= (size_t)optin) {
+        if (allow_smem<M, Slack>(dev, need) != cudaSuccess ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, fused_al_backward_kernel<M, Slack>, 32 * (sh.Wc + sh.Wp),
+                need) != cudaSuccess)
+          return {0, 0};
+      }
+      per_sm[dev][i] = n;
+      cached_P[dev][i] = P + 1;
+    }
+    if ((long long)per_sm[dev][i] * sms >= batch) return sh;
+  }
+  return {1, 0};
+}
+
+template <class M, bool Slack>
+int launch(const Args& a, const CanonTables& tab, int* shape,
+           cudaStream_t stream) {
+  constexpr int NU = Slack ? M::NU + M::NX : M::NU;
+  const Shape sh = shape_for<M, Slack>(a.batch, tab.P);
+  if (sh.Wc < 1) return (int)cudaErrorInvalidValue;
+  size_t bytes = 0;
+  const int err = launch_shape<M, Slack>(a, tab, sh, &bytes, stream);
+  if (shape) {
+    shape[0] = sh.Wc;
+    shape[1] = sh.Wp;
+    shape[2] = Layout<M::NX, NU>(sh.Wp, tab.P).S;
+    shape[3] = (int)bytes;
+  }
+  return err;
+}
+
+// f(Inst<M, Slack>{}) for the instantiation of model id `model`, or
+// `none` for a model that has none
+template <class M_, bool Slack_>
+struct Inst {
+  using M = M_;
+  static constexpr bool kSlack = Slack_;
+};
+
+template <class F>
+int dispatch(int model, F f, int none) {
+#define TRAJOPT_AL_BACKWARD(M)                 \
+  case kModel##M:                              \
+    return f(Inst<M, false>{});                \
+  case kModelSlack + kModel##M:                \
+    return f(Inst<M, true>{})
+  switch (model) {
+    TRAJOPT_AL_BACKWARD(Quadrotor);
+    TRAJOPT_AL_BACKWARD(Cartpole);
+    TRAJOPT_AL_BACKWARD(Car);
+    TRAJOPT_AL_BACKWARD(Pendulum);
+    TRAJOPT_AL_BACKWARD(DoubleIntegrator);
+    TRAJOPT_AL_BACKWARD(Kuka);
+    TRAJOPT_AL_BACKWARD(AcrobotUrdf);
+    TRAJOPT_AL_BACKWARD(DoublependulumUrdf);
+    TRAJOPT_AL_BACKWARD(CartpoleUrdf);
+  }
+#undef TRAJOPT_AL_BACKWARD
+  return none;
 }
 
 }  // namespace
@@ -215,8 +480,10 @@ int launch(const float* X, const float* U, const float* lam, const float* mu,
 // table, models.cuh ChainTable, on the device; else null) →
 // K (B,N-1,m,n), d (B,N-1,m), dV (2,B), fail (B) bytes, and where Aout/Bout
 // are not null the in-kernel Jacobians A (B,N-1,n,n), B_base (B,N-1,n,m_base).
-// Returns the CUDA error of the launch (0 on success), or
-// cudaErrorInvalidValue for a model that has no instantiation.
+// shape: 4 ints of host memory or null, → Wc, Wp, S and the block's
+// shared-memory bytes of the launch. Returns the CUDA error of the launch
+// (0 on success), or cudaErrorInvalidValue for a model that has no
+// instantiation.
 extern "C" int trajopt_fused_al_backward_f32(
     const float* X, const float* U, const float* lam, const float* mu,
     const float* dt, const float* Q, const float* R, const float* H,
@@ -225,35 +492,20 @@ extern "C" int trajopt_fused_al_backward_f32(
     const int* col_rows, const float* fk_joint, const float* fk_point,
     const float* chain, float* K, float* d, float* dV, unsigned char* fail,
     float* Aout, float* Bout, int batch, int N, int P, int G, int J,
-    int npts, int model, int reg_state, float atol, void* stream) {
+    int npts, int model, int reg_state, float atol, int* shape,
+    void* stream) {
   if (batch <= 0 || N < 2 || P < 0 || J < 0 || J > kFkMaxJoints ||
       npts < 0 || npts > kFkMaxPoints ||
       (is_chain_model(model) && chain == nullptr))
     return (int)cudaErrorInvalidValue;
-  const ChainTable* ct = (const ChainTable*)chain;
-  trajopt::CanonTables tab{(const int4*)row_i, (const float4*)row_f, groups,
-                           col_ptr, col_rows, P, G, fk_joint,
-                           (const float4*)fk_point, J, npts};
-#define TRAJOPT_AL_BACKWARD(M)                                               \
-  case kModel##M:                                                            \
-    return launch<M, false>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, ct,  \
-                            K, d, dV, fail, Aout, Bout, batch, N, reg_state, \
-                            atol, (cudaStream_t)stream);                     \
-  case kModelSlack + kModel##M:                                              \
-    return launch<M, true>(X, U, lam, mu, dt, Q, R, H, q, r, rho, tab, ct,   \
-                           K, d, dV, fail, Aout, Bout, batch, N, reg_state,  \
-                           atol, (cudaStream_t)stream)
-  switch (model) {
-    TRAJOPT_AL_BACKWARD(Quadrotor);
-    TRAJOPT_AL_BACKWARD(Cartpole);
-    TRAJOPT_AL_BACKWARD(Car);
-    TRAJOPT_AL_BACKWARD(Pendulum);
-    TRAJOPT_AL_BACKWARD(DoubleIntegrator);
-    TRAJOPT_AL_BACKWARD(Kuka);
-    TRAJOPT_AL_BACKWARD(AcrobotUrdf);
-    TRAJOPT_AL_BACKWARD(DoublependulumUrdf);
-    TRAJOPT_AL_BACKWARD(CartpoleUrdf);
-  }
-#undef TRAJOPT_AL_BACKWARD
-  return (int)cudaErrorInvalidValue;
+  const Args a{X, U, lam, mu, dt, Q, R, H, q, r, rho, (const ChainTable*)chain,
+               K, d, dV, fail, Aout, Bout, batch, N, reg_state, atol};
+  const CanonTables tab{(const int4*)row_i, (const float4*)row_f, groups,
+                        col_ptr, col_rows, P, G, fk_joint,
+                        (const float4*)fk_point, J, npts};
+  return dispatch(model, [&](auto inst) {
+    using I = decltype(inst);
+    return launch<typename I::M, I::kSlack>(a, tab, shape,
+                                            (cudaStream_t)stream);
+  }, (int)cudaErrorInvalidValue);
 }

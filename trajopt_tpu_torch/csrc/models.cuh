@@ -748,9 +748,9 @@ __device__ __forceinline__ void chain_dynamics_warp(
 // dynamics of make_chain_dynamics_lanes (Xup from the affine coefficients,
 // the CRBA for H, the RNEA with q̈ = 0 for the bias, then the solve),
 // written for one thread, and the same dynamics over one warp
-// (chain_dynamics_warp) in step_warp, which K2 and K4 call. The one-thread
-// form stays for K3, K7a and K7b (in float and in Dual) until their own
-// redesigns. Not inlined: the RK3 step calls it three times, and its ~700
+// (chain_dynamics_warp) in step_warp, which K2, K4 and K7b call. The
+// one-thread form stays for K3 and K7a (in Dual) until the Dual step has a
+// warp form. Not inlined: the RK3 step calls it three times, and its ~700
 // values (7 Xup, 7 composite inertias, v, a, f, H) live in local memory
 // whatever the inlining. For the same reason the sweeps over the joints are
 // not unrolled (a joint's parent is read from the table): unrolled, the

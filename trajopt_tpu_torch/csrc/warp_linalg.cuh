@@ -1,7 +1,8 @@
-// Small dense products for one warp working on matrices in shared memory:
-// the lanes split the output's entries, each entry is one dot product. The
-// building block of the Riccati step (riccati_step.cuh); the sizes are
-// compile-time constants, so the inner loops unroll.
+// Small dense linear algebra for a team of threads working on matrices in
+// shared memory: one warp (the Riccati step of K5 and K7a) or the consumer
+// warps of K3 (fused_al_backward.cu). The threads split the entries of a
+// product, each entry one dot product; the sizes are compile-time
+// constants, so the inner loops unroll.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -9,27 +10,49 @@ namespace trajopt {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// C[i*ldc + j] = (add ? add[i*ldadd + j] : 0) + scale · Σ_r A(i,r)·B(r,j)
-// for i < P, j < Q, with A(i,r) = A[i*sai + r*sar], B(r,j) = B[r*sbr + j*sbj].
-// The sum runs over r ascending and is added to `add` last. C may alias
-// `add` (each lane reads only the entry it writes), not A or B. Ends with a
-// __syncwarp().
-template <int P, int Q, int R>
-__device__ __forceinline__ void warp_mm(float* C, int ldc, const float* A,
-                                        int sai, int sar, const float* B,
-                                        int sbr, int sbj, const float* add,
-                                        int ldadd, float scale, int lane) {
-  for (int e = lane; e < P * Q; e += 32) {
-    const int i = e / Q, j = e % Q;
-    float acc = A[i * sai] * B[j * sbj];
+// Σ_r A[r·sar]·B[r·sbr] for r ascending, rounded as nvcc contracts the
+// plain loop `acc = A0·B0; acc = acc + Ar·Br`: A1·B1 rounded on its own
+// with A0·B0 fused into it, every later product fused into the sum.
+// Written with the intrinsics, an entry rounds the same whichever thread
+// computes it and however the caller is inlined.
+template <int R>
+__device__ __forceinline__ float dot_entry(const float* A, int sar,
+                                           const float* B, int sbr) {
+  if constexpr (R == 1) {
+    return __fmul_rn(A[0], B[0]);
+  } else {
+    float acc = __fmaf_rn(A[0], B[0], __fmul_rn(A[sar], B[sbr]));
 #pragma unroll
-    for (int r = 1; r < R; ++r)
-      acc = acc + A[i * sai + r * sar] * B[r * sbr + j * sbj];
-    acc = scale * acc;
-    C[i * ldc + j] = add ? add[i * ldadd + j] + acc : acc;
+    for (int r = 2; r < R; ++r) acc = __fmaf_rn(A[r * sar], B[r * sbr], acc);
+    return acc;
   }
-  __syncwarp();
 }
+
+// add + Σ_r A[r·sar]·B[r·sbr], rounded as nvcc contracts `add + acc` after
+// that loop: a single product fused into add, a longer sum added to it
+template <int R>
+__device__ __forceinline__ float add_dot(float add, const float* A, int sar,
+                                        const float* B, int sbr) {
+  if constexpr (R == 1) {
+    return __fmaf_rn(A[0], B[0], add);
+  } else {
+    return __fadd_rn(add, dot_entry<R>(A, sar, B, sbr));
+  }
+}
+
+// The barrier of a team: one warp ...
+struct WarpSync {
+  __device__ __forceinline__ void operator()() const { __syncwarp(); }
+};
+
+// ... or the warps of a named barrier (bar.sync id, threads), which the
+// other warps of the block never touch
+struct NamedSync {
+  int id, threads;
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+  }
+};
 
 // v[lane] of a register array with compile-time indices (v[0] on lanes
 // past its end), without moving v to local memory

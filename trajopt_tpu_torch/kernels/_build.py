@@ -57,16 +57,20 @@ SIGNATURES = {
         # batch, N, model, reg_state, stream
         "trajopt_fused_backward_f32": (_P,) * 16 + (_I,) * 4 + (_P,)},
     "fused_forward": {
+        # model, batch -> the warps a block takes (W)
+        "trajopt_fused_forward_warps": (_I, _I),
         # x0, X, U, K, d, dV1, dV2, Jprev, rho, drho, alpha0, dt, Q, R, H, q,
-        # r, c, active, chain, Xout, Uout, scal, batch, N, model, ls_iters,
-        # ls_lb, ls_ub, reg_min, reg_factor, reg_fp, stream
-        "trajopt_fused_forward_f32": (_P,) * 23 + (_I,) * 4 + (_F,) * 5
-        + (_P,)},
+        # r, c, active, chain, ws, ws_floats, Xout, Uout, scal, batch, N,
+        # model, ls_iters, ls_lb, ls_ub, reg_min, reg_factor, reg_fp, stream
+        "trajopt_fused_forward_f32": (_P,) * 21 + (_L,) + (_P,) * 3
+        + (_I,) * 4 + (_F,) * 5 + (_P,)},
     "fused_al_backward": {
         # X, U, lam, mu, dt, Q, R, H, q, r, rho, row_i, row_f, groups,
         # col_ptr, col_rows, fk_joint, fk_point, chain, K, d, dV, fail, Aout,
-        # Bout, batch, N, P, G, J, npts, model, reg_state, atol, stream
-        "trajopt_fused_al_backward_f32": (_P,) * 25 + (_I,) * 8 + (_F, _P)},
+        # Bout, batch, N, P, G, J, npts, model, reg_state, atol, shape (4
+        # ints of host memory: the launch's Wc, Wp, S, shared bytes), stream
+        "trajopt_fused_al_backward_f32": (_P,) * 25 + (_I,) * 8
+        + (_F, _P, _P)},
     "fused_al_forward": {
         # model, batch -> the warps a block takes (W)
         "trajopt_fused_al_forward_warps": (_I, _I),

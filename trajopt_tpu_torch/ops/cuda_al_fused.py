@@ -8,7 +8,8 @@ iteration is two programs:
   backward sweep, the discrete-step Jacobians (the slack columns of an
   infeasible-start model are the identity), the quadratic stage expansion,
   the Gauss-Newton AL expansion lx += cxᵀg, lxx += cxᵀIμcx (g = Iμ∘c + λ)
-  of the canonical constraint stack, then the Riccati step;
+  of the canonical constraint stack, then the Riccati step; producer warps
+  expand the knots ahead of the consumer warps that run the Riccati step;
 - forward (K4, ``csrc/fused_al_forward.cu``): the whole backtracking line
   search, with the AL cost J + Σ λᵀc + ½cᵀIμc of every candidate rollout;
   a block of W warps per problem tries W candidates at a time and takes
@@ -31,6 +32,7 @@ masks are not part of the canonical data (``ops/canonical.py``).
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
@@ -131,7 +133,10 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
     :func:`fused_al_backward`; with ``return_jacobians`` the kernel also
     writes out its in-kernel A and the base-control columns of B (slack
     columns are the identity, which the kernel never forms). CPU tensors
-    run the plain version; CUDA tensors must be contiguous float32."""
+    run the plain version; CUDA tensors must be contiguous float32. The
+    kernel picks its block, Wc consumer and Wp producer warps a problem,
+    from the batch and its occupancy; the wrapper records it as ``warps``
+    and ``shape``."""
     if X.device.type == "cpu":
         return fused_al_backward(model, canon, X, U, lam, mu, dt_traj, obj,
                                  rho, atol, reg_state, return_jacobians)
@@ -147,6 +152,7 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
     fail = torch.empty((Bz,), dtype=torch.bool, device=X.device)
     Aout = new(Bz, N - 1, n, n) if return_jacobians else None
     Bout = new(Bz, N - 1, n, cm.m_base) if return_jacobians else None
+    shape = (ctypes.c_int * 4)()
     err = lib.trajopt_fused_al_backward_f32(
         X.data_ptr(), U.data_ptr(), lam.data_ptr(), mu.data_ptr(),
         dt_traj.data_ptr(), obj.Q.data_ptr(), obj.R.data_ptr(),
@@ -160,10 +166,14 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
         Bout.data_ptr() if return_jacobians else None,
         Bz, N, P, canon.groups.shape[0], canon.fk_joint.shape[0],
         canon.fk_point.shape[0], cm.id, int(bool(reg_state)),
-        float(atol), _build.stream(X.device))
+        float(atol), ctypes.addressof(shape), _build.stream(X.device))
     _build.check(err, "trajopt_fused_al_backward_f32")
     fused_al_backward_cuda.launches += 1
     fused_al_backward_cuda.launches_by[cm.label] += 1
+    fused_al_backward_cuda.warps = (shape[0], shape[1])
+    fused_al_backward_cuda.shape = dict(consumers=shape[0],
+                                        producers=shape[1], slots=shape[2],
+                                        smem_bytes=shape[3])
     out = (K, d, dV[0], dV[1], fail)
     if return_jacobians:
         if cm.m != cm.m_base:       # the slack columns the kernel never forms
@@ -176,6 +186,10 @@ def fused_al_backward_cuda(model, canon: CanonStack, X, U, lam, mu, dt_traj,
 # launches in all, and by the kernel's instantiation
 fused_al_backward_cuda.launches = 0
 fused_al_backward_cuda.launches_by = collections.Counter()
+# the last launch's block: (consumer, producer) warps, and with the slots of
+# its ring and its shared-memory bytes
+fused_al_backward_cuda.warps = None
+fused_al_backward_cuda.shape = None
 
 
 def fused_al_forward_cuda(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,

@@ -9,7 +9,8 @@ iteration is two programs:
   sweep, the discrete-step Jacobians, the quadratic stage expansion and the
   Riccati step; A, B and the expansion never reach device memory;
 - forward (K7b, ``csrc/fused_forward.cu``): the whole backtracking line
-  search, the rollout and the cost of every candidate, per-problem α, the
+  search, the rollout and the cost of every candidate (W candidates of a
+  problem at once, ``csrc/line_search_rounds.cuh``), per-problem α, the
   restore and ρ bump when a search runs out.
 
 ``fused_backward`` and ``fused_forward`` are the plain PyTorch versions:
@@ -137,7 +138,10 @@ def fused_forward_cuda(model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
     :func:`fused_forward` (``syncs`` counts the plain version's loop tests;
     the kernel makes none). A problem outside ``active`` gets X, U and
     J_prev back with α = 0. CPU tensors run the plain version; CUDA tensors
-    must be contiguous float32."""
+    must be contiguous float32. The kernel picks W, the candidates a problem
+    tries at once, from the batch and its occupancy
+    (``trajopt_fused_forward_warps``); the wrapper allocates the candidates'
+    workspace for it and records it as ``warps``."""
     if X.device.type == "cpu":
         return fused_forward(model, x0, X, U, K, d, dV1, dV2, J_prev, rho,
                              drho, alpha0, dt_traj, obj, opts_t,
@@ -162,6 +166,14 @@ def fused_forward_cuda(model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
     ls_lb, ls_ub, ls_iters, reg_min, reg_factor, reg_fp = opts_t
 
     lib = _build.load()
+    # W warps a problem, from the batch and the kernel's occupancy; with
+    # W > 1 each warp's candidate goes to its own buffer in a workspace
+    W = lib.trajopt_fused_forward_warps(cm.id, Bz)
+    if W < 1:
+        raise RuntimeError(f"{fn}: no launch shape for {cm.label!r} at "
+                           f"B={Bz}")
+    ws = torch.empty(Bz * W * (N * cm.n + (N - 1) * cm.m) if W > 1 else 0,
+                     dtype=X.dtype, device=dev)
     Xout, Uout = torch.empty_like(X), torch.empty_like(U)
     # per problem: J, rho, drho, alpha_used
     scal = torch.empty((4, Bz), dtype=X.dtype, device=dev)
@@ -172,14 +184,19 @@ def fused_forward_cuda(model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,
         dt_traj.data_ptr(), obj.Q.data_ptr(), obj.R.data_ptr(),
         obj.H.data_ptr(), obj.q.data_ptr(), obj.r.data_ptr(),
         obj.c.data_ptr(), None if active is None else active.data_ptr(),
-        chain_table_ptr(model, cm, dev), Xout.data_ptr(), Uout.data_ptr(),
-        scal.data_ptr(), Bz, N, cm.id, int(ls_iters), float(ls_lb), float(ls_ub), float(reg_min),
-        float(reg_factor), float(reg_fp), _build.stream(dev))
+        chain_table_ptr(model, cm, dev),
+        ws.data_ptr() if ws.numel() else None, ws.numel(), Xout.data_ptr(),
+        Uout.data_ptr(), scal.data_ptr(), Bz, N, cm.id, int(ls_iters),
+        float(ls_lb), float(ls_ub), float(reg_min), float(reg_factor),
+        float(reg_fp), _build.stream(dev))
     _build.check(err, "trajopt_fused_forward_f32")
     fused_forward_cuda.launches += 1
     fused_forward_cuda.launches_by[cm.label] += 1
+    fused_forward_cuda.warps = W
     return Xout, Uout, scal[0], scal[1], scal[2], scal[3]
 
 
 fused_forward_cuda.launches = 0
 fused_forward_cuda.launches_by = collections.Counter()
+# the warps a problem took in the last launch (its block is 32·W threads)
+fused_forward_cuda.warps = None
