@@ -52,10 +52,14 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
     linearizations of the quadrotor (13, 4) and of the cartpole (4, 1): with
     control and state regularization, a problem made indefinite, a problem
     whose controls are scaled over 12 decades, and every other shape the
-    kernel is built for;
+    kernel is built for; its block (Wc consumer and Wp producer warps, the
+    ring's S slots), its time at B = 1024 (slice 3's batch) and the
+    quadrotor's launch shapes (B = 128, 1024, 1152 and 33, bitwise equal);
 11. kernel K7a (``csrc/fused_backward.cu``) against its plain version and
     against K5 fed the ``torch.func`` Jacobians, and its in-kernel Jacobians
-    against ``jacobian_traj``, for all five models;
+    against ``jacobian_traj``, for all five models; its block (and G, the
+    knots a producer warp expands at once), the quadrotor's time at
+    B = 1024 (slice 3 arm (a)) and its launch shapes;
 12. kernel K7b (``csrc/fused_forward.cu``) against its plain version, with
     lanes forced to diverge and one whose search runs out, for all five
     models, the rounds of W candidates each launch took, and the
@@ -614,7 +618,7 @@ def phase_build(report):
             if line.strip():
                 log("nvcc:", line.strip())
     for stem in ("rollout", "fused_al_forward", "fused_al_backward",
-                 "fused_forward"):
+                 "fused_forward", "fused_backward", "riccati_sweep"):
         for name, regs, stack, spill in ptxas_report(
                 libs[stem].with_suffix(".log").read_text()):
             log(f"ptxas {stem}: {name}: {regs} registers, {stack} B stack, "
@@ -622,8 +626,9 @@ def phase_build(report):
     log("K2 launch shape: one warp a problem, blocks of "
         "32 threads (csrc/rollout.cu kWarpsPerBlock = 1); K4 and K7b: a "
         "block of 32·W threads a problem, W from the batch (printed by each "
-        "K4 and K7b check); K3: Wc consumer and Wp producer warps a problem "
-        "(printed by each K3 check)")
+        "K4 and K7b check); K3, K5 and K7a: Wc consumer and Wp producer "
+        "warps a problem (printed by each K3 check, the K5 and K7a "
+        "launch-shape checks and each K5 and K7a timing)")
 
     dev = torch.device("cuda", 0)
     z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)  # noqa
@@ -741,7 +746,7 @@ def ptxas_report(text):
     return [tuple(r) for r in rows]
 
 
-def launch_shapes(tag, fn, args, batched, **kw):
+def launch_shapes(tag, fn, args, batched, shape_of=None, **kw):
     """The kernel behind the wrapper ``fn`` at B = 128 on ``args`` (its
     positions ``batched`` batch-first), at B = 1024 and 1152 (the 128
     problems tiled 8 and 9 times) and at the ragged B = 33 (the first 33):
@@ -750,7 +755,8 @@ def launch_shapes(tag, fn, args, batched, **kw):
     and 33; at B = 1024 2 where a thread takes at most 128 registers, and
     1 at B = 1152, the serial search; K3's (Wc, Wp) is (4, 4) at B = 128
     and 33, at B = 1024 (1, 1) where a thread takes at most 128 registers,
-    else the lone warp (1, 0), and (1, 0) at B = 1152."""
+    else the lone warp (1, 0), and (1, 0) at B = 1152. ``shape_of(B)``,
+    where given, names the launch shape (K5's and K7a's)."""
     import torch
 
     base = torch.arange(B, device=args[min(batched)].device)
@@ -760,7 +766,8 @@ def launch_shapes(tag, fn, args, batched, **kw):
         a = [t[idx].contiguous() if i in batched else t
              for i, t in enumerate(args)]
         outs[count] = (idx, fn(*a, **kw))
-        shapes[count] = getattr(fn, "warps", 1)
+        shapes[count] = shape_of(count) if shape_of else \
+            getattr(fn, "warps", 1)
     torch.cuda.synchronize()
 
     def bits(t):
@@ -794,6 +801,17 @@ def log_rounds(tag, alpha0, alpha_used, ls_iters, fn=None):
         f"{alpha_used.shape[0]} blocks); the launch took "
         f"{int(rounds.max())} rounds of {W} candidates (problems by rounds: "
         f"{hist})")
+
+
+def ring_shape_text(sh):
+    """A K5 or K7a block (``riccati_sweep_shape``, ``fused_backward_shape``)
+    as one line: consumer and producer warps, slots, knots a producer step,
+    threads and shared memory."""
+    g = f", G = {sh['knots_a_step']}" if "knots_a_step" in sh else ""
+    return (f"(Wc, Wp, S) = ({sh['consumers']}, {sh['producers']}, "
+            f"{sh['slots']}){g}, "
+            f"{32 * (sh['consumers'] + sh['producers'])} threads and "
+            f"{sh['smem_bytes']} B of shared memory a block")
 
 
 def log_k3_shape(tag):
@@ -1798,7 +1816,8 @@ def compare_sweeps(tag, k, p, p64, weight=None, same_flags=True,
 def phase_k5(report, lin):
     import torch
     from trajopt_tpu_torch.ops.cost import Expansion
-    from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
+    from trajopt_tpu_torch.ops.cuda_riccati import (
+        riccati_sweep_cuda, riccati_sweep_shape)
     from trajopt_tpu_torch.ops.riccati import scan_sweep
     from trajopt_tpu_torch.solvers.al import al_cost_fns
 
@@ -1882,17 +1901,34 @@ def phase_k5(report, lin):
             B * (N - 1) * riccati_flops(n, m),
             nbytes(*ins, rho) + nbytes(kk[0], kk[1]) + 9 * B)
         log(f"{tag} time per sweep: kernel {ms_k:.4f} ms, plain version "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}; "
+            + ring_shape_text(riccati_sweep_shape(n, m, B)))
+        # slice 3 runs both shapes at B = 1024: (13,4) in arm (b), where
+        # all its launches are, (4,1) in the cartpole's phase-split arm (c);
+        # most of (4,1)'s come from the rigs' pools and slice 3 (d), at
+        # B = 128
+        big = [t.repeat((8,) + (1,) * (t.ndim - 1)) for t in ins]
+        rho8 = full(1.0, 8 * B)
+        ms8 = cuda_time_ms(lambda: riccati_sweep_cuda(*big, rho8), reps=10)
+        log(f"{tag} at B={8 * B}: kernel {ms8:.4f} ms per sweep, bound "
+            f"{8 * bound_ms:.5f} ms; "
+            + ring_shape_text(riccati_sweep_shape(n, m, 8 * B)))
         if name == "quadrotor":
-            big = [t.repeat((8,) + (1,) * (t.ndim - 1)) for t in ins]
-            rho8 = full(1.0, 8 * B)
-            ms8 = cuda_time_ms(lambda: riccati_sweep_cuda(*big, rho8), reps=10)
-            log(f"{tag} at B={8 * B}: kernel {ms8:.4f} ms per sweep")
+            launch_shapes(f"{tag} rho=1", riccati_sweep_cuda, [*ins, rho],
+                          range(8), shape_of=lambda c: ring_shape_text(
+                              riccati_sweep_shape(n, m, c)))
+        if name == "quadrotor":
+            main = dict(main_batch=8 * B, ms_main_batch=ms8,
+                        bound_ms_main_batch=8 * bound_ms)
+        else:
+            main = dict(main_batch=B, ms_main_batch=ms_k,
+                        bound_ms_main_batch=bound_ms)
         kernel_entry(report, name=f"riccati_sweep_{n}x{m}",
                      source="trajopt_tpu_torch/csrc/riccati_sweep.cu",
                      replaces="trajopt_tpu/ops/pallas_riccati.py:278",
                      max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
-                     bound_ms=bound_ms, bound_by=bound_by)
+                     bound_ms=bound_ms, bound_by=bound_by, batch=B,
+                     ms_b1024=ms8, **main)
 
     # the other shapes the kernel is built for, once each at rho = 1: the
     # car (3,2), the pendulum (2,1), the quadrotor's error state (12,4) and
@@ -1936,21 +1972,23 @@ def phase_k7a(report):
     ``torch.func`` Jacobians, and its in-kernel Jacobians against
     ``jacobian_traj``. Returns the set-ups with the kernel's gains at
     rho = 1 for the forward phases."""
-    return {name: k7a_case(report, model_setup(name)) for name in MODELS}
+    return {name: k7a_case(report, model_setup(name),
+                           shapes=name == "quadrotor") for name in MODELS}
 
 
 def k7a_case(report, ms, kd_tol=None, dv_tol=None, jac_rtol=None,
-             hold_d=True):
+             hold_d=True, shapes=False):
     """K7a on one ``model_setup`` (or ``kuka_free_setup``) against its plain
     version, against K5 fed the ``torch.func`` Jacobians, its in-kernel
     Jacobians against ``jacobian_traj`` (within JAC_TOL, or with
     ``jac_rtol`` within that share of their scale or three times the
     float32 plain version's own distance from float64); ``kd_tol`` and
-    ``dv_tol`` and ``hold_d`` as ``compare_sweeps``. Returns the set-up
-    with the kernel's gains at rho = 1."""
+    ``dv_tol`` and ``hold_d`` as ``compare_sweeps``; with ``shapes`` its
+    launch shapes (the gains, ΔV, fail flags and Jacobians). Returns the
+    set-up with the kernel's gains at rho = 1."""
     import torch
     from trajopt_tpu_torch.ops.cuda_fused import (
-        fused_backward, fused_backward_cuda)
+        fused_backward, fused_backward_cuda, fused_backward_shape)
     from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
 
     name = ms["name"]
@@ -2001,18 +2039,30 @@ def k7a_case(report, ms, kd_tol=None, dv_tol=None, jac_rtol=None,
         nbytes(X, U, dtt, obj.Q, obj.R, obj.H, obj.q, obj.r, rho)
         + nbytes(k[0], k[1]) + 9 * B)
     log(f"{tag} time per sweep: kernel {ms_k:.4f} ms, plain version "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}")
-    if name == "quadrotor":
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}; "
+        + ring_shape_text(fused_backward_shape(model, B)))
+    main = dict(batch=B, main_batch=B, ms_main_batch=ms_k,
+                bound_ms_main_batch=bound_ms)
+    if name == "quadrotor":     # slice 3 arm (a) runs it at B = 1024
         X8, U8 = X.repeat(8, 1, 1), U.repeat(8, 1, 1)
         rho8 = torch.ones(8 * B, device=X.device)
         ms8 = cuda_time_ms(lambda: fused_backward_cuda(
             model, X8, U8, dtt, obj, rho8), reps=10)
-        log(f"{tag} at B={8 * B}: kernel {ms8:.4f} ms per sweep")
+        log(f"{tag} at B={8 * B}: kernel {ms8:.4f} ms per sweep, bound "
+            f"{8 * bound_ms:.5f} ms; "
+            + ring_shape_text(fused_backward_shape(model, 8 * B)))
+        main.update(main_batch=8 * B, ms_main_batch=ms8,
+                    bound_ms_main_batch=8 * bound_ms)
+    if shapes:
+        launch_shapes(f"{tag} rho=1", fused_backward_cuda, list(args),
+                      (1, 2, 5), shape_of=lambda c: ring_shape_text(
+                          fused_backward_shape(model, c)),
+                      return_jacobians=True)
     kernel_entry(report, name=f"fused_backward_{name}",
                  source="trajopt_tpu_torch/csrc/fused_backward.cu",
                  replaces="trajopt_tpu/ops/pallas_fused.py:227",
                  max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by)
+                 bound_ms=bound_ms, bound_by=bound_by, **main)
     return dict(ms, K=k[0], d=k[1], dV1=k[2], dV2=k[3])
 
 
@@ -2686,7 +2736,8 @@ def al_case(report, st):
     from trajopt_tpu_torch.ops.cuda_al_fused import (
         fused_al_backward, fused_al_backward_cuda, fused_al_forward,
         fused_al_forward_cuda)
-    from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
+    from trajopt_tpu_torch.ops.cuda_riccati import (
+        riccati_sweep_cuda, riccati_sweep_shape)
     from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
     from trajopt_tpu_torch.ops.riccati import scan_sweep
     from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
@@ -2976,12 +3027,29 @@ def al_case(report, st):
         B * (Nk - 1) * riccati_flops(n, m),
         nbytes(*ins, one) + nbytes(k5[0], k5[1]) + 9 * B)
     log(f"{tag}: kernel {ms_k:.4f} ms per sweep, plain version "
-        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}; "
+        + ring_shape_text(riccati_sweep_shape(n, m, B)))
+    main = dict(batch=B, main_batch=B, ms_main_batch=ms_k,
+                bound_ms_main_batch=bound_ms)
+    if label == "kuka":
+        # the kuka pool's phase-split arm sweeps KUKA_POOL_RUN problems
+        few = [t[:KUKA_POOL_RUN].contiguous() for t in (*ins, one)]
+        ms_few = cuda_time_ms(lambda: riccati_sweep_cuda(*few), reps=10)
+        frac = KUKA_POOL_RUN / B
+        log(f"{tag} at B={KUKA_POOL_RUN}: kernel {ms_few:.4f} ms per sweep, "
+            f"bound {frac * bound_ms:.5f} ms; " + ring_shape_text(
+                riccati_sweep_shape(n, m, KUKA_POOL_RUN)))
+        main.update(main_batch=KUKA_POOL_RUN, ms_main_batch=ms_few,
+                    bound_ms_main_batch=frac * bound_ms)
+    if st.get("shapes"):
+        launch_shapes(f"{tag} rho=1", riccati_sweep_cuda, [*ins, one],
+                      range(8), shape_of=lambda c: ring_shape_text(
+                          riccati_sweep_shape(n, m, c)))
     kernel_entry(report, name=f"riccati_sweep_{n}x{m}",
                  source="trajopt_tpu_torch/csrc/riccati_sweep.cu",
                  replaces="trajopt_tpu/ops/pallas_riccati.py:278",
                  max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by)
+                 bound_ms=bound_ms, bound_by=bound_by, **main)
 
 
 def al_kernels(*labels):
@@ -3820,8 +3888,10 @@ def phase_rig_kernels(report):
     # nearer in K7a; CLAUDE.md)
     for rig in RIGS:
         k7b_case(report, k7a_case(report, model_setup(rig), jac_rtol=JAC_TOL,
-                                  hold_d=False), ls_opts=LS_OPTS_CHAIN,
-                 j_own=True, shapes=rig == "cartpole_urdf")
+                                  hold_d=False,
+                                  shapes=rig == "cartpole_urdf"),
+                 ls_opts=LS_OPTS_CHAIN, j_own=True,
+                 shapes=rig == "cartpole_urdf")
     # the arm's float32 rounding is amplified as in K3/K4 (ROADMAP Q3-20):
     # the bars K3 and K4 are held to on the kuka stack
     st = k7a_case(report, kuka_free_setup(), kd_tol=AL_KD_TOL,

@@ -28,9 +28,12 @@ from trajopt_tpu_torch.ops.cuda_al_fused import (
     fused_al_forward_cuda,
 )
 from trajopt_tpu_torch.ops.cuda_fused import (
-    fused_backward, fused_backward_cuda, fused_forward, fused_forward_cuda,
+    fused_backward, fused_backward_cuda, fused_backward_shape, fused_forward,
+    fused_forward_cuda,
 )
-from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
+from trajopt_tpu_torch.ops.cuda_riccati import (
+    riccati_sweep_cuda, riccati_sweep_shape,
+)
 from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
 from trajopt_tpu_torch.ops.cuda_sqrt import (
     equilibrated_chol_upper, plain_chol_upper, sqrt_sweep, sqrt_sweep_cuda,
@@ -1421,3 +1424,136 @@ def test_kuka_fused_kernels_match_plain_versions(cuda_device):
                              k[1].double(), ak.double(), p32.dt)[0]
     if bool(calm.any()):
         _close(Xk[calm], Xp[calm], X6[calm], 1e-4)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _kuka_free(device, count=B):
+    """The unconstrained kuka problem (float64, float32) and ``count``
+    starts with q noise 0.05, each start's own hold torques and the
+    open-loop rollouts in float64 (the held start where one leaves the
+    finite numbers), as test_kuka_fused_kernels_match_plain_versions
+    builds them."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.constraints import empty_constraints
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        base = problems.kuka_obstacles(dtype=dtype, device=device)
+        out[dtype] = tt.update_problem(base, constraints=empty_constraints(
+            base.N, device=device))
+    p64, p32 = out[torch.float64], out[torch.float32]
+    rng = np.random.default_rng(5)
+    x0s = p64.x0[None] + torch.as_tensor(np.concatenate(
+        [rng.normal(size=(count, 7)) * 0.05, np.zeros((count, 7))], axis=1),
+        device=device)
+    q = x0s[:, :7]
+    U64 = p64.model.model.chain.bias_forces(q, torch.zeros_like(q))[
+        :, None].expand(-1, p64.N - 1, -1).contiguous()
+    X64 = rollout(p64.model, x0s, U64, p64.dt_traj())
+    blew = ~torch.isfinite(X64).flatten(1).all(-1)
+    X64[blew] = x0s[blew][:, None]
+    return dict(model=p32.model, model64=p64.model, obj=p32.obj,
+                obj64=p64.obj, X64=X64, U64=U64, dt64=p64.dt_traj(),
+                X=X64.float().contiguous(), U=U64.float().contiguous(),
+                dtt=p32.dt_traj())
+
+
+@pytest.mark.parametrize("count", [1, 33, 1024, 1152])
+def test_riccati_kernel_ragged_and_large_batches(cuda_device, count):
+    """K5 (13,4) on the B = 16 quadrotor set-up cut or tiled to ``count``
+    problems, where the load pipeline takes another block shape: one
+    launch counted, fail flags equal to the plain version's, K and d at
+    1e-3 of scale and ΔV at 1e-4 (or three times the plain version's
+    distance from float64), and every output of every problem bitwise equal
+    to the B = 16 launch's."""
+    ms = _model_setup("quadrotor", cuda_device)
+    A, Bm = ms["model"].jacobian_traj(ms["X64"][:, :-1], ms["U64"],
+                                      ms["dt64"])
+    e = cost_expansion(ms["obj64"], ms["X64"], ms["U64"], ms["dt64"])
+    ins64 = [A, Bm, e.x, e.u, e.xx, e.uu, e.ux]
+    ins = [t.float().contiguous() for t in ins64]
+    rho = torch.ones(B, device=cuda_device)
+    ref = riccati_sweep_cuda(*ins, rho)
+    idx = torch.arange(count, device=cuda_device) % B
+    big = [t[idx].contiguous() for t in ins]
+    before = riccati_sweep_cuda.launches
+    k = riccati_sweep_cuda(*big, rho[idx])
+    torch.cuda.synchronize()
+    assert riccati_sweep_cuda.launches == before + 1
+    assert riccati_sweep_shape(13, 4, count)["consumers"] >= 1
+    p = scan_sweep(big[0], big[1], Expansion(*big[2:]), rho[idx])
+    p64 = scan_sweep(A[idx], Bm[idx], Expansion(*(t[idx] for t in ins64[2:])),
+                     rho[idx].double())
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
+        _close(k[i], p[i], p64[i], tol)
+    for a, r in zip(k, ref):
+        assert torch.equal(_bits(a), _bits(r[idx]))
+
+
+@pytest.mark.parametrize("name", ["quadrotor", "cartpole_urdf",
+                                  "doublependulum_urdf", "kuka"])
+@pytest.mark.parametrize("count", [1, 33, 1024, 1152])
+def test_fused_backward_kernel_ragged_and_large_batches(cuda_device, name,
+                                                        count):
+    """K7a on the B = 16 set-up of ``name`` (kuka: the unconstrained arm,
+    N = 41) cut or tiled to ``count`` problems, where the knot pipeline
+    takes another block shape: one launch counted, fail flags equal to the
+    plain version's (none), K and d at 1e-3 of scale (kuka 2e-3) and ΔV at
+    1e-4 (kuka's not held, as in test_kuka_fused_kernels_match_plain_
+    versions), or three times the plain version's distance from float64,
+    the in-kernel Jacobians at 1e-5 of scale (JAC_TOL), and every output
+    of every problem bitwise equal to the B = 16 launch's."""
+    ms = _kuka_free(cuda_device) if name == "kuka" else \
+        _model_setup(name, cuda_device)
+    model64 = ms.get("model64", ms["model"])
+    one = torch.ones(B, device=cuda_device)
+    ref = fused_backward_cuda(ms["model"], ms["X"], ms["U"], ms["dtt"],
+                              ms["obj"], one, return_jacobians=True)
+    idx = torch.arange(count, device=cuda_device) % B
+    X, U, rho = ms["X"][idx].contiguous(), ms["U"][idx].contiguous(), \
+        one[idx]
+    label = "kuka" if name == "kuka" else name
+    before = fused_backward_cuda.launches_by[label]
+    k = fused_backward_cuda(ms["model"], X, U, ms["dtt"], ms["obj"], rho,
+                            return_jacobians=True)
+    torch.cuda.synchronize()
+    assert fused_backward_cuda.launches_by[label] == before + 1
+    assert fused_backward_shape(ms["model"], count)["consumers"] >= 1
+    p = fused_backward(ms["model"], X, U, ms["dtt"], ms["obj"], rho,
+                       return_jacobians=True)
+    p64 = fused_backward(model64, ms["X64"][idx], ms["U64"][idx],
+                         ms["dt64"], ms["obj64"], rho.double(),
+                         return_jacobians=True)
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i, tol in ((0, 2e-3 if name == "kuka" else 1e-3),
+                   (1, 2e-3 if name == "kuka" else 1e-3), (2, 1e-4),
+                   (3, 1e-4)):
+        if i < 2 or name != "kuka":
+            _close(k[i], p[i], p64[i], tol)
+    for i in (5, 6):
+        _close(k[i], p[i], p64[i], 1e-5)
+    for a, r in zip(k, ref):
+        assert torch.equal(_bits(a), _bits(r[idx]))
+
+
+def test_kuka_hold_trajectory_on_the_card(cuda_device):
+    """``kuka_hold_trajectory`` builds on the card by default and follows a
+    configuration that lies there; the hold agrees with the CPU's at 1e-12
+    of scale."""
+    from trajopt_tpu_torch.models import robots
+
+    chain = robots.kuka_chain()
+    q = np.array([0.0, np.pi / 2, np.pi / 2, np.pi / 2, 0.0, 0.0, 0.0])
+    U = robots.kuka_hold_trajectory(chain, q, 41)
+    assert U.device.type == "cuda" and U.shape == (40, 7)
+    qd = torch.as_tensor(q, device=cuda_device)
+    Ud = robots.kuka_hold_trajectory(chain, qd, 41)
+    assert Ud.device == qd.device
+    ref = robots.kuka_hold_trajectory(chain, q, 41, device="cpu")
+    scale = float(ref.abs().max())
+    assert float((Ud.cpu() - ref).abs().max()) <= 1e-12 * scale
+    assert float((U.cpu() - ref).abs().max()) <= 1e-12 * scale

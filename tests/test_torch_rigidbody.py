@@ -121,9 +121,22 @@ def test_kuka_hold_trajectory_matches_jax():
     for q in (np.array([0.0, np.pi / 2, np.pi / 2, np.pi / 2, 0, 0, 0]),
               np.random.default_rng(2).normal(size=7)):
         ref = jrobots.kuka_hold_trajectory(jc, jnp.asarray(q), 41)
-        mine = robots.kuka_hold_trajectory(tc, q, 41)
+        mine = robots.kuka_hold_trajectory(tc, q, 41, device="cpu")
         assert mine.shape == (40, 7)
         assert _scaled_err(mine.numpy(), ref) < 1e-12
+
+
+def test_kuka_hold_trajectory_follows_its_configuration():
+    """With ``device`` None the hold lies where its configuration lies (a
+    CPU tensor here) and equals the hold built from the same numbers given
+    as an array."""
+    tc = robots.kuka_chain()
+    q = np.random.default_rng(4).normal(size=7)
+    mine = robots.kuka_hold_trajectory(tc, torch.as_tensor(q), 21)
+    assert mine.device.type == "cpu" and mine.dtype == torch.float64
+    assert mine.shape == (20, 7)
+    ref = robots.kuka_hold_trajectory(tc, q, 21, device="cpu")
+    assert torch.equal(mine, ref)
 
 
 @pytest.mark.parametrize("name", list(RIGS))

@@ -6,24 +6,28 @@ one GPU.
 
 PARENT is the root of another checkout of this repository (for example the
 parent commit, unpacked by ``git archive`` into a directory that
-``.gitignore`` lists). Its ``fused_al_backward.cu`` (K3),
+``.gitignore`` lists) whose kernels have this tree's C interfaces
+(``kernels/_build.py`` SIGNATURES). Its ``fused_al_backward.cu`` (K3),
 ``fused_al_forward.cu`` (K4), ``riccati_sweep.cu`` (K5),
 ``fused_backward.cu`` (K7a) and ``fused_forward.cu`` (K7b) are built by
 nvcc with the flags of ``kernels/_build.py`` under
-``build/parent_kernels/``, side by side, and called through the C
-interfaces they had before the pipelined K3 and the shared round header
-(K3 without the shape argument, K7b without the workspace: its serial
-search). On the inputs of ``chip_smoke.py``'s checks at B = 128, each
-output of this tree's kernel is compared with the other's bit for bit: K3
-for every (model, slack) instantiation at ρ = 1 and 0 (the maze's and
-kuka's stacks among them), the in-kernel Jacobians too; K4 on the maze's
-search with its branch lanes; K5 (control and state regularization) and
-K7a on the five scalar models and the three rigs, K7b on their searches.
-Each case is also timed, both trees in turns (other, this, this, other;
-CUDA events over 10 launches each), and the ones of ``chip_smoke.py``'s
-main paths at B = 1024 too (K3's cartpole, slice 3 arm (c); K7b's
-quadrotor, arm (a)). Prints one line per case and the card's
-``nvidia-smi`` line; exits non-zero if any output differs.
+``build/parent_kernels/``, side by side. On the inputs of
+``chip_smoke.py``'s checks at B = 128, each output of this tree's kernel
+is compared with the other's bit for bit: K3 for every (model, slack)
+instantiation at ρ = 1 and 0 (the maze's and kuka's stacks among them),
+the in-kernel Jacobians too; K4 on the maze's search with its branch
+lanes; K5 at ρ = 1 and 0, control and state regularization, and K7a at ρ =
+1 and 0 with its Jacobians, on the five scalar models, the three rigs and
+kuka (path (a)'s inputs), and K5 at ρ = 1 at every slack-augmented shape
+on the AL expansion (the maze's (13,17) among them); K7b on their
+searches. Each case is also timed,
+both trees in turns (other, this, this, other; CUDA events over 10
+launches each), and the ones of ``chip_smoke.py``'s main paths at their
+batch too: B = 1024 for K3's cartpole (slice 3 arm (c)), K5 (13,4) (arm
+(b)) and (4,1) (arm (c) phase-split), K7a's and K7b's quadrotor (arm
+(a)); B = 64 for K5 (14,7) (the kuka pool). The times are of the two
+trees' C entry points on the same arguments. Prints one line per case and the card's ``nvidia-smi`` line; exits
+non-zero if any output differs.
 """
 from __future__ import annotations
 
@@ -35,21 +39,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_longlong)
-# the other tree's C entry points and their arguments
+# the kernels compared, by source: the C entry point called in both trees
 PARENT = {
-    "fused_al_backward": ("trajopt_fused_al_backward_f32",
-                          (_P,) * 25 + (_I,) * 8 + (_F, _P)),
-    "fused_al_forward": ("trajopt_fused_al_forward_f32",
-                         (_P,) * 27 + (_L,) + (_P,) * 3 + (_I,) * 7
-                         + (_F,) * 6 + (_P,)),
-    "fused_forward": ("trajopt_fused_forward_f32",
-                      (_P,) * 23 + (_I,) * 4 + (_F,) * 5 + (_P,)),
-    "riccati_sweep": ("trajopt_riccati_sweep_f32",
-                      (_P,) * 12 + (_I,) * 5 + (_P,)),
-    "fused_backward": ("trajopt_fused_backward_f32",
-                       (_P,) * 16 + (_I,) * 4 + (_P,)),
+    "fused_al_backward": "trajopt_fused_al_backward_f32",
+    "fused_al_forward": "trajopt_fused_al_forward_f32",
+    "fused_forward": "trajopt_fused_forward_f32",
+    "riccati_sweep": "trajopt_riccati_sweep_f32",
+    "fused_backward": "trajopt_fused_backward_f32",
 }
 
 
@@ -71,9 +67,9 @@ def build(parent: Path):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(log)
-        name, argtypes = PARENT[stem]
+        name = PARENT[stem]
         fn = getattr(ctypes.CDLL(str(lib)), name)
-        fn.argtypes = list(argtypes)
+        fn.argtypes = list(_build.SIGNATURES[stem][name])
         fn.restype = ctypes.c_int
         fns[stem] = fn
     return fns
@@ -91,13 +87,18 @@ def ms_per_launch(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def same(label, run_mine, run_theirs, theirs):
-    """Run both trees' kernels once (``run_theirs`` fills ``theirs`` and
-    returns the CUDA error), count the entries of each output that differ
-    bitwise, time both in turns, print, and return whether none differs."""
+def same(label, run_mine, call, stem, fn, theirs):
+    """Run both trees' kernels once (``call(fn)`` launches the other tree's
+    entry point ``fn``, fills ``theirs`` and returns the CUDA error;
+    ``run_mine`` this tree's wrapper), count the entries of each output
+    that differ bitwise, time both trees' C entry points on the same
+    arguments in turns (the wrapper's checks and allocations left out, as
+    the other tree's call has none), print, and return whether none
+    differs."""
     import torch
+    from trajopt_tpu_torch.kernels import _build
 
-    if run_theirs():
+    if call(fn):
         raise RuntimeError(f"{label}: the other tree's launch failed")
     mine = run_mine()
     torch.cuda.synchronize()
@@ -106,8 +107,9 @@ def same(label, run_mine, run_theirs, theirs):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         diffs.append(int((a != b).sum()))
-    t0, m0, m1, t1 = (ms_per_launch(f) for f in (run_theirs, run_mine,
-                                                 run_mine, run_theirs))
+    this = getattr(_build.load(), PARENT[stem])
+    t0, m0, m1, t1 = (ms_per_launch(lambda f=f: call(f))
+                      for f in (fn, this, this, fn))
     print(f"{label}: entries that differ, by output: {diffs}; ms a launch: "
           f"this tree {(m0 + m1) / 2:.4f}, the other {(t0 + t1) / 2:.4f}",
           flush=True)
@@ -127,8 +129,8 @@ def k3_case(fn, label, model, canon, X, U, lam, mu, dt, obj, rho):
     K, d, dV = new(Bz, N - 1, cm.m, n), new(Bz, N - 1, cm.m), new(2, Bz)
     fail = torch.empty(Bz, dtype=torch.bool, device=dev)
     A, Bo = new(Bz, N - 1, n, n), new(Bz, N - 1, n, cm.m_base)
-    def theirs():
-        return fn(X.data_ptr(), U.data_ptr(), lam.data_ptr(), mu.data_ptr(),
+    def call(f):
+        return f(X.data_ptr(), U.data_ptr(), lam.data_ptr(), mu.data_ptr(),
                   dt.data_ptr(), obj.Q.data_ptr(), obj.R.data_ptr(),
                   obj.H.data_ptr(), obj.q.data_ptr(), obj.r.data_ptr(),
                   rho.data_ptr(), canon.row_i.data_ptr(),
@@ -139,7 +141,7 @@ def k3_case(fn, label, model, canon, X, U, lam, mu, dt, obj, rho):
                   dV.data_ptr(), fail.data_ptr(), A.data_ptr(),
                   Bo.data_ptr(), Bz, N, canon.P, canon.groups.shape[0],
                   canon.fk_joint.shape[0], canon.fk_point.shape[0], cm.id, 0,
-                  0.0, _build.stream(dev))
+                  0.0, None, _build.stream(dev))
 
     def mine():
         out = fused_al_backward_cuda(model, canon, X, U, lam, mu, dt, obj,
@@ -148,7 +150,8 @@ def k3_case(fn, label, model, canon, X, U, lam, mu, dt, obj, rho):
 
     mine()          # (its block, for the label)
     return same(f"K3 {label} B={Bz} rho={float(rho[0]):g} "
-                f"(Wc, Wp) = {fused_al_backward_cuda.warps}", mine, theirs,
+                f"(Wc, Wp) = {fused_al_backward_cuda.warps}", mine, call,
+                "fused_al_backward", fn,
                 (K, d, dV[0], dV[1], fail, A, Bo))
 
 
@@ -169,8 +172,8 @@ def k4_case(fn, args):
     Xo, Uo = torch.empty_like(X), torch.empty_like(U)
     scal = torch.empty(4, Bz, device=dev)
     lb, ub, iters, reg_min, reg_factor, reg_fp = opts
-    def theirs():
-        return fn(x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
+    def call(f):
+        return f(x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
                   d.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
                   J_prev.data_ptr(), rho.data_ptr(), drho.data_ptr(),
                   alpha0.data_ptr(), lam.data_ptr(), mu.data_ptr(),
@@ -186,59 +189,69 @@ def k4_case(fn, args):
                   0.0, _build.stream(dev))
 
     return same(f"K4 {cm.label} B={Bz} W={W}",
-                lambda: fused_al_forward_cuda(*args), theirs,
+                lambda: fused_al_forward_cuda(*args), call,
+                "fused_al_forward", fn,
                 (Xo, Uo, *scal))
 
 
-def k5_case(fn, label, ins, reg_state):
+def k5_case(fn, label, ins, reg_state, rho_val=1.0):
     import torch
     from trajopt_tpu_torch.kernels import _build
-    from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
+    from trajopt_tpu_torch.ops.cuda_riccati import (
+        riccati_sweep_cuda, riccati_sweep_shape)
 
     A, Bm = ins[0], ins[1]
     Bz, N1, n, m = Bm.shape
     dev = A.device
-    rho = torch.ones(Bz, device=dev)
+    rho = torch.full((Bz,), rho_val, device=dev)
     K, d = torch.empty(Bz, N1, m, n, device=dev), torch.empty(Bz, N1, m,
                                                              device=dev)
     dV = torch.empty(2, Bz, device=dev)
     fail = torch.empty(Bz, dtype=torch.bool, device=dev)
-    def theirs():
-        return fn(*(t.data_ptr() for t in (*ins, rho, K, d, dV, fail)), Bz,
+    def call(f):
+        return f(*(t.data_ptr() for t in (*ins, rho, K, d, dV, fail)), Bz,
                   N1 + 1, n, m, int(reg_state), _build.stream(dev))
 
-    return same(f"K5 {label} ({n},{m}) reg_state={reg_state}",
+    sh = riccati_sweep_shape(n, m, Bz)
+    return same(f"K5 {label} ({n},{m}) B={Bz} rho={rho_val:g} "
+                f"reg_state={reg_state} (Wc, Wp) = "
+                f"({sh['consumers']}, {sh['producers']})",
                 lambda: riccati_sweep_cuda(*ins, rho, reg_state=reg_state),
-                theirs, (K, d, dV[0], dV[1], fail))
+                call, "riccati_sweep", fn, (K, d, dV[0], dV[1], fail))
 
 
-def k7a_case(fn, label, st):
+def k7a_case(fn, label, st, rho_val=1.0, X=None, U=None):
     import torch
     from trajopt_tpu_torch.kernels import _build
-    from trajopt_tpu_torch.ops.cuda_fused import fused_backward_cuda
+    from trajopt_tpu_torch.ops.cuda_fused import (
+        fused_backward_cuda, fused_backward_shape)
     from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
 
-    model, X, U, dt, obj = (st[k] for k in ("model", "X", "U", "dt_traj",
-                                             "obj"))
+    model, dt, obj = st["model"], st["dt_traj"], st["obj"]
+    X = st["X"] if X is None else X
+    U = st["U"] if U is None else U
     cm = cuda_model(model, "bitwise_against_parent")
     Bz, N, n = X.shape
     dev = X.device
-    rho = torch.ones(Bz, device=dev)
+    rho = torch.full((Bz,), rho_val, device=dev)
     new = lambda *s: torch.empty(s, device=dev)  # noqa: E731
     K, d, dV = new(Bz, N - 1, cm.m, n), new(Bz, N - 1, cm.m), new(2, Bz)
     fail = torch.empty(Bz, dtype=torch.bool, device=dev)
     A, Bo = new(Bz, N - 1, n, n), new(Bz, N - 1, n, cm.m)
-    def theirs():
-        return fn(X.data_ptr(), U.data_ptr(), dt.data_ptr(),
+    def call(f):
+        return f(X.data_ptr(), U.data_ptr(), dt.data_ptr(),
                   obj.Q.data_ptr(), obj.R.data_ptr(), obj.H.data_ptr(),
                   obj.q.data_ptr(), obj.r.data_ptr(), rho.data_ptr(),
                   chain_table_ptr(model, cm, dev), K.data_ptr(), d.data_ptr(),
                   dV.data_ptr(), fail.data_ptr(), A.data_ptr(),
                   Bo.data_ptr(), Bz, N, cm.id, 0, _build.stream(dev))
 
-    return same(f"K7a {label}", lambda: fused_backward_cuda(
-        model, X, U, dt, obj, rho, return_jacobians=True), theirs,
-        (K, d, dV[0], dV[1], fail, A, Bo))
+    sh = fused_backward_shape(model, Bz)
+    return same(f"K7a {label} B={Bz} rho={rho_val:g} (Wc, Wp, G) = "
+                f"({sh['consumers']}, {sh['producers']}, "
+                f"{sh['knots_a_step']})", lambda: fused_backward_cuda(
+        model, X, U, dt, obj, rho, return_jacobians=True), call,
+        "fused_backward", fn, (K, d, dV[0], dV[1], fail, A, Bo))
 
 
 def k7b_case(fn, label, args):
@@ -252,23 +265,29 @@ def k7b_case(fn, label, args):
     cm = cuda_model(model, "bitwise_against_parent")
     Bz, N, _ = X.shape
     dev = X.device
+    W = _build.load().trajopt_fused_forward_warps(cm.id, Bz)
+    ws = torch.empty(Bz * W * (N * cm.n + (N - 1) * cm.m) if W > 1 else 1,
+                     device=dev)
     Xo, Uo = torch.empty_like(X), torch.empty_like(U)
     scal = torch.empty(4, Bz, device=dev)
     lb, ub, iters, reg_min, reg_factor, reg_fp = opts
-    def theirs():
-        return fn(x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
+    def call(f):
+        return f(x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
                   d.data_ptr(), dV1.data_ptr(), dV2.data_ptr(),
                   J_prev.data_ptr(), rho.data_ptr(), drho.data_ptr(),
                   alpha0.data_ptr(), dt.data_ptr(), obj.Q.data_ptr(),
                   obj.R.data_ptr(), obj.H.data_ptr(), obj.q.data_ptr(),
                   obj.r.data_ptr(), obj.c.data_ptr(), None,
-                  chain_table_ptr(model, cm, dev), Xo.data_ptr(),
-                  Uo.data_ptr(), scal.data_ptr(), Bz, N, cm.id, int(iters),
-                  lb, ub, reg_min, reg_factor, reg_fp, _build.stream(dev))
+                  chain_table_ptr(model, cm, dev),
+                  ws.data_ptr() if W > 1 else None,
+                  ws.numel() if W > 1 else 0, Xo.data_ptr(), Uo.data_ptr(),
+                  scal.data_ptr(), Bz, N, cm.id, int(iters), lb, ub, reg_min,
+                  reg_factor, reg_fp, _build.stream(dev))
 
     fused_forward_cuda(*args)
     return same(f"K7b {label} B={Bz} W={fused_forward_cuda.warps}",
-                lambda: fused_forward_cuda(*args), theirs, (Xo, Uo, *scal))
+                lambda: fused_forward_cuda(*args), call, "fused_forward", fn,
+                (Xo, Uo, *scal))
 
 
 def main():
@@ -310,6 +329,24 @@ def main():
             ok &= k3_case(fns["fused_al_backward"], st["label"], p.model,
                           st["canon"], *st["data"], p.dt_traj(), p.obj, rho)
 
+    # K5 at the slack-augmented shapes (n, m + n), on the AL expansion, as
+    # chip_smoke.py's phase_k5 (the maze) and al_case (the rest) build them
+    from trajopt_tpu_torch.solvers.al import al_cost_fns
+
+    mz = cs.maze_setup(torch.float64, B)
+    al_inputs = [("quadrotor_slack", mz["prob"], mz["X"], mz["U"], mz["lam"],
+                  mz["mu"])]
+    al_inputs += [(st["label"], st["p64"], *st["data64"]) for st in setups
+                  if st["label"].endswith("_slack")]
+    for label, p64, X64, U64, lam64, mu64 in al_inputs:
+        dt64 = p64.dt_traj()
+        A, Bm = p64.model.jacobian_traj(X64[:, :-1], U64, dt64)
+        e = al_cost_fns(p64.obj, p64.constraints, dt64, lam64, mu64)[1](
+            X64, U64)
+        ins = [t.float().contiguous()
+               for t in (A, Bm, e.x, e.u, e.xx, e.uu, e.ux)]
+        ok &= k5_case(fns["riccati_sweep"], label, ins, False)
+
     # K4: the maze's search as phase_k4 builds it
     prob = ms["prob"]
     canon, X, U, lam, mu, dt = maze[1:7]
@@ -328,12 +365,25 @@ def main():
         cs.LS_OPTS))
 
     # K5 and K7a on chip_smoke's K7a set-ups, K7b on their searches
+    tile = torch.arange(B, device=dev).repeat(8)
     for name in (*cs.MODELS, *cs.RIGS):
         st = cs.model_setup(name)
         ins = cs.sweep_inputs(st, torch.float32)
-        for reg_state in (False, True):
-            ok &= k5_case(fns["riccati_sweep"], name, ins, reg_state)
-        ok &= k7a_case(fns["fused_backward"], name, st)
+        for rho_val in (1.0, 0.0):
+            for reg_state in (False, True):
+                ok &= k5_case(fns["riccati_sweep"], name, ins, reg_state,
+                              rho_val)
+            ok &= k7a_case(fns["fused_backward"], name, st, rho_val)
+        if name in ("quadrotor", "cartpole"):
+            # slice 3 arms (b) and (a), and (c) phase-split: B = 1024
+            big = [t[tile].contiguous() for t in ins]
+            for rho_val in (1.0, 0.0):
+                ok &= k5_case(fns["riccati_sweep"], name, big, False,
+                              rho_val)
+                if name == "quadrotor":
+                    ok &= k7a_case(fns["fused_backward"], name, st, rho_val,
+                                   X=st["X"][tile].contiguous(),
+                                   U=st["U"][tile].contiguous())
         K, d, dV1, dV2, _ = fused_backward_cuda(
             st["model"], st["X"], st["U"], st["dt_traj"], st["obj"], one)
         st.update(K=K, d=d, dV1=dV1, dV2=dV2)
@@ -343,16 +393,25 @@ def main():
             st["model"], x0, st["X"], st["U"], K, d, dV1, dV2, J_prev, one,
             one.clone(), alpha0, st["dt_traj"], st["obj"], opts))
         if name == "quadrotor":      # slice 3 arm (a): B = 1024
-            tile = torch.arange(B, device=dev).repeat(8)
             big = [t[tile].contiguous() for t in (
                 x0, st["X"], st["U"], K, d, dV1, dV2, J_prev, one, one,
                 alpha0)]
             ok &= k7b_case(fns["fused_forward"], name, (
                 st["model"], *big, st["dt_traj"], st["obj"], opts))
+    # kuka on path (a)'s inputs: K7a, and K5 (14,7) at B = 128 and at the
+    # pool's 64
+    st = cs.kuka_free_setup()
+    ins = cs.sweep_inputs(st, torch.float32)
+    for rho_val in (1.0, 0.0):
+        ok &= k7a_case(fns["fused_backward"], "kuka", st, rho_val)
+        for reg_state in (False, True):
+            ok &= k5_case(fns["riccati_sweep"], "kuka", ins, reg_state,
+                          rho_val)
+    ok &= k5_case(fns["riccati_sweep"], "kuka",
+                  [t[:64].contiguous() for t in ins], False)
     # K3's cartpole at B = 1024 (slice 3 arm (c))
     st = next(st for st in setups if st["label"] == "cartpole")
     p = st["p32"]
-    tile = torch.arange(B, device=dev).repeat(8)
     X, U, lam, mu = (t[tile].contiguous() for t in st["data"])
     ok &= k3_case(fns["fused_al_backward"], "cartpole", p.model, st["canon"],
                   X, U, lam, mu, p.dt_traj(), p.obj,

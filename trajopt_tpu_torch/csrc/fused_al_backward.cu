@@ -28,10 +28,11 @@
 // knots, each a chain of small dependent products and an m-pivot
 // elimination.
 //
-// Design: a knot pipeline. Only the Riccati step depends on the carry
-// (Sx, Sxx); a knot's Jacobians, stage and AL expansion read only X, U, λ,
-// μ and the objective. So one block takes one problem with Wc consumer
-// warps and Wp producer warps. Producer p expands the knots k = N−2−p,
+// Design: a knot pipeline (knot_pipeline.cuh, shared with K7a and K5).
+// Only the Riccati step depends on the carry (Sx, Sxx); a knot's
+// Jacobians, stage and AL expansion read only X, U, λ, μ and the
+// objective. So one block takes one problem with Wc consumer warps and Wp
+// producer warps. Producer p expands the knots k = N−2−p,
 // N−2−p−Wp, … ahead of the sweep into a ring of S slots in shared memory
 // (KnotInputs: A, B, lx … lux, 4.4 KB a slot for the maze), each slot with
 // a full and an empty mbarrier; producers never wait on the carry. The Wc
@@ -58,14 +59,12 @@
 #include <stdint.h>
 
 #include "canon.cuh"
+#include "knot_pipeline.cuh"
 #include "models.cuh"
-#include "riccati_step.cuh"
 
 namespace {
 
 using namespace trajopt;
-
-constexpr int kMaxWarps = 8;
 
 // (Wc, Wp) in order of preference, the largest block first. Measured by
 // tools/k3_launch_shape.py (H100, ms a launch at B = 128; the lone warp,
@@ -76,11 +75,7 @@ constexpr int kMaxWarps = 8;
 //   kuka (checks only)    8.92 | (1,7) 4.76 | (2,6) 4.90 | (4,4) 5.04
 // so (4, 4) first; at B = 1024 (1, 1) beats the lone warp by 1.2-1.3x on
 // the maze, car_slack and the cartpole.
-struct Shape {
-  int Wc, Wp;
-};
-constexpr int kNumShapes = 3;
-constexpr Shape kShapes[kNumShapes] = {{4, 4}, {2, 2}, {1, 1}};
+constexpr ShapeList kShapes{3, {{4, 4}, {2, 2}, {1, 1}}};
 
 struct Args {
   const float *X, *U, *lam, *mu, *dt, *Q, *R, *H, *q, *r, *rho;
@@ -92,39 +87,6 @@ struct Args {
   float atol;
 };
 
-// ------------------------------------------------------------ mbarriers
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival (release: this thread's shared-memory writes come first)
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// waits until the phase of parity `parity` has completed (acquire)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
 // ------------------------------------------------------- shared memory
 
 // a warp's scratch for one knot's expansion; g and Iμ of the P rows follow
@@ -135,36 +97,15 @@ struct Expansion {
   float alx[NX], alu[NU], alxx[NX * NX], aluu_d[NU];
 };
 
-__host__ __device__ constexpr size_t align16(size_t n) {
-  return (n + 15) & ~(size_t)15;
-}
-
-// The block's dynamic shared memory at (Wc, Wp) and P rows: 2S mbarriers,
-// S = 2Wp slots (one without producers), the consumers' Riccati state,
-// and Wp + 1 expansion scratches (the consumers' one for the terminal
-// knot, or the lone warp's).
+// The block's dynamic shared memory at (Wc, Wp) and P rows: the ring of
+// S = 2Wp slots (one without producers), the consumers' Riccati state, and
+// Wp + 1 expansion scratches (the consumers' one for the terminal knot, or
+// the lone warp's).
 template <int NX, int NU>
-struct Layout {
-  int S, Wp, P;
-  __host__ __device__ Layout(int Wp_, int P_)
-      : S(Wp_ > 0 ? 2 * Wp_ : 1), Wp(Wp_), P(P_) {}
-  __host__ __device__ size_t slot_bytes() const {
-    return align16(sizeof(KnotInputs<NX, NU>));
-  }
-  __host__ __device__ size_t scratch_bytes() const {
-    return align16(sizeof(Expansion<NX, NU>) + 2 * sizeof(float) * P);
-  }
-  __host__ __device__ size_t slots() const { return align16(16 * S); }
-  __host__ __device__ size_t state() const {
-    return slots() + S * slot_bytes();
-  }
-  __host__ __device__ size_t scratch() const {
-    return state() + align16(sizeof(RiccatiState<NX, NU>));
-  }
-  __host__ __device__ size_t bytes() const {
-    return scratch() + (Wp + 1) * scratch_bytes();
-  }
-};
+__host__ __device__ RingLayout<NX, NU> layout(int Wp, int P) {
+  return RingLayout<NX, NU>(ring_slots(Wp, 1), Wp + 1,
+                            sizeof(Expansion<NX, NU>) + 2 * sizeof(float) * P);
+}
 
 // ------------------------------------------------------------ the knots
 
@@ -256,46 +197,30 @@ template <class M, bool Slack>
 __global__ void __launch_bounds__(32 * kMaxWarps) fused_al_backward_kernel(
     Args a, CanonTables tab, int Wc, int Wp) {
   constexpr int NX = M::NX, MB = M::NU, NU = Slack ? MB + NX : MB;
-  using In = KnotInputs<NX, NU>;
   using Ex = Expansion<NX, NU>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<NX, NU> L(Wp, tab.P);
-  const int S = L.S, N = a.N, P = tab.P, b = blockIdx.x;
+  const Ring<NX, NU> r{smem, layout<NX, NU>(Wp, tab.P)};
+  const int S = r.L.S, N = a.N, P = tab.P, b = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* empty = full + S;
-  auto slot = [&](int s) -> In& {
-    return *reinterpret_cast<In*>(smem + L.slots() + s * L.slot_bytes());
-  };
-  RiccatiState<NX, NU>& w =
-      *reinterpret_cast<RiccatiState<NX, NU>*>(smem + L.state());
   auto scratch = [&](int i) -> Ex& {
-    return *reinterpret_cast<Ex*>(smem + L.scratch() + i * L.scratch_bytes());
+    return *reinterpret_cast<Ex*>(r.scratch(i));
   };
 
   // the barriers, and the slack columns of every slot's B: the identity,
   // once and for all
-  const bool solo = Wp == 0;
-  if (threadIdx.x == 0 && !solo) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(full + s, 32);
-      mbar_init(empty + s, 32 * Wc);
-    }
-  }
+  r.init(Wc, Wp);
   if constexpr (Slack) {
     for (int s = 0; s < S; ++s)
       for (int e = threadIdx.x; e < NX * NX; e += blockDim.x)
-        slot(s).B[(e / NX) * NU + MB + e % NX] =
+        r.slot(s).B[(e / NX) * NU + MB + e % NX] =
             (e / NX == e % NX) ? 1.0f : 0.0f;
   }
   __syncthreads();
 
-  const bool cons = warp < Wc, prod = solo || !cons;
-  const int nt = 32 * Wc;
-  const NamedSync sync{1, nt};
-  const float rho = a.rho[b];
+  const bool cons = warp < Wc;
   if (cons) {
     // terminal knot: Sx = Q_N x_N + q_N + alx, Sxx = Q_N + alxx (u = 0)
+    RiccatiState<NX, NU>& w = r.state();
     if (warp == 0) {
       Ex& s = scratch(0);
       float* g_s = reinterpret_cast<float*>(&s + 1);
@@ -315,36 +240,20 @@ __global__ void __launch_bounds__(32 * kMaxWarps) fused_al_backward_kernel(
       }
       for (int e = lane; e < NX * NX; e += 32) w.Sxx[e] = QN[e] + s.alxx[e];
     }
-    sync();
+    NamedSync{1, 32 * Wc}();
   }
 
-  // sweep index i = N − 2 − k: the producers take i = p, p + Wp, …, the
-  // consumers every i in turn, slot i mod S in its generation i / S
-  const int first = solo || cons ? 0 : warp - Wc;
-  const int stride = solo || cons ? 1 : Wp;
-  Ex& mine = scratch(solo || cons ? 0 : 1 + warp - Wc);
+  // one knot a producer step, into its slot with the producer's scratch
+  Ex& mine = scratch(Wp == 0 || cons ? 0 : 1 + warp - Wc);
   float* g_s = reinterpret_cast<float*>(&mine + 1);
   float dV1 = 0.0f, dV2 = 0.0f;
-  bool fail = false;
-  for (int i = first; i < N - 1; i += stride) {
-    const int k = N - 2 - i, s = i % S;
-    const unsigned gen = i / S;
-    In& in = slot(s);
-    if (prod) {
-      if (!solo && gen > 0) mbar_wait(empty + s, (gen - 1) & 1);
-      expand_knot<M, Slack>(a, tab, b, k, in, mine, g_s, g_s + P, lane);
-      if (!solo) mbar_arrive(full + s);
-    }
-    if (cons) {
-      if (!solo) mbar_wait(full + s, gen & 1);
-      const size_t bk = (size_t)b * (N - 1) + k;
-      const bool fail_k = riccati_step<NX, NU>(
-          in, w, rho, a.reg_state != 0, a.K + bk * NU * NX, a.d + bk * NU,
-          dV1, dV2, threadIdx.x, nt, sync);
-      fail = fail || fail_k;
-      if (!solo) mbar_arrive(empty + s);
-    }
-  }
+  const size_t b0 = (size_t)b * (N - 1);
+  const bool fail = knot_pipeline<NX, NU>(
+      r, Wc, Wp, 1, N, a.rho[b], a.reg_state != 0, a.K + b0 * NU * NX,
+      a.d + b0 * NU, dV1, dV2, [&](int i, int) {
+        expand_knot<M, Slack>(a, tab, b, N - 2 - i, r.slot(i % S), mine,
+                              g_s, g_s + P, lane);
+      });
   if (threadIdx.x == 0) {
     a.dV[b] = dV1;
     a.dV[a.batch + b] = dV2;
@@ -354,18 +263,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps) fused_al_backward_kernel(
 
 // ------------------------------------------------------------ the launch
 
-// The kernel's dynamic shared memory raised to `need` bytes where that is
-// above the default 48 KB (once per device and size)
 template <class M, bool Slack>
-cudaError_t allow_smem(int dev, size_t need) {
-  static size_t allowed[16];
-  if (need <= 48 * 1024 || dev >= 16 || need <= allowed[dev])
-    return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      fused_al_backward_kernel<M, Slack>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
-  if (e == cudaSuccess) allowed[dev] = need;
-  return e;
+LaunchCache& launch_cache() {
+  static LaunchCache cache;
+  return cache;
+}
+
+template <class M, bool Slack>
+constexpr int nu_of() {
+  return Slack ? M::NU + M::NX : M::NU;
 }
 
 // Launches the sweep at (Wc, Wp); returns the CUDA error and the block's
@@ -373,17 +279,11 @@ cudaError_t allow_smem(int dev, size_t need) {
 template <class M, bool Slack>
 int launch_shape(const Args& a, const CanonTables& tab, Shape sh,
                  size_t* bytes, cudaStream_t stream) {
-  constexpr int NU = Slack ? M::NU + M::NX : M::NU;
-  const size_t need = Layout<M::NX, NU>(sh.Wp, tab.P).bytes();
+  const size_t need = layout<M::NX, nu_of<M, Slack>()>(sh.Wp, tab.P).bytes();
   if (bytes) *bytes = need;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = allow_smem<M, Slack>(dev, need);
-  if (e != cudaSuccess) return (int)e;
-  fused_al_backward_kernel<M, Slack>
-      <<<a.batch, 32 * (sh.Wc + sh.Wp), need, stream>>>(a, tab, sh.Wc,
-                                                          sh.Wp);
-  return (int)cudaGetLastError();
+  return launch_ring(fused_al_backward_kernel<M, Slack>, a.batch,
+                     32 * (sh.Wc + sh.Wp), need, launch_cache<M, Slack>(),
+                     stream, a, tab, sh.Wc, sh.Wp);
 }
 
 // The first shape of kShapes whose `batch` blocks fit on the card in one
@@ -391,39 +291,18 @@ int launch_shape(const Args& a, const CanonTables& tab, Shape sh,
 // The blocks an SM holds are cached per device, shape and P.
 template <class M, bool Slack>
 Shape shape_for(int batch, int P) {
-  constexpr int NU = Slack ? M::NU + M::NX : M::NU;
-  static int cached_P[16][kNumShapes], per_sm[16][kNumShapes];
-  int dev = 0, sms = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 16 ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return {0, 0};
-  for (int i = 0; i < kNumShapes; ++i) {
-    const Shape sh = kShapes[i];
-    if (cached_P[dev][i] != P + 1) {
-      const size_t need = Layout<M::NX, NU>(sh.Wp, P).bytes();
-      int n = 0;
-      if (need <= (size_t)optin) {
-        if (allow_smem<M, Slack>(dev, need) != cudaSuccess ||
-            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &n, fused_al_backward_kernel<M, Slack>, 32 * (sh.Wc + sh.Wp),
-                need) != cudaSuccess)
-          return {0, 0};
-      }
-      per_sm[dev][i] = n;
-      cached_P[dev][i] = P + 1;
-    }
-    if ((long long)per_sm[dev][i] * sms >= batch) return sh;
-  }
-  return {1, 0};
+  return first_shape_in_one_wave(
+      reinterpret_cast<const void*>(fused_al_backward_kernel<M, Slack>),
+      kShapes, batch, P,
+      [&](Shape sh) {
+        return layout<M::NX, nu_of<M, Slack>()>(sh.Wp, P).bytes();
+      },
+      launch_cache<M, Slack>());
 }
 
 template <class M, bool Slack>
 int launch(const Args& a, const CanonTables& tab, int* shape,
            cudaStream_t stream) {
-  constexpr int NU = Slack ? M::NU + M::NX : M::NU;
   const Shape sh = shape_for<M, Slack>(a.batch, tab.P);
   if (sh.Wc < 1) return (int)cudaErrorInvalidValue;
   size_t bytes = 0;
@@ -431,7 +310,7 @@ int launch(const Args& a, const CanonTables& tab, int* shape,
   if (shape) {
     shape[0] = sh.Wc;
     shape[1] = sh.Wp;
-    shape[2] = Layout<M::NX, NU>(sh.Wp, tab.P).S;
+    shape[2] = layout<M::NX, nu_of<M, Slack>()>(sh.Wp, tab.P).S;
     shape[3] = (int)bytes;
   }
   return err;

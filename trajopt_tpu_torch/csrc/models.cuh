@@ -749,10 +749,11 @@ __device__ __forceinline__ void chain_dynamics_warp(
 // the CRBA for H, the RNEA with q̈ = 0 for the bias, then the solve),
 // written for one thread, and the same dynamics over one warp
 // (chain_dynamics_warp) in step_warp, which K2, K4 and K7b call. The
-// one-thread form stays for K3 and K7a (in Dual) until the Dual step has a
-// warp form. Not inlined: the RK3 step calls it three times, and its ~700
-// values (7 Xup, 7 composite inertias, v, a, f, H) live in local memory
-// whatever the inlining. For the same reason the sweeps over the joints are
+// one-thread form is K3's and K7a's, in Dual, one tangent a lane (K7a runs
+// several knots a warp; a warp form of the Dual step measured slower or at
+// most 1.23x faster: PERF.md). Not inlined: the RK3 step calls it
+// three times, and its ~700 values (7 Xup, 7 composite inertias, v, a, f,
+// H) live in local memory whatever the inlining. For the same reason the sweeps over the joints are
 // not unrolled (a joint's parent is read from the table): unrolled, the
 // Dual form of K3 took nvcc about two minutes.
 template <int NDOF, int NU_>

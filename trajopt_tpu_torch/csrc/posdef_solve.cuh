@@ -1,6 +1,6 @@
 // Jacobi-equilibrated positive-definite elimination by a team of threads
-// (one warp, or K3's consumer warps), on an augmented matrix in shared
-// memory.
+// (the consumer warps of a knot pipeline, or its lone warp), on an
+// augmented matrix in shared memory.
 //
 // Counterpart of _posdef_solve_lanes (trajopt_tpu/ops/pallas_riccati.py:84)
 // and of the plain version ops/linalg.py::posdef_solve: the elimination

@@ -1,14 +1,14 @@
 // One knot of the Riccati sweep by a team of threads, on matrices in shared
-// memory: one warp (riccati_step_warp), or the consumer warps of the fused
-// AL backward kernel.
+// memory: the Wc consumer warps of a knot pipeline (knot_pipeline.cuh), or
+// its lone warp.
 //
 // Counterpart of the loop body of _fused_al_backward_kernel
 // (trajopt_tpu/ops/pallas_al_fused.py:464-500) and of _riccati_kernel
 // (ops/pallas_riccati.py); the plain version is ops/riccati.py::scan_sweep.
-// Used by the fused AL backward kernel (fused_al_backward.cu, over Wc
-// warps), the fused backward kernel (fused_backward.cu) and the plain
-// Riccati kernel (riccati_sweep.cu), which takes A, B and the expansion from
-// memory (one warp each).
+// Used by the fused AL backward kernel (fused_al_backward.cu), the fused
+// backward kernel (fused_backward.cu) and the plain Riccati kernel
+// (riccati_sweep.cu), which takes A, B and the expansion from memory, each
+// over Wc warps.
 //
 //   Qx = lx + AᵀSx        Qxx = lxx + AᵀSxxA     Qux = lux + BᵀSxxA
 //   Qu = lu + BᵀSx        Quu = luu + BᵀSxxB
@@ -53,10 +53,6 @@ struct RiccatiState {
   float aug[NU * LD], dscale[NU], piv[NU];
   float K[NU * NX], d[NU], Quud[NU], QuuK[NU * NX];
 };
-
-// Both, for one warp that fills the inputs and runs the step.
-template <int NX, int NU>
-struct RiccatiWork : KnotInputs<NX, NU>, RiccatiState<NX, NU> {};
 
 // Runs the step on the inputs `in` and the carry Sx, Sxx of `w` by thread t
 // of a team of nt threads (a multiple of 32) whose barrier is `sync`:
@@ -179,17 +175,6 @@ __device__ __forceinline__ bool riccati_step(const KnotInputs<NX, NU>& in,
   }
   sync();
   return fail;
-}
-
-// The step by one warp on a RiccatiWork that holds its inputs (K5, K7a).
-template <int NX, int NU>
-__device__ __forceinline__ bool riccati_step_warp(RiccatiWork<NX, NU>& w,
-                                                  float rho, bool reg_state,
-                                                  float* K_out, float* d_out,
-                                                  float& dV1, float& dV2,
-                                                  int lane) {
-  return riccati_step<NX, NU>(w, w, rho, reg_state, K_out, d_out, dV1, dV2,
-                              lane, 32, WarpSync{});
 }
 
 }  // namespace trajopt

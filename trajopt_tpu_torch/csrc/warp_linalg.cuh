@@ -1,6 +1,6 @@
 // Small dense linear algebra for a team of threads working on matrices in
-// shared memory: one warp (the Riccati step of K5 and K7a) or the consumer
-// warps of K3 (fused_al_backward.cu). The threads split the entries of a
+// shared memory: the consumer warps of a knot pipeline (K3, K5, K7a:
+// knot_pipeline.cuh), or its lone warp. The threads split the entries of a
 // product, each entry one dot product; the sizes are compile-time
 // constants, so the inner loops unroll.
 #pragma once
@@ -40,13 +40,8 @@ __device__ __forceinline__ float add_dot(float add, const float* A, int sar,
   }
 }
 
-// The barrier of a team: one warp ...
-struct WarpSync {
-  __device__ __forceinline__ void operator()() const { __syncwarp(); }
-};
-
-// ... or the warps of a named barrier (bar.sync id, threads), which the
-// other warps of the block never touch
+// The barrier of a team: the warps of a named barrier (bar.sync id,
+// threads), which the other warps of the block never touch
 struct NamedSync {
   int id, threads;
   __device__ __forceinline__ void operator()() const {

@@ -49,10 +49,16 @@ SIGNATURES = {
         # error_state, dt, max_state, max_control, stream
         "trajopt_rollout_f32": (_P,) * 10 + (_I,) * 4 + (_F,) * 3 + (_P,)},
     "riccati_sweep": {
+        # n, m, batch, shape (4 ints of host memory) -> the launch's Wc, Wp,
+        # S and shared bytes at that batch
+        "trajopt_riccati_sweep_shape": (_I, _I, _I, _P),
         # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m,
         # reg_state, stream
         "trajopt_riccati_sweep_f32": (_P,) * 12 + (_I,) * 5 + (_P,)},
     "fused_backward": {
+        # model, batch, shape (5 ints of host memory) -> the launch's Wc,
+        # Wp, S, shared bytes and knots a producer step at that batch
+        "trajopt_fused_backward_shape": (_I, _I, _P),
         # X, U, dt, Q, R, H, q, r, rho, chain, K, d, dV, fail, Aout, Bout,
         # batch, N, model, reg_state, stream
         "trajopt_fused_backward_f32": (_P,) * 16 + (_I,) * 4 + (_P,)},

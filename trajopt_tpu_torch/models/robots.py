@@ -152,10 +152,15 @@ def cartpole_urdf_model() -> Model:
 
 
 def kuka_hold_trajectory(chain: RigidBodyChain, q, N: int,
-                         dtype=torch.float64, device="cpu"):
+                         dtype=torch.float64, device=None):
     """Gravity-compensation controls (N-1, nd) holding configuration q
-    (reference hold_trajectory, dynamics/kuka.jl:129-145)."""
-    q = torch.as_tensor(np.asarray(q), dtype=dtype, device=device)
+    (reference hold_trajectory, dynamics/kuka.jl:129-145). ``device`` None
+    follows ``q`` where it is a tensor, else is the current CUDA device
+    (``resolve_device``)."""
+    if device is None:
+        device = q.device if isinstance(q, torch.Tensor) else \
+            resolve_device()
+    q = torch.as_tensor(q, dtype=dtype, device=device)
     tau = chain.bias_forces(q, torch.zeros_like(q))
     return tau.expand(N - 1, q.shape[0])
 

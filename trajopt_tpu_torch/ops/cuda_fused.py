@@ -7,7 +7,9 @@ iteration is two programs:
 
 - backward (K7a, ``csrc/fused_backward.cu``): per knot, inside the backward
   sweep, the discrete-step Jacobians, the quadratic stage expansion and the
-  Riccati step; A, B and the expansion never reach device memory;
+  Riccati step; A, B and the expansion never reach device memory; producer
+  warps expand the knots ahead of the consumer warps that run the Riccati
+  step (``fused_backward_shape`` tells the block it takes);
 - forward (K7b, ``csrc/fused_forward.cu``): the whole backtracking line
   search, the rollout and the cost of every candidate (W candidates of a
   problem at once, ``csrc/line_search_rounds.cuh``), per-problem α, the
@@ -25,6 +27,7 @@ batch are run-time arguments, and the divergence limits are the defaults
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
@@ -129,6 +132,19 @@ def fused_backward_cuda(model, X, U, dt_traj, obj: Objective, rho,
 # launches in all, and by the kernel's instantiation
 fused_backward_cuda.launches = 0
 fused_backward_cuda.launches_by = collections.Counter()
+
+
+def fused_backward_shape(model, batch: int) -> dict:
+    """The block K7a launches for ``model`` at ``batch`` problems on the
+    current CUDA device (``csrc/knot_pipeline.cuh``): its consumer and
+    producer warps, the slots of its ring, its shared-memory bytes and the
+    knots a producer warp expands at once."""
+    cm = cuda_model(model, "fused_backward_shape")
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.load().trajopt_fused_backward_shape(
+        cm.id, batch, ctypes.addressof(out)), "trajopt_fused_backward_shape")
+    return dict(consumers=out[0], producers=out[1], slots=out[2],
+                smem_bytes=out[3], knots_a_step=out[4])
 
 
 def fused_forward_cuda(model, x0, X, U, K, d, dV1, dV2, J_prev, rho, drho,

@@ -2,7 +2,9 @@
 
 ``riccati_sweep_cuda`` wraps ``csrc/riccati_sweep.cu``, the counterpart of
 ``trajopt_tpu/ops/pallas_riccati.py::riccati_sweep_pallas``: the backward
-pass of the default ``bp_type='scan'``. Its plain version is
+pass of the default ``bp_type='scan'``, a load pipeline (producer warps
+copy the knots into shared memory ahead of the consumer warps that run the
+Riccati step; ``riccati_sweep_shape`` tells the block it takes). Its plain version is
 ``ops/riccati.py::scan_sweep``. A tensor on the CPU goes to the plain
 version; a CUDA tensor goes to the kernel, and anything the kernel does not
 take raises.
@@ -10,6 +12,7 @@ take raises.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
@@ -69,3 +72,17 @@ def riccati_sweep_cuda(A, B, lx, lu, lxx, luu, lux, rho,
 # launches in all, and by the kernel's instantiation
 riccati_sweep_cuda.launches = 0
 riccati_sweep_cuda.launches_by = collections.Counter()
+
+
+def riccati_sweep_shape(n: int, m: int, batch: int) -> dict:
+    """The block K5 launches for (n, m) at ``batch`` problems on the current
+    CUDA device (``csrc/knot_pipeline.cuh``): its consumer and producer
+    warps, the slots of its ring and its shared-memory bytes."""
+    if (n, m) not in SHAPES:
+        raise NotImplementedError(
+            f"riccati_sweep_shape: no kernel instantiation for n={n}, m={m}")
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().trajopt_riccati_sweep_shape(
+        n, m, batch, ctypes.addressof(out)), "trajopt_riccati_sweep_shape")
+    return dict(consumers=out[0], producers=out[1], slots=out[2],
+                smem_bytes=out[3])

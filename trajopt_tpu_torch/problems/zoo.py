@@ -356,6 +356,7 @@ def kuka_obstacles(dtype=torch.float64, device=None):
              knots=range(0, N - 1))
     cons.add(obs, knots=range(1, N - 1))
     cons.add(goal_constraint(xf))
-    U0 = robots.kuka_hold_trajectory(chain, x0[:7], N).numpy()
+    U0 = robots.kuka_hold_trajectory(chain, x0[:7], N,
+                                     device="cpu").numpy()
     return problem(model_d, obj, constraints=cons, x0=x0, xf=xf, N=N, tf=5.0,
                    U0=U0, dtype=dtype, device=device)
