@@ -15,7 +15,12 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
    card, float32, at the main path's shapes (B=128, N=101, error state
    n=12, m=4), on error-state linearizations of ``quadrotor_line`` around
    128 perturbed starts, for rho in {0, 1e-2}; at rho = 0 one problem needs
-   the equilibrated Cholesky fallback and one fails outright;
+   the equilibrated Cholesky fallback and one fails outright; its block
+   (Wc consumer and Wp producer warps, the ring's S slots, G knots a
+   producer step) and its launch shapes (B = 128, 1024, 1152 and 33,
+   bitwise equal, the branch problems among them); its time at B = 1024;
+   and the cartpole's (4, 1) and the car's (3, 2) sweeps and two at
+   (5, 3) and (13, 17), which no model gives, against the plain version;
 3. kernel K2 (``csrc/rollout.cu``, the quadrotor's error state) against its plain version on
    the card, float32, B=128, N=101, with two lanes forced to diverge, and on
    stiff gains against the plain version in float64; and its launch shapes:
@@ -617,8 +622,9 @@ def phase_build(report):
         for line in path.with_suffix(".log").read_text().splitlines():
             if line.strip():
                 log("nvcc:", line.strip())
-    for stem in ("rollout", "fused_al_forward", "fused_al_backward",
-                 "fused_forward", "fused_backward", "riccati_sweep"):
+    for stem in ("sqrt_sweep", "rollout", "fused_al_forward",
+                 "fused_al_backward", "fused_forward", "fused_backward",
+                 "riccati_sweep"):
         for name, regs, stack, spill in ptxas_report(
                 libs[stem].with_suffix(".log").read_text()):
             log(f"ptxas {stem}: {name}: {regs} registers, {stack} B stack, "
@@ -626,9 +632,9 @@ def phase_build(report):
     log("K2 launch shape: one warp a problem, blocks of "
         "32 threads (csrc/rollout.cu kWarpsPerBlock = 1); K4 and K7b: a "
         "block of 32·W threads a problem, W from the batch (printed by each "
-        "K4 and K7b check); K3, K5 and K7a: Wc consumer and Wp producer "
-        "warps a problem (printed by each K3 check, the K5 and K7a "
-        "launch-shape checks and each K5 and K7a timing)")
+        "K4 and K7b check); K1, K3, K5 and K7a: Wc consumer and Wp "
+        "producer warps a problem (printed by each K3 check, the K1, K5 and "
+        "K7a launch-shape checks and each K1, K5 and K7a timing)")
 
     dev = torch.device("cuda", 0)
     z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)  # noqa
@@ -832,26 +838,60 @@ def quadrotor_objective(dtype):
     return quadrotor_line(N=N, dtype=dtype).obj
 
 
-def phase_k1(report):
-    """K1 on the recipe of tests/test_pallas.py: open-loop rollouts from
-    starts with 0.02 noise on every state entry, with two stages made
+def k1_inputs():
+    """K1's inputs on the recipe of tests/test_pallas.py: open-loop rollouts
+    from starts with 0.02 noise on every state entry, with two stages made
     indefinite (``EQ_AT``, ``FAIL_AT``) so that the kernel's equilibrated
-    fallback and its fail branch run."""
-    import torch
-    from trajopt_tpu_torch.ops.cost import Expansion
-    from trajopt_tpu_torch.ops.cuda_sqrt import (
-        equilibrated_chol_upper, plain_chol_upper, sqrt_sweep,
-        sqrt_sweep_cuda)
-
+    fallback and its fail branch run at rho = 0. Returns the sweep inputs
+    (A, B, lx, lu, lxx, luu, lux) and the linearization."""
     rng = np.random.default_rng(3)
     lin = linearization(quad_x0_np()[None]
                         + rng.normal(size=(B, 13)) * 0.02)
     (A, Bm, lx, lu, lxx, luu, lux), _, _, _ = lin
-    check(A.shape == (B, N - 1, 12, 12) and Bm.shape == (B, N - 1, 12, 4),
-          "K1 input shapes")
     luu = luu.clone()
     indefinite(luu, EQ_AT, 1.0 + 2e-4)
     indefinite(luu, FAIL_AT, 1.5)
+    return [A, Bm, lx, lu, lxx, luu, lux], lin
+
+
+def k1_any_shape_inputs(n=5, m=3, steps=20, seed=11):
+    """K1's inputs at an (n, m) that no model gives, (5, 3) by default (the
+    kernel's instantiation with run-time sizes): B problems of ``steps``
+    knots, random dynamics near the identity, positive definite stage
+    Hessians, in float64 on the card."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return torch.as_tensor(rng.normal(size=shape), device=dev)
+
+    eye = lambda k: torch.eye(k, dtype=torch.float64, device=dev)  # noqa
+    L = r(n, n) * 0.3
+    Q = L @ L.T + 0.1 * eye(n)
+    return [eye(n) + 0.1 * r(B, steps, n, n), 0.1 * r(B, steps, n, m),
+            0.1 * r(B, steps + 1, n), 0.1 * r(B, steps, m),
+            Q.expand(B, steps + 1, n, n).contiguous(),
+            eye(m).expand(B, steps, m, m).contiguous(),
+            0.01 * r(B, steps, m, n)]
+
+
+def phase_k1(report):
+    """K1 against its plain version on ``k1_inputs``, its launch shapes
+    (bitwise, the branch problems among them), its time at B = 128 (slice
+    1) and 1024, and the cartpole's (4, 1) and the car's (3, 2) sweeps
+    against the plain version."""
+    import torch
+    from trajopt_tpu_torch.ops.cost import Expansion
+    from trajopt_tpu_torch.ops.cuda_sqrt import (
+        equilibrated_chol_upper, plain_chol_upper, sqrt_sweep,
+        sqrt_sweep_cuda, sqrt_sweep_shape)
+
+    ins, lin = k1_inputs()
+    A, Bm, lx, lu, lxx, luu, lux = ins
+    check(A.shape == (B, N - 1, 12, 12) and Bm.shape == (B, N - 1, 12, 4),
+          "K1 input shapes")
     # the EQ_AT stage at rho = 0: the plain factor breaks down, the
     # equilibrated one holds, so the problem fails unless that branch runs
     joint = torch.cat([torch.cat([luu[EQ_AT], lux[EQ_AT]], -1),
@@ -863,8 +903,7 @@ def phase_k1(report):
     worst = 0.0
     for rho_val in (0.0, 1e-2):
         rho = torch.full((B,), rho_val, device=A.device)
-        K1, d1, v11, v21, f1 = sqrt_sweep_cuda(A, Bm, lx, lu, lxx, luu, lux,
-                                               rho)
+        K1, d1, v11, v21, f1 = sqrt_sweep_cuda(*ins, rho)
         torch.cuda.synchronize()
         K0, d0, v10, v20, f0 = sqrt_sweep(A, Bm, exp, rho)
         check(K1.shape == K0.shape and d1.shape == d0.shape, "K1 shapes")
@@ -902,12 +941,18 @@ def phase_k1(report):
         for a, b in ((v11, v10), (v21, v20)):
             torch.testing.assert_close(a, b, rtol=DV_RTOL, atol=DV_ATOL)
         worst = max(worst, eK)
+        # the same problems at B = 1024, 1152 and 33: other blocks, the
+        # same bits, the branch problems' among them
+        launch_shapes(f"K1 rho={rho_val:g}", sqrt_sweep_cuda, [*ins, rho],
+                      range(8), shape_of=lambda c: ring_shape_text(
+                          sqrt_sweep_shape(12, 4, c)))
+
     rho = torch.zeros(B, device=A.device)
-    ms = cuda_time_ms(lambda: sqrt_sweep_cuda(A, Bm, lx, lu, lxx, luu, lux,
-                                              rho), reps=20)
+    ms = cuda_time_ms(lambda: sqrt_sweep_cuda(*ins, rho), reps=20)
     plain_ms = cuda_time_ms(lambda: sqrt_sweep(A, Bm, exp, rho), reps=3,
                             warmup=1)
-    log(f"K1 time per sweep: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+    big = [t.repeat((8,) + (1,) * (t.ndim - 1)) for t in (*ins, rho)]
+    ms8 = cuda_time_ms(lambda: sqrt_sweep_cuda(*big), reps=10)
     # per knot (n = 12, m = 4, p = n + m): the joint factor's Cholesky, the
     # product Ssqrt [B A], the Householder QR of the (p + n) x p stack, and
     # the small solves and updates
@@ -917,15 +962,42 @@ def phase_k1(report):
                 + mm(m_, n_, m_) + 3 * mm(n_, 1, m_) + mm(m_, n_, m_))
     bound_ms, bound_by = bound(
         B * (N - 1) * per_knot,
-        nbytes(A, Bm, lx, lu, lxx, luu, lux, rho) + 4 * B * (N - 1) * (
-            m_ * n_ + m_) + 9 * B)
-    log(f"K1 bound: {bound_ms:.5f} ms by {bound_by}")
+        nbytes(*ins, rho) + 4 * B * (N - 1) * (m_ * n_ + m_) + 9 * B)
+    log(f"K1 time per sweep: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms by {bound_by}; "
+        + ring_shape_text(sqrt_sweep_shape(n_, m_, B)))
+    log(f"K1 at B={8 * B}: kernel {ms8:.4f} ms per sweep, bound "
+        f"{8 * bound_ms:.5f} ms; " + ring_shape_text(
+            sqrt_sweep_shape(n_, m_, 8 * B)))
+
+    # other shapes of the kernel's: the cartpole's (4, 1) and the car's
+    # (3, 2) (bp_type='sqrt' is an option of any model), and (5, 3) and
+    # (13, 17), which no model gives (one knot a producer step at p = 30),
+    # held to the plain version as K5's sweeps are
+    smalls = [(name, sweep_inputs(model_setup(name), torch.float64))
+              for name in ("cartpole", "car")]
+    smalls += [("any shape", k1_any_shape_inputs()),
+               ("any shape", k1_any_shape_inputs(13, 17))]
+    for name, small64 in smalls:
+        small = [t.float().contiguous() for t in small64]
+        n, m = small[1].shape[-2:]
+        for rho_val in (0.0, 1e-2):
+            r = torch.full((B,), rho_val, device=A.device)
+            k = sqrt_sweep_cuda(*small, r)
+            torch.cuda.synchronize()
+            p = sqrt_sweep(small[0], small[1], Expansion(*small[2:]), r)
+            p64 = sqrt_sweep(small64[0], small64[1],
+                             Expansion(*small64[2:]), r.double())
+            compare_sweeps(f"K1 {name} ({n},{m}) rho={rho_val:g}", k, p,
+                           p64)
+        log(f"K1 {name} ({n},{m}): " + ring_shape_text(
+            sqrt_sweep_shape(n, m, B)))
     report["kernels"].append(dict(
         name="sqrt_sweep", route="cuda",
         source="trajopt_tpu_torch/csrc/sqrt_sweep.cu",
         replaces="trajopt_tpu/ops/pallas_sqrt.py:321", max_abs_err=worst,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None))
+        library_ms=None, batch=B, ms_b1024=ms8))
     return lin
 
 

@@ -37,6 +37,7 @@ from trajopt_tpu_torch.ops.cuda_riccati import (
 from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
 from trajopt_tpu_torch.ops.cuda_sqrt import (
     equilibrated_chol_upper, plain_chol_upper, sqrt_sweep, sqrt_sweep_cuda,
+    sqrt_sweep_shape,
 )
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 from trajopt_tpu_torch.ops.rollout import rollout, rollout_closed_loop
@@ -1557,3 +1558,96 @@ def test_kuka_hold_trajectory_on_the_card(cuda_device):
     scale = float(ref.abs().max())
     assert float((Ud.cpu() - ref).abs().max()) <= 1e-12 * scale
     assert float((U.cpu() - ref).abs().max()) <= 1e-12 * scale
+
+
+def _k1_branch_inputs(linearization):
+    """K1's inputs of test_sqrt_kernel_branches_match_twin: at rho = 0 lane
+    5 needs the equilibrated factor at knot 7, lane 9 fails at knot 12."""
+    A, Bm, e, _, _, _ = linearization
+    luu = e.uu.clone()
+    _make_indefinite(luu, 5, 7, 1.0 + 2e-4)
+    _make_indefinite(luu, 9, 12, 1.5)
+    return [A, Bm, e.x, e.u, e.xx, luu, e.ux]
+
+
+@pytest.mark.parametrize("count", [33, 600, 1152])
+def test_sqrt_kernel_branches_at_every_launch_shape(linearization, count):
+    """K1 at rho = 0 on the branch inputs tiled to 128 problems (slice 1's
+    batch, one consumer and two producer warps a problem on the H100) and
+    cut or tiled to ``count``, where the one-wave rule takes the other
+    shapes of K1's list ((1, 1) at 600, the lone warp at 1152): one launch
+    counted, exactly the failing lane's problems fail with zero gains at
+    their stage, and every output of every problem bitwise equal to the
+    B = 128 launch's."""
+    ins = _k1_branch_inputs(linearization)
+    dev = ins[0].device
+    tile = torch.arange(128, device=dev) % B
+    ref = sqrt_sweep_cuda(*(t[tile].contiguous() for t in ins),
+                          torch.zeros(128, device=dev))
+    idx = torch.arange(count, device=dev) % 128
+    before = sqrt_sweep_cuda.launches
+    k = sqrt_sweep_cuda(*(t[tile[idx]].contiguous() for t in ins),
+                        torch.zeros(count, device=dev))
+    torch.cuda.synchronize()
+    assert sqrt_sweep_cuda.launches == before + 1
+    assert sqrt_sweep_shape(12, 4, count)["consumers"] == 1
+    failing = tile[idx] == 9
+    assert torch.equal(k[4], failing) and bool(failing.any())
+    assert not bool(k[0][failing][:, 12].any())
+    assert not bool(k[1][failing][:, 12].any())
+    for a, r in zip(k, ref):
+        assert torch.equal(_bits(a), _bits(r[idx]))
+
+
+@pytest.mark.parametrize("name", ["cartpole", "car"])
+def test_sqrt_kernel_small_shapes_match_plain_version(cuda_device, name):
+    """K1 at the cartpole's (4, 1) and the car's (3, 2) (bp_type='sqrt' is
+    an option of any model), rho = 0 and 1e-2: fail flags equal (none), K
+    and d at 1e-3 of scale, ΔV at 1e-4 (or three times the plain version's
+    distance from float64)."""
+    ms = _model_setup(name, cuda_device)
+    A, Bm = ms["model"].jacobian_traj(ms["X64"][:, :-1], ms["U64"],
+                                      ms["dt64"])
+    e = cost_expansion(ms["obj64"], ms["X64"], ms["U64"], ms["dt64"])
+    ins = [t.float().contiguous() for t in (A, Bm, e.x, e.u, e.xx, e.uu,
+                                            e.ux)]
+    for rho_val in (0.0, 1e-2):
+        rho = torch.full((B,), rho_val, device=cuda_device)
+        k = sqrt_sweep_cuda(*ins, rho)
+        torch.cuda.synchronize()
+        p = sqrt_sweep(ins[0], ins[1], Expansion(*ins[2:]), rho)
+        p64 = sqrt_sweep(A, Bm, e, rho.double())
+        assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+        for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
+            _close(k[i], p[i], p64[i], tol)
+
+
+@pytest.mark.parametrize("n,m", [(5, 3), (13, 17)])
+def test_sqrt_kernel_any_shape_matches_plain_version(cuda_device, n, m):
+    """K1 at an (n, m) that no model gives (the kernel's instantiation with
+    run-time sizes; at (13, 17) one knot a producer step), on random data
+    with positive definite stage Hessians, rho = 1e-2: as the small
+    shapes."""
+    rng = np.random.default_rng(11)
+    r = lambda *s: torch.as_tensor(  # noqa: E731
+        rng.normal(size=s), device=cuda_device)
+    L = r(n, n) * 0.3
+    Q = L @ L.T + 0.1 * torch.eye(n, device=cuda_device, dtype=L.dtype)
+    A = torch.eye(n, device=cuda_device, dtype=L.dtype) + 0.1 * r(B, N - 1,
+                                                                 n, n)
+    e = Expansion(x=0.1 * r(B, N, n), u=0.1 * r(B, N - 1, m),
+                  xx=Q.expand(B, N, n, n).contiguous(),
+                  uu=torch.eye(m, device=cuda_device, dtype=L.dtype).expand(
+                      B, N - 1, m, m).contiguous(),
+                  ux=0.01 * r(B, N - 1, m, n))
+    Bm = 0.1 * r(B, N - 1, n, m)
+    ins = [t.float().contiguous() for t in (A, Bm, e.x, e.u, e.xx, e.uu,
+                                            e.ux)]
+    rho = torch.full((B,), 1e-2, device=cuda_device)
+    k = sqrt_sweep_cuda(*ins, rho)
+    torch.cuda.synchronize()
+    p = sqrt_sweep(ins[0], ins[1], Expansion(*ins[2:]), rho)
+    p64 = sqrt_sweep(A, Bm, e, rho.double())
+    assert torch.equal(k[4], p[4]) and not bool(k[4].any())
+    for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
+        _close(k[i], p[i], p64[i], tol)

@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
+from trajopt_tpu.models import zoo as jax_dynamics
+from trajopt_tpu.models.base import discretize as jax_discretize
 from trajopt_tpu.models.quaternions import (
     project_error_state as jax_project_error_state,
 )
 from trajopt_tpu.ops.cost import Expansion as JExpansion
+from trajopt_tpu.ops.cost import LQRObjective as JaxLQRObjective
 from trajopt_tpu.ops.cost import cost_expansion as jax_cost_expansion
 from trajopt_tpu.ops.rollout import rollout as jax_rollout
 from trajopt_tpu.problems.zoo import quadrotor_line as jax_quadrotor_line
@@ -66,10 +69,47 @@ def _linearization_cached(error_state, seed=3):
             {k: np.array(getattr(exp, k)) for k in FIELDS})
 
 
+# The small shapes K1 is also checked at on the card: the cartpole (4, 1)
+# and the car (3, 2) with the weights, goal and dt of the JAX package's
+# zoo problems (problems/zoo.py cartpole, car_3obs), cut to N = 21
+SMALL = {
+    "cartpole": (jax_dynamics.cartpole, 1e-2, 1e-1, [0.0, np.pi, 0.0, 0.0],
+                 0.05),
+    "car": (jax_dynamics.car, 1.0, 1e-1, [1.0, 1.0, 0.0], 0.05),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _small_linearization_cached(name, seed=5):
+    """Open-loop rollouts of a SMALL model from perturbed starts under small
+    random controls, their Jacobians and the LQR cost expansion (numpy)."""
+    dyn, q, r, xf, dt = SMALL[name]
+    model = jax_discretize(dyn, "rk3")
+    n, m = model.n, model.m
+    obj = JaxLQRObjective(np.eye(n) * q, np.eye(m) * r, np.eye(n) * 100.0,
+                          np.asarray(xf), N)
+    dt_traj = jnp.full((N - 1,), dt)
+    rng = np.random.default_rng(seed)
+    x0s = jnp.asarray(rng.normal(size=(B, n)) * 0.1)
+    Us = jnp.asarray(rng.normal(size=(B, N - 1, m)) * 0.1)
+
+    def one(x0, U):
+        X = jax_rollout(model, x0, U, dt_traj)
+        A, Bj = model.jacobian_traj(X[:-1], U, dt_traj)
+        return A, Bj, jax_cost_expansion(obj, X, U, dt_traj)
+
+    A, Bj, exp = jax.vmap(one)(x0s, Us)
+    return (np.asarray(A), np.asarray(Bj),
+            {k: np.array(getattr(exp, k)) for k in FIELDS})
+
+
 def _linearization(error_state):
     """A fresh copy of the cached linearization (tests edit the
-    expansion in place)."""
-    A, Bj, e = _linearization_cached(error_state)
+    expansion in place): the quadrotor's error state (True), its full state
+    (False), or a SMALL model by name."""
+    A, Bj, e = (_small_linearization_cached(error_state)
+                if isinstance(error_state, str)
+                else _linearization_cached(error_state))
     return A, Bj, {k: v.copy() for k, v in e.items()}
 
 
@@ -106,15 +146,21 @@ def _assert_close(ref, out, ktol, dtol, vtol):
 
 
 @pytest.mark.parametrize("rho_val", [0.0, 1e-2])
-@pytest.mark.parametrize("error_state", [True, False],
-                         ids=["error_state", "full_state"])
+@pytest.mark.parametrize("error_state", [True, False, "cartpole", "car"],
+                         ids=["error_state", "full_state", "cartpole", "car"])
 def test_twin_matches_jax_sqrt_sweep_f64(error_state, rho_val):
+    """The twin against the JAX package's sqrt_sweep in float64: the
+    quadrotor's error state (12, 4) and full state (13, 4), and the small
+    shapes the card also checks K1 at, the cartpole's (4, 1) and the car's
+    (3, 2)."""
     A, Bj, e = _linearization(error_state)
-    ns = 12 if error_state else 13
-    assert A.shape == (B, N - 1, ns, ns) and Bj.shape == (B, N - 1, ns, 4)
+    ns, nu = {True: (12, 4), False: (13, 4), "cartpole": (4, 1),
+              "car": (3, 2)}[error_state]
+    assert A.shape == (B, N - 1, ns, ns) and Bj.shape == (B, N - 1, ns, nu)
     ref, out = _run_both(A, Bj, e, np.full(B, rho_val), np.float64)
     assert not ref[4].any()
-    assert out[0].shape == (B, N - 1, 4, ns) and out[1].shape == (B, N - 1, 4)
+    assert out[0].shape == (B, N - 1, nu, ns)
+    assert out[1].shape == (B, N - 1, nu)
     _assert_close(ref, out, ktol=1e-8, dtol=1e-8, vtol=1e-10)
 
 

@@ -1,33 +1,38 @@
 #!/usr/bin/env python3
-"""Hold kernels K3, K4, K5, K7a and K7b bitwise against another tree's, on
-one GPU.
+"""Hold kernels K1, K3, K4, K5, K7a and K7b bitwise against another tree's,
+on one GPU.
 
-    python3 tools/bitwise_against_parent.py PARENT
+    python3 tools/bitwise_against_parent.py PARENT [sqrt_sweep]
 
 PARENT is the root of another checkout of this repository (for example the
 parent commit, unpacked by ``git archive`` into a directory that
 ``.gitignore`` lists) whose kernels have this tree's C interfaces
-(``kernels/_build.py`` SIGNATURES). Its ``fused_al_backward.cu`` (K3),
-``fused_al_forward.cu`` (K4), ``riccati_sweep.cu`` (K5),
-``fused_backward.cu`` (K7a) and ``fused_forward.cu`` (K7b) are built by
-nvcc with the flags of ``kernels/_build.py`` under
+(``kernels/_build.py`` SIGNATURES). Its ``sqrt_sweep.cu`` (K1),
+``fused_al_backward.cu`` (K3), ``fused_al_forward.cu`` (K4),
+``riccati_sweep.cu`` (K5), ``fused_backward.cu`` (K7a) and
+``fused_forward.cu`` (K7b), or with ``sqrt_sweep`` K1's alone, are
+built by nvcc with the flags of ``kernels/_build.py`` under
 ``build/parent_kernels/``, side by side. On the inputs of
 ``chip_smoke.py``'s checks at B = 128, each output of this tree's kernel
-is compared with the other's bit for bit: K3 for every (model, slack)
-instantiation at ρ = 1 and 0 (the maze's and kuka's stacks among them),
-the in-kernel Jacobians too; K4 on the maze's search with its branch
-lanes; K5 at ρ = 1 and 0, control and state regularization, and K7a at ρ =
-1 and 0 with its Jacobians, on the five scalar models, the three rigs and
-kuka (path (a)'s inputs), and K5 at ρ = 1 at every slack-augmented shape
-on the AL expansion (the maze's (13,17) among them); K7b on their
-searches. Each case is also timed,
-both trees in turns (other, this, this, other; CUDA events over 10
-launches each), and the ones of ``chip_smoke.py``'s main paths at their
-batch too: B = 1024 for K3's cartpole (slice 3 arm (c)), K5 (13,4) (arm
-(b)) and (4,1) (arm (c) phase-split), K7a's and K7b's quadrotor (arm
-(a)); B = 64 for K5 (14,7) (the kuka pool). The times are of the two
-trees' C entry points on the same arguments. Prints one line per case and the card's ``nvidia-smi`` line; exits
-non-zero if any output differs.
+is compared with the other's bit for bit: K1 on ``chip_smoke.k1_inputs``
+at ρ = 0 (the equilibrated-fallback and failing problems among them) and
+1e-2, at B = 128 and 1024 (slice 1's batch, and the 128 problems tiled),
+and on the cartpole's (4,1), the car's (3,2) and ``k1_any_shape_inputs``'
+(5,3) and (13,17) sweeps at both ρ; K3 for
+every (model, slack) instantiation at ρ = 1 and 0 (the maze's and kuka's
+stacks among them), the in-kernel Jacobians too; K4 on the maze's search
+with its branch lanes; K5 at ρ = 1 and 0, control and state
+regularization, and K7a at ρ = 1 and 0 with its Jacobians, on the five
+scalar models, the three rigs and kuka (path (a)'s inputs), and K5 at ρ =
+1 at every slack-augmented shape on the AL expansion (the maze's (13,17)
+among them); K7b on their searches. Each case is also timed, both trees
+in turns (other, this, this, other; CUDA events over 10 launches each),
+and the ones of ``chip_smoke.py``'s main paths at their batch too: B =
+1024 for K3's cartpole (slice 3 arm (c)), K5 (13,4) (arm (b)) and (4,1)
+(arm (c) phase-split), K7a's and K7b's quadrotor (arm (a)); B = 64 for K5
+(14,7) (the kuka pool). The times are of the two trees' C entry points on
+the same arguments. Prints one line per case and the card's
+``nvidia-smi`` line; exits non-zero if any output differs.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ sys.path.insert(0, str(ROOT))
 
 # the kernels compared, by source: the C entry point called in both trees
 PARENT = {
+    "sqrt_sweep": "trajopt_sqrt_sweep_f32",
     "fused_al_backward": "trajopt_fused_al_backward_f32",
     "fused_al_forward": "trajopt_fused_al_forward_f32",
     "fused_forward": "trajopt_fused_forward_f32",
@@ -49,14 +55,14 @@ PARENT = {
 }
 
 
-def build(parent: Path):
+def build(parent: Path, stems):
     from trajopt_tpu_torch.kernels import _build
 
     csrc = parent / "trajopt_tpu_torch" / "csrc"
     out = _build.BUILD_DIR / "parent_kernels"
     out.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for stem in PARENT:
+    for stem in stems:
         lib = out / f"lib{stem}.so"
         jobs[stem] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{csrc}", "-o", str(lib),
@@ -114,6 +120,32 @@ def same(label, run_mine, call, stem, fn, theirs):
           f"this tree {(m0 + m1) / 2:.4f}, the other {(t0 + t1) / 2:.4f}",
           flush=True)
     return not any(diffs)
+
+
+def k1_case(fn, label, ins, rho_val):
+    import torch
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.ops.cuda_sqrt import (
+        sqrt_sweep_cuda, sqrt_sweep_shape)
+
+    A, Bm = ins[0], ins[1]
+    Bz, N1, n, m = Bm.shape
+    dev = A.device
+    rho = torch.full((Bz,), rho_val, device=dev)
+    K, d = torch.empty(Bz, N1, m, n, device=dev), torch.empty(Bz, N1, m,
+                                                             device=dev)
+    dV = torch.empty(Bz, 2, device=dev)
+    fail = torch.empty(Bz, dtype=torch.bool, device=dev)
+    def call(f):
+        return f(*(t.data_ptr() for t in (*ins, rho, K, d, dV, fail)), Bz,
+                  N1 + 1, n, m, _build.stream(dev))
+
+    sh = sqrt_sweep_shape(n, m, Bz)
+    return same(f"K1 {label} ({n},{m}) B={Bz} rho={rho_val:g} (Wc, Wp, G) "
+                f"= ({sh['consumers']}, {sh['producers']}, "
+                f"{sh['knots_a_step']})",
+                lambda: sqrt_sweep_cuda(*ins, rho), call, "sqrt_sweep", fn,
+                (K, d, dV[:, 0], dV[:, 1], fail))
 
 
 def k3_case(fn, label, model, canon, X, U, lam, mu, dt, obj, rho):
@@ -298,18 +330,44 @@ def main():
     from trajopt_tpu_torch.ops.cuda_al_fused import fused_al_backward_cuda
     from trajopt_tpu_torch.ops.cuda_fused import fused_backward_cuda
 
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([],
+                                                           ["sqrt_sweep"]):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("bitwise_against_parent: no CUDA device", file=sys.stderr)
         return 1
     print(cs.nvidia_smi_line(), flush=True)
-    fns = build(Path(sys.argv[1]))
+    fns = build(Path(sys.argv[1]), sys.argv[2:] or list(PARENT))
     dev = torch.device("cuda", 0)
     B = cs.B
     one, zero = torch.ones(B, device=dev), torch.zeros(B, device=dev)
+    tile = torch.arange(B, device=dev).repeat(8)
     ok = True
+
+    # K1: slice 1's inputs with the branch problems, at B = 128 and 1024,
+    # and two small shapes
+    if "sqrt_sweep" in fns:
+        ins, _ = cs.k1_inputs()
+        big = [t[tile].contiguous() for t in ins]
+        for rho_val in (0.0, 1e-2):
+            ok &= k1_case(fns["sqrt_sweep"], "quadrotor error state", ins,
+                          rho_val)
+            ok &= k1_case(fns["sqrt_sweep"], "quadrotor error state", big,
+                          rho_val)
+        smalls = [(name, cs.sweep_inputs(cs.model_setup(name),
+                                         torch.float32))
+                  for name in ("cartpole", "car")]
+        smalls += [("any shape", [t.float().contiguous()
+                                  for t in cs.k1_any_shape_inputs(*nm)])
+                   for nm in ((5, 3), (13, 17))]
+        for name, small in smalls:
+            for rho_val in (0.0, 1e-2):
+                ok &= k1_case(fns["sqrt_sweep"], name, small, rho_val)
+    if set(fns) == {"sqrt_sweep"}:
+        print("every output bitwise equal" if ok else "outputs differ",
+              flush=True)
+        return 0 if ok else 1
 
     # K3: the maze, every other (model, slack) pair, kuka with the fk rows
     ms = cs.maze_setup(torch.float32, B)
@@ -365,7 +423,6 @@ def main():
         cs.LS_OPTS))
 
     # K5 and K7a on chip_smoke's K7a set-ups, K7b on their searches
-    tile = torch.arange(B, device=dev).repeat(8)
     for name in (*cs.MODELS, *cs.RIGS):
         st = cs.model_setup(name)
         ins = cs.sweep_inputs(st, torch.float32)

@@ -77,7 +77,7 @@ namespace {
 
 template <int NX, int NU, int BAR>
 __device__ __forceinline__ void team_sweep(const Args& a,
-                                           const Ring<NX, NU>& r, int Wc,
+                                           const RiccatiRing<NX, NU>& r, int Wc,
                                            int Wp, int b, int t0) {
   const int S = r.L.S, N = a.N, t = threadIdx.x - t0, warp = t >> 5;
   const int lane = threadIdx.x & 31, nt = 32 * Wc;
@@ -126,7 +126,8 @@ __device__ __forceinline__ void team_sweep(const Args& a,
 
 // team `team`'s sweep, with the barrier 1 + team
 template <int NX, int NU, int PB>
-__device__ __forceinline__ void team_of(const Args& a, const Ring<NX, NU>& r,
+__device__ __forceinline__ void team_of(const Args& a,
+                                        const RiccatiRing<NX, NU>& r,
                                         int Wc, int Wp, int b, int t0,
                                         int team) {
   if (team == PB - 1)
@@ -140,10 +141,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) teams_kernel(Args a,
                                                                int Wc,
                                                                int Wp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const RingLayout<NX, NU> L = layout<NX, NU>(Wp);
+  const RingLayout L = layout<NX, NU>(Wp);
   const int team = threadIdx.x / (32 * (Wc + Wp));
   const int t0 = team * 32 * (Wc + Wp);
-  const Ring<NX, NU> r{smem + team * L.bytes(), L};
+  const RiccatiRing<NX, NU> r{smem + team * L.bytes(), L};
   const int b = blockIdx.x * PB + team;
   if (threadIdx.x == t0 && Wp > 0) {
     for (int s = 0; s < L.S; ++s) {

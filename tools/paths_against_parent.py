@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the main paths that run K5 and K7a in this tree and in another, in
-turns, on one GPU.
+"""Time the main paths that run K1, K5 and K7a in this tree and in another,
+in turns, on one GPU.
 
     python3 tools/paths_against_parent.py PARENT
 
@@ -9,9 +9,12 @@ parent commit, unpacked by ``git archive`` into a directory that
 ``.gitignore`` lists). Each tree runs in a process of its own, in the order
 other, this, this, other, with its own package, kernels (built under its
 own ``build/``) and ``chip_smoke.py`` set-ups, the arms of
-``chip_smoke.py`` as its slices 3 and 6 drive them, each a warm-up call
-and then one timed ``solve_batch`` (wall clock to ``synchronize``):
+``chip_smoke.py`` as its slices 1, 3 and 6 drive them, each a warm-up call
+and then one timed ``solve_batch_queued`` or ``solve_batch`` (wall clock to
+``synchronize``):
 
+- slice 1, the quadrotor queued pool with the sqrt backward pass (K1, K2),
+  512 starts over 128 lanes;
 - slice 3 (a), the unconstrained quadrotor, 1024 starts, ``fused=True``
   (K7a and K7b at B = 1024), and (b) the same phase-split (K5 (13,4), K2);
 - slice 3 (c) phase-split, the constrained cartpole, 1024 starts,
@@ -41,7 +44,8 @@ def run_tree(tree: str):
     import chip_smoke as cs
     import trajopt_tpu_torch as tt
     from trajopt_tpu_torch.kernels import _build
-    from trajopt_tpu_torch.parallel.batch import solve_batch
+    from trajopt_tpu_torch.parallel.batch import (
+        solve_batch, solve_batch_queued)
     from trajopt_tpu_torch.problems import zoo
 
     assert Path(cs.__file__).resolve().parent == Path(tree).resolve()
@@ -67,6 +71,17 @@ def run_tree(tree: str):
     prob = zoo.quadrotor_line(N=cs.N, dtype=f32, device=dev)
     x0s = torch.as_tensor(cs.pool_starts(prob.x0.cpu()), dtype=f32,
                           device=dev)
+    pool = x0s[:cs.SLICE1_POOL]
+    solve_batch_queued(prob, tt.ALOptions(iterations=1, opts_uncon=(
+        tt.iLQROptions(iterations=2, error_state=True, bp_type="sqrt"))),
+        pool[:cs.B], lanes=cs.B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_batch_queued(prob, cs.bench_options(), pool, lanes=cs.B)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(res.X).all()), "slice 1"
+    out["slice 1 quadrotor queued pool, sqrt"] = pool.shape[0] / (
+        time.perf_counter() - t0)
     for name, fused in (("slice 3 (a) quadrotor fused", True),
                         ("slice 3 (b) quadrotor phase-split", False)):
         arm(name, prob, tt.ALOptions(opts_uncon=tt.iLQROptions(fused=fused)),

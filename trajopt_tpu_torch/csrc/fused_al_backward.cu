@@ -102,9 +102,10 @@ struct Expansion {
 // Wp + 1 expansion scratches (the consumers' one for the terminal knot, or
 // the lone warp's).
 template <int NX, int NU>
-__host__ __device__ RingLayout<NX, NU> layout(int Wp, int P) {
-  return RingLayout<NX, NU>(ring_slots(Wp, 1), Wp + 1,
-                            sizeof(Expansion<NX, NU>) + 2 * sizeof(float) * P);
+__host__ __device__ RingLayout layout(int Wp, int P) {
+  return riccati_layout<NX, NU>(
+      ring_slots(Wp, 1), Wp + 1,
+      sizeof(Expansion<NX, NU>) + 2 * sizeof(float) * P);
 }
 
 // ------------------------------------------------------------ the knots
@@ -199,7 +200,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) fused_al_backward_kernel(
   constexpr int NX = M::NX, MB = M::NU, NU = Slack ? MB + NX : MB;
   using Ex = Expansion<NX, NU>;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring<NX, NU> r{smem, layout<NX, NU>(Wp, tab.P)};
+  const RiccatiRing<NX, NU> r{smem, layout<NX, NU>(Wp, tab.P)};
   const int S = r.L.S, N = a.N, P = tab.P, b = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   auto scratch = [&](int i) -> Ex& {
@@ -248,7 +249,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) fused_al_backward_kernel(
   float* g_s = reinterpret_cast<float*>(&mine + 1);
   float dV1 = 0.0f, dV2 = 0.0f;
   const size_t b0 = (size_t)b * (N - 1);
-  const bool fail = knot_pipeline<NX, NU>(
+  const bool fail = riccati_pipeline<NX, NU>(
       r, Wc, Wp, 1, N, a.rho[b], a.reg_state != 0, a.K + b0 * NU * NX,
       a.d + b0 * NU, dV1, dV2, [&](int i, int) {
         expand_knot<M, Slack>(a, tab, b, N - 2 - i, r.slot(i % S), mine,

@@ -94,9 +94,9 @@ struct Stage {
 };
 
 template <class M>
-__host__ __device__ RingLayout<M::NX, M::NU> layout(int Wp) {
-  return RingLayout<M::NX, M::NU>(ring_slots(Wp, knots_per_warp<M>()),
-                                  Wp > 0 ? Wp : 1, sizeof(Stage<M>));
+__host__ __device__ RingLayout layout(int Wp) {
+  return riccati_layout<M::NX, M::NU>(ring_slots(Wp, knots_per_warp<M>()),
+                                      Wp > 0 ? Wp : 1, sizeof(Stage<M>));
 }
 
 // The inputs of the knots of sweep indices i0 … i0 + cnt − 1 (knot k = N −
@@ -104,10 +104,9 @@ __host__ __device__ RingLayout<M::NX, M::NU> layout(int Wp) {
 // the tangent t of knot i0 + j, then the stage expansion of each knot over
 // the lanes; the Jacobians also to Aout / Bout where asked for.
 template <class M>
-__device__ __forceinline__ void expand_knots(const Args& a,
-                                             const Ring<M::NX, M::NU>& r,
-                                             Stage<M>& st, int b, int i0,
-                                             int cnt, int lane) {
+__device__ __forceinline__ void expand_knots(
+    const Args& a, const RiccatiRing<M::NX, M::NU>& r, Stage<M>& st, int b,
+    int i0, int cnt, int lane) {
   constexpr int NX = M::NX, NU = M::NU, W = NX + NU;
   const int N = a.N, S = r.L.S;
   for (int e = lane; e < cnt * W; e += 32) {
@@ -185,7 +184,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) fused_backward_kernel(
   static_assert(NX + NU <= 32 && G * (NX + NU) <= 32,
                 "one tangent direction per lane");
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring<NX, NU> r{smem, layout<M>(Wp)};
+  const RiccatiRing<NX, NU> r{smem, layout<M>(Wp)};
   const int N = a.N, b = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   r.init(Wc, Wp);
@@ -210,7 +209,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) fused_backward_kernel(
       r.scratch(Wp == 0 || cons ? 0 : warp - Wc));
   float dV1 = 0.0f, dV2 = 0.0f;
   const size_t b0 = (size_t)b * (N - 1);
-  const bool fail = knot_pipeline<NX, NU>(
+  const bool fail = riccati_pipeline<NX, NU>(
       r, Wc, Wp, G, N, a.rho[b], a.reg_state != 0, a.K + b0 * NU * NX,
       a.d + b0 * NU, dV1, dV2, [&](int i0, int cnt) {
         expand_knots<M>(a, r, st, b, i0, cnt, lane);
@@ -282,7 +281,7 @@ extern "C" int trajopt_fused_backward_shape(int model, int batch,
     using M = typename decltype(of)::M;
     const Shape sh = shape_for<M>(batch);
     if (sh.Wc < 1) return (int)cudaErrorInvalidValue;
-    const RingLayout<M::NX, M::NU> L = layout<M>(sh.Wp);
+    const RingLayout L = layout<M>(sh.Wp);
     shape[0] = sh.Wc;
     shape[1] = sh.Wp;
     shape[2] = L.S;

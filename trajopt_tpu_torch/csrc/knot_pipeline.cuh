@@ -1,18 +1,21 @@
 // The knot pipeline of the backward sweeps K3 (fused_al_backward.cu), K7a
-// (fused_backward.cu) and K5 (riccati_sweep.cu): one block a problem, Wp
-// producer warps that fill a knot's inputs (KnotInputs: A, B and the cost
-// expansion) into a ring of S slots in shared memory, Wc consumer warps that
-// run the Riccati step (riccati_step.cuh) on each slot in knot order.
+// (fused_backward.cu), K5 (riccati_sweep.cu) and K1 (sqrt_sweep.cu): one
+// block a problem, Wp producer warps that fill a knot's inputs into a ring
+// of S slots in shared memory, Wc consumer warps that run the sweep's step
+// on each slot in knot order. A kernel gives the ring its slot and its
+// consumers' state (K3, K5, K7a: KnotInputs and RiccatiState, the Riccati
+// step of riccati_step.cuh through riccati_pipeline; K1: the stage factor
+// and its QR step, sized at run time from (n, m)).
 //
-// Only the Riccati step depends on the carry (Sx, Sxx); what fills a slot
-// reads only the problem's inputs. So the producers never wait on the
-// carry: producer p fills the knots of sweep indices i = N − 2 − k in
-// groups of G (g = p, p + Wp, …; G knots a step where one warp computes
-// several knots at once, as K7a's Jacobians of a small model), each slot
+// Only the step depends on the carry; what fills a slot reads only the
+// problem's inputs. So the producers never wait on the carry: producer p
+// fills the knots of sweep indices i = N − 2 − k in groups of G (g = p,
+// p + Wp, …; G knots a step where one warp computes several knots at once,
+// as K7a's Jacobians of a small model or K1's stage factors), each slot
 // with a full and an empty mbarrier, slot i mod S in its generation i / S.
 // The Wc consumer warps take every i in turn on their own named barrier
 // (bar.sync 1, 32·Wc threads), and own the carry, the fail flag and the ΔV
-// sums. Every entry of the step keeps its summation order, so the results
+// sums. Every entry of a step keeps its summation order, so the results
 // do not depend on (Wc, Wp, S, G). With Wp = 0 a block is one warp that
 // fills G slots and consumes them in turn, through the same code.
 //
@@ -87,17 +90,20 @@ __host__ __device__ constexpr size_t align16(size_t n) {
 }
 
 // A block's dynamic shared memory: 2S mbarriers (full, then empty), S slots
-// of a knot's inputs, the consumers' Riccati state, then `scratches` areas
-// of `scratch_bytes` each (a warp's own, for what it fills a slot with).
-template <int NX, int NU>
+// of `slot_bytes` each, the consumers' state of `state_bytes`, then
+// `scratches` areas of `scratch_bytes` each (a warp's own, for what it
+// fills a slot with).
 struct RingLayout {
   int S, scratches;
-  size_t scratch_raw;
-  __host__ __device__ RingLayout(int S_, int scratches_, size_t scratch_bytes)
-      : S(S_), scratches(scratches_), scratch_raw(scratch_bytes) {}
-  __host__ __device__ size_t slot_bytes() const {
-    return align16(sizeof(KnotInputs<NX, NU>));
-  }
+  size_t slot_raw, state_raw, scratch_raw;
+  __host__ __device__ RingLayout(int S_, int scratches_, size_t slot_bytes,
+                                 size_t state_bytes, size_t scratch_bytes)
+      : S(S_),
+        scratches(scratches_),
+        slot_raw(slot_bytes),
+        state_raw(state_bytes),
+        scratch_raw(scratch_bytes) {}
+  __host__ __device__ size_t slot_bytes() const { return align16(slot_raw); }
   __host__ __device__ size_t scratch_bytes() const {
     return align16(scratch_raw);
   }
@@ -106,12 +112,21 @@ struct RingLayout {
     return slots() + S * slot_bytes();
   }
   __host__ __device__ size_t scratch() const {
-    return state() + align16(sizeof(RiccatiState<NX, NU>));
+    return state() + align16(state_raw);
   }
   __host__ __device__ size_t bytes() const {
     return scratch() + scratches * scratch_bytes();
   }
 };
+
+// The layout of a Riccati sweep's ring (K3, K5, K7a): a knot's inputs a
+// slot, the Riccati state.
+template <int NX, int NU>
+__host__ __device__ RingLayout riccati_layout(int S, int scratches,
+                                              size_t scratch_bytes) {
+  return RingLayout(S, scratches, sizeof(KnotInputs<NX, NU>),
+                    sizeof(RiccatiState<NX, NU>), scratch_bytes);
+}
 
 // The slots a shape takes: two groups of G for each producer, so a producer
 // fills its next group while the consumers read its last; G for the lone
@@ -120,23 +135,23 @@ __host__ __device__ constexpr int ring_slots(int Wp, int G) {
   return Wp > 0 ? 2 * Wp * G : G;
 }
 
-// The ring over a block's dynamic shared memory.
-template <int NX, int NU>
+// The ring over a block's dynamic shared memory: slots of type Slot, the
+// consumers' state of type State (K1: float, the start of each area).
+template <class Slot, class State>
 struct Ring {
   unsigned char* smem;
-  RingLayout<NX, NU> L;
+  RingLayout L;
   __device__ uint64_t* full(int s) const {
     return reinterpret_cast<uint64_t*>(smem) + s;
   }
   __device__ uint64_t* empty(int s) const {
     return reinterpret_cast<uint64_t*>(smem) + L.S + s;
   }
-  __device__ KnotInputs<NX, NU>& slot(int s) const {
-    return *reinterpret_cast<KnotInputs<NX, NU>*>(smem + L.slots() +
-                                                  s * L.slot_bytes());
+  __device__ Slot& slot(int s) const {
+    return *reinterpret_cast<Slot*>(smem + L.slots() + s * L.slot_bytes());
   }
-  __device__ RiccatiState<NX, NU>& state() const {
-    return *reinterpret_cast<RiccatiState<NX, NU>*>(smem + L.state());
+  __device__ State& state() const {
+    return *reinterpret_cast<State*>(smem + L.state());
   }
   __device__ unsigned char* scratch(int i) const {
     return smem + L.scratch() + i * L.scratch_bytes();
@@ -153,24 +168,23 @@ struct Ring {
   }
 };
 
+template <int NX, int NU>
+using RiccatiRing = Ring<KnotInputs<NX, NU>, RiccatiState<NX, NU>>;
+
 // The sweep by Wc consumer warps (the block's warps 0 … Wc − 1) and Wp
 // producer warps, or with Wp = 0 by one warp. produce(i0, cnt) is called by
 // a whole producer warp and fills the slots of sweep indices i0 … i0 + cnt
 // − 1 (cnt ≤ G; knot k = N − 2 − i in slot i mod S), ending with
-// __syncwarp. The consumers run the step on each slot in turn on the carry
-// in r.state() (its terminal value set and synced before the call), write
-// knot k's gains at K_b + k·NU·NX and d_b + k·NU, and add to dV1, dV2.
-// Returns whether a stage failed (on the consumer threads).
-template <int NX, int NU, class Produce>
-__device__ __forceinline__ bool knot_pipeline(const Ring<NX, NU>& r, int Wc,
-                                              int Wp, int G, int N,
-                                              float rho, bool reg_state,
-                                              float* K_b, float* d_b,
-                                              float& dV1, float& dV2,
-                                              Produce produce) {
-  const int t = threadIdx.x, warp = t >> 5, S = r.L.S, nt = 32 * Wc;
+// __syncwarp. consume(s, k) is called by every consumer thread, runs the
+// step of knot k on slot s and the carry (its terminal value set and synced
+// before the call) and returns whether the stage failed. Returns whether a
+// stage failed (on each consumer thread, as its consume said).
+template <class R, class Produce, class Consume>
+__device__ __forceinline__ bool knot_pipeline(const R& r, int Wc, int Wp,
+                                              int G, int N, Produce produce,
+                                              Consume consume) {
+  const int warp = threadIdx.x >> 5, S = r.L.S;
   const bool solo = Wp == 0, cons = warp < Wc, prod = solo || !cons;
-  const NamedSync sync{1, nt};
   const int groups = (N - 1 + G - 1) / G;
   const int first = solo || cons ? 0 : warp - Wc;
   const int stride = solo || cons ? 1 : Wp;
@@ -190,17 +204,32 @@ __device__ __forceinline__ bool knot_pipeline(const Ring<NX, NU>& r, int Wc,
     }
     if (cons) {
       for (int j = 0; j < cnt; ++j) {
-        const int i = i0 + j, s = i % S, k = N - 2 - i;
+        const int i = i0 + j, s = i % S;
         if (!solo) mbar_wait(r.full(s), (i / S) & 1);
-        const bool fail_k = riccati_step<NX, NU>(
-            r.slot(s), r.state(), rho, reg_state, K_b + (size_t)k * NU * NX,
-            d_b + (size_t)k * NU, dV1, dV2, t, nt, sync);
+        const bool fail_k = consume(s, N - 2 - i);
         fail = fail || fail_k;
         if (!solo) mbar_arrive(r.empty(s));
       }
     }
   }
   return fail;
+}
+
+// The Riccati sweep on the pipeline (K3, K5, K7a): the consumers run the
+// team step (riccati_step.cuh) on each slot, write knot k's gains at
+// K_b + k·NU·NX and d_b + k·NU, and add to dV1, dV2.
+template <int NX, int NU, class Produce>
+__device__ __forceinline__ bool riccati_pipeline(
+    const RiccatiRing<NX, NU>& r, int Wc, int Wp, int G, int N, float rho,
+    bool reg_state, float* K_b, float* d_b, float& dV1, float& dV2,
+    Produce produce) {
+  const int t = threadIdx.x, nt = 32 * Wc;
+  const NamedSync sync{1, nt};
+  return knot_pipeline(r, Wc, Wp, G, N, produce, [&](int s, int k) {
+    return riccati_step<NX, NU>(r.slot(s), r.state(), rho, reg_state,
+                                K_b + (size_t)k * NU * NX,
+                                d_b + (size_t)k * NU, dV1, dV2, t, nt, sync);
+  });
 }
 
 // ------------------------------------------------------------ the launch

@@ -69,8 +69,8 @@ struct Args {
 };
 
 template <int NX, int NU>
-__host__ __device__ RingLayout<NX, NU> layout(int Wp) {
-  return RingLayout<NX, NU>(ring_slots(Wp, 1), 0, 0);
+__host__ __device__ RingLayout layout(int Wp) {
+  return riccati_layout<NX, NU>(ring_slots(Wp, 1), 0, 0);
 }
 
 // entry e of knot k's inputs in the order of KnotInputs (A, B, lx, lu,
@@ -117,7 +117,7 @@ template <int NX, int NU>
 __global__ void __launch_bounds__(32 * kMaxWarps) riccati_sweep_kernel(
     Args a, int Wc, int Wp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Ring<NX, NU> r{smem, layout<NX, NU>(Wp)};
+  const RiccatiRing<NX, NU> r{smem, layout<NX, NU>(Wp)};
   const int S = r.L.S, N = a.N, b = blockIdx.x;
   const int t = threadIdx.x, lane = t & 31;
   r.init(Wc, Wp);
@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) riccati_sweep_kernel(
 
   float dV1 = 0.0f, dV2 = 0.0f;
   const size_t b0 = (size_t)b * (N - 1);
-  const bool fail = knot_pipeline<NX, NU>(
+  const bool fail = riccati_pipeline<NX, NU>(
       r, Wc, Wp, 1, N, a.rho[b], a.reg_state != 0, a.K + b0 * NU * NX,
       a.d + b0 * NU, dV1, dV2, [&](int i, int) {
         load_knot<NX, NU>(a, b, N - 2 - i, r.slot(i % S), lane);

@@ -41,6 +41,9 @@ _L = ctypes.c_longlong
 # C entry points by source file, and their argument types (see csrc/*.cu)
 SIGNATURES = {
     "sqrt_sweep": {
+        # n, m, batch, shape (5 ints of host memory) -> the launch's Wc, Wp,
+        # S, shared bytes and knots a producer step at that batch
+        "trajopt_sqrt_sweep_shape": (_I, _I, _I, _P),
         # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m,
         # stream
         "trajopt_sqrt_sweep_f32": (_P,) * 12 + (_I,) * 4 + (_P,)},

@@ -5,9 +5,12 @@
 on the CPU. ``sqrt_sweep_cuda`` is the wrapper of ``csrc/sqrt_sweep.cu``,
 the counterpart of ``trajopt_tpu/ops/pallas_sqrt.py::sqrt_sweep_pallas``: a
 tensor on the CPU goes to the twin, a CUDA tensor to the kernel, and
-anything the kernel does not take raises.
+anything the kernel does not take raises; ``sqrt_sweep_shape`` tells the
+block the kernel takes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -195,3 +198,17 @@ def sqrt_sweep_cuda(A, B, lx, lu, lxx, luu, lux, rho):
 
 
 sqrt_sweep_cuda.launches = 0
+
+
+def sqrt_sweep_shape(n: int, m: int, batch: int) -> dict:
+    """The block K1 launches for (n, m) at ``batch`` problems on the current
+    CUDA device (``csrc/knot_pipeline.cuh``): its consumer and producer
+    warps, the slots of its ring, its shared-memory bytes and the knots a
+    producer warp factors at once."""
+    if n + m > 32:
+        raise ValueError(f"sqrt_sweep_shape: n + m = {n + m} > 32")
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.load().trajopt_sqrt_sweep_shape(
+        n, m, batch, ctypes.addressof(out)), "trajopt_sqrt_sweep_shape")
+    return dict(consumers=out[0], producers=out[1], slots=out[2],
+                smem_bytes=out[3], knots_a_step=out[4])
