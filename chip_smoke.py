@@ -856,7 +856,8 @@ def k1_inputs():
 
 def k1_any_shape_inputs(n=5, m=3, steps=20, seed=11):
     """K1's inputs at an (n, m) that no model gives, (5, 3) by default (the
-    kernel's instantiation with run-time sizes): B problems of ``steps``
+    kernel's instantiation with run-time sizes, which every shape but
+    (12, 4) runs): B problems of ``steps``
     knots, random dynamics near the identity, positive definite stage
     Hessians, in float64 on the card."""
     import torch
@@ -970,10 +971,10 @@ def phase_k1(report):
         f"{8 * bound_ms:.5f} ms; " + ring_shape_text(
             sqrt_sweep_shape(n_, m_, 8 * B)))
 
-    # other shapes of the kernel's: the cartpole's (4, 1) and the car's
-    # (3, 2) (bp_type='sqrt' is an option of any model), and (5, 3) and
-    # (13, 17), which no model gives (one knot a producer step at p = 30),
-    # held to the plain version as K5's sweeps are
+    # other shapes, all on the instantiation with run-time sizes: the
+    # cartpole's (4, 1) and the car's (3, 2) (bp_type='sqrt' is an option of
+    # any model), and (5, 3) and (13, 17), which no model gives (one knot a
+    # producer step at p = 30), held to the plain version as K5's sweeps are
     smalls = [(name, sweep_inputs(model_setup(name), torch.float64))
               for name in ("cartpole", "car")]
     smalls += [("any shape", k1_any_shape_inputs()),

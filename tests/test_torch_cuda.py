@@ -1574,9 +1574,9 @@ def _k1_branch_inputs(linearization):
 def test_sqrt_kernel_branches_at_every_launch_shape(linearization, count):
     """K1 at rho = 0 on the branch inputs tiled to 128 problems (slice 1's
     batch, one consumer and two producer warps a problem on the H100) and
-    cut or tiled to ``count``, where the one-wave rule takes the other
-    shapes of K1's list ((1, 1) at 600, the lone warp at 1152): one launch
-    counted, exactly the failing lane's problems fail with zero gains at
+    cut or tiled to ``count``: (1, 2) again at 33, the lone warp where
+    (1, 2) no longer fits in one wave (600, a batch no multiple of 128,
+    and 1152): one launch counted, exactly the failing lane's problems fail with zero gains at
     their stage, and every output of every problem bitwise equal to the
     B = 128 launch's."""
     ins = _k1_branch_inputs(linearization)
@@ -1602,7 +1602,8 @@ def test_sqrt_kernel_branches_at_every_launch_shape(linearization, count):
 @pytest.mark.parametrize("name", ["cartpole", "car"])
 def test_sqrt_kernel_small_shapes_match_plain_version(cuda_device, name):
     """K1 at the cartpole's (4, 1) and the car's (3, 2) (bp_type='sqrt' is
-    an option of any model), rho = 0 and 1e-2: fail flags equal (none), K
+    an option of any model; both run the instantiation with run-time
+    sizes), rho = 0 and 1e-2: fail flags equal (none), K
     and d at 1e-3 of scale, ΔV at 1e-4 (or three times the plain version's
     distance from float64)."""
     ms = _model_setup(name, cuda_device)
@@ -1625,7 +1626,8 @@ def test_sqrt_kernel_small_shapes_match_plain_version(cuda_device, name):
 @pytest.mark.parametrize("n,m", [(5, 3), (13, 17)])
 def test_sqrt_kernel_any_shape_matches_plain_version(cuda_device, n, m):
     """K1 at an (n, m) that no model gives (the kernel's instantiation with
-    run-time sizes; at (13, 17) one knot a producer step), on random data
+    run-time sizes, as every shape but (12, 4); at (13, 17) one knot a
+    producer step), on random data
     with positive definite stage Hessians, rho = 1e-2: as the small
     shapes."""
     rng = np.random.default_rng(11)

@@ -16,7 +16,7 @@ occupancy), with the flags of ``kernels/_build.py``, under
   producers (the kernel has one consumer warp), at B = 1024 (the 128
   problems tiled 8 times) a short list;
 - on the cartpole's (4, 1) and the car's (3, 2) sweeps at B = 128 a short
-  list.
+  list (the kernel's instantiation with run-time sizes).
 
 Every shape's K, d, ΔV and fail flags must be bitwise equal to the lone
 warp's. Then prints the shape the production entry point picks at B = 33,

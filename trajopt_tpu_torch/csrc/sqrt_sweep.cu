@@ -38,9 +38,10 @@
 // by every lane from a shuffle issued a column ahead, so the column's
 // chain is its σ, square root, division and update. The gains and the
 // value update follow, lane c on column c. (n, m) are compile-time
-// constants for the shapes of the port's models, so every loop unrolls
-// into registers; any other n + m ≤ 32 runs one instantiation with run-time
-// sizes. Slots, state and scratch are sized from the launch's (n, m).
+// constants for slice 1's quadrotor error state (12, 4), so every loop
+// unrolls into registers; any other n + m ≤ 32 runs one instantiation with
+// run-time sizes. Slots, state and scratch are sized from the launch's
+// (n, m).
 // Every entry keeps the one-warp kernel's order of operations and the
 // rounding nvcc gave its loops, written out with __fmaf_rn, __fmul_rn and
 // __fadd_rn, so K, d, ΔV and the fail flag do not depend on the shape. The
@@ -68,15 +69,15 @@ constexpr float kFloor = 1e-7f;    // SQRT_PIVOT_FLOOR_F32
 #define K1_PRODUCER_PART(q)
 #endif
 
-// (Wc, Wp) in order of preference, one consumer warp. Measured by
+// (Wc, Wp) in order of preference, one consumer warp: (1, 2) where the
+// batch fits in one wave of it, else the lone warp. Measured by
 // tools/k1_launch_shape.py (H100, ms a launch; the lone warp, the shape
 // taken, the next best):
 //   (12,4), B = 128    0.885 | (1,2) 0.444 | (1,3) 0.445
 //   (12,4), B = 1024   1.011 (taken: (1,2) is 4 blocks an SM) | (1,2) 0.977
-//   (4,1), B = 128     0.181 | (1,2) 0.141 | (1,1) 0.141
 // Two producers keep the ring full at p = 16 (one leaves the consumer
 // waiting a third of the knot); more gain nothing.
-constexpr ShapeList kShapes{2, {{1, 2}, {1, 1}}};
+constexpr ShapeList kShapes{1, {{1, 2}}};
 
 struct Args {
   const float *A, *B, *lx, *lu, *lxx, *luu, *lux, *rho;
@@ -127,8 +128,8 @@ __host__ __device__ RingLayout layout(const Dims& D, int Wp) {
 }
 
 // The sizes of an instantiation: (NX, NU) fixed at compile time, so every
-// loop over rows and columns unrolls and its arrays stay in registers, or
-// (0, 0), any n + m ≤ 32 at run time.
+// loop over rows and columns unrolls and its arrays stay in registers
+// ((12, 4), slice 1's), or (0, 0), any n + m ≤ 32 at run time.
 template <int NX, int NU>
 struct Fixed {
   static constexpr int nx = NX, nu = NU;
@@ -380,9 +381,12 @@ __device__ __forceinline__ bool sqrt_step(const Args& a, const Dims& D,
   // lane also forms lane j + 1's dot, τ and update from column j + 1 as it
   // stood (nxt, shuffled from lane j + 1 a column ahead), so the next pivot
   // column is at hand without waiting for a shuffle: the same operations on
-  // the same values as lane j + 1's. R's row j only changes in column j's
-  // step, and lane j keeps its diagonal α until the loop ends, so no lane
-  // reads an entry another lane writes within the loop.
+  // the same values as lane j + 1's. R's row j changes only in column j's
+  // step, where lane l > j writes its own entry R[j][l] (lane j keeps the
+  // diagonal α in a register until the loop ends). Lane j + 1's R[j][j+1]
+  // (rjn) comes by a shuffle of that lane's own load, so no lane reads an
+  // entry that another lane writes within the loop, and no barrier is
+  // needed between a column's loads and its stores.
   float piv[LN], nxt[LN];
 #pragma unroll
   for (int r = 0; r < n; ++r) piv[r] = __shfl_sync(kFullMask, dcol[r], 0);
@@ -392,7 +396,6 @@ __device__ __forceinline__ bool sqrt_step(const Args& a, const Dims& D,
     const bool upd = lane > j && lane < p, more = j + 1 < p;
     const float a0 = R[j * p + j];
     const float rjl = R[j * p + (upd ? lane : j)];
-    const float rjn = R[j * p + (more ? j + 1 : j)];
 #pragma unroll
     for (int r = 0; r < n; ++r)
       nxt[r] = __shfl_sync(kFullMask, dcol[r], more ? j + 1 : j);
@@ -405,6 +408,9 @@ __device__ __forceinline__ bool sqrt_step(const Args& a, const Dims& D,
       dot = __fmaf_rn(dcol[r], piv[r], dot);
       dotn = __fmaf_rn(nxt[r], piv[r], dotn);
     }
+    // after the dots: issued first, it would hold the nxt shuffles behind
+    // the load of rjl
+    const float rjn = __shfl_sync(kFullMask, rjl, more ? j + 1 : j);
     const float nrm = sqrtf(__fmaf_rn(a0, a0, after(sigma, dot, dotn)));
     const float alpha = a0 >= 0.f ? -nrm : nrm;
     const float v0 = __fadd_rn(a0, -alpha);
@@ -623,20 +629,12 @@ int launch_shape(const Args& a, Shape sh, cudaStream_t stream) {
                      stream, a, sh.Wp);
 }
 
-// f(Fixed<n, m>{}) for an (n, m) a model of the port gives, else
-// f(Fixed<0, 0>{}), the instantiation for any n + m ≤ 32
+// f(Fixed<12, 4>{}) for slice 1's quadrotor error state, the only shape a
+// path of the port runs the sweep at, else f(Fixed<0, 0>{}), the
+// instantiation for any n + m ≤ 32
 template <class F>
 auto dispatch(int n, int m, F f) {
-#define TRAJOPT_SQRT(NX, NU) \
-  if (n == NX && m == NU) return f(Fixed<NX, NU>{})
-  TRAJOPT_SQRT(12, 4);   // quadrotor, quaternion error state (slice 1)
-  TRAJOPT_SQRT(13, 4);   // quadrotor
-  TRAJOPT_SQRT(4, 1);    // cartpole, the acrobot and cartpole rigs
-  TRAJOPT_SQRT(3, 2);    // car
-  TRAJOPT_SQRT(2, 1);    // pendulum, double integrator
-  TRAJOPT_SQRT(4, 2);    // double pendulum rig
-  TRAJOPT_SQRT(14, 7);   // kuka
-#undef TRAJOPT_SQRT
+  if (n == 12 && m == 4) return f(Fixed<12, 4>{});
   return f(Fixed<0, 0>{});
 }
 
