@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``trajopt_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py               # about fifteen minutes on one H100
+    python3 chip_smoke.py               # about seventeen minutes on one H100
 
 Phases, each of which must pass (the float64 reference solves of phases 4, 8,
-15, 17 and 18 run on the CPU in worker processes beside the GPU phases):
+15, 17 and 18 run on the CPU in worker processes beside the GPU phases, and
+slice 7's path (a) on the card in three worker processes beside the last
+path phases, after every phase that times a kernel):
 
 1. device and build: the card's name and power limit from ``nvidia-smi``,
    TF32 off (``precise``), the CUDA kernels built from ``csrc/`` by nvcc,
-   one compiler per source side by side (ptxas's register and spill report
-   printed, and for every K2, K3, K4 and K7b instantiation its registers,
-   stack and spill), and each wrapper refusing a float64 CUDA input;
+   one compiler per source side by side (each one's seconds, ptxas's
+   register and spill report printed, and for every K2, K3, K4 and K7b
+   instantiation its registers, stack and spill), each wrapper refusing a
+   float64 CUDA input, and what has no kernel refused (a shape K5 is not
+   built for, ballonbeam in a fused kernel, a chain's minimum-time model);
 2. kernel K1 (``csrc/sqrt_sweep.cu``) against its plain version on the
    card, float32, at the main path's shapes (B=128, N=101, error state
    n=12, m=4), on error-state linearizations of ``quadrotor_line`` around
@@ -57,7 +61,9 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
     linearizations of the quadrotor (13, 4) and of the cartpole (4, 1): with
     control and state regularization, a problem made indefinite, a problem
     whose controls are scaled over 12 decades, and every other shape the
-    kernel is built for; its block (Wc consumer and Wp producer warps, the
+    kernel is built for (slice 7's on the linearizations of the forms that
+    run them: the Euler-angle quadrotor with slacks, the minimum-time
+    forms); its block (Wc consumer and Wp producer warps, the
     ring's S slots), its time at B = 1024 (slice 3's batch) and the
     quadrotor's launch shapes (B = 128, 1024, 1152 and 33, bitwise equal);
 11. kernel K7a (``csrc/fused_backward.cu``) against its plain version and
@@ -122,7 +128,33 @@ Phases, each of which must pass (the float64 reference solves of phases 4, 8,
     and on the rigs' zoo problems, fused and phase-split, held to the JAX
     package's outcomes (``tools/slice6_gates_jax.py``) and to float64 CPU
     references;
-28. the rigs' other instantiations (``slice6models``).
+28. the rigs' other instantiations (``slice6models``);
+29. slice 7's kernels (``slice7_kernels``, run between phases 25 and 26,
+    before path (a)'s workers start): K2 for each scalar model under
+    ``MinTime`` with and without slacks and for ballonbeam and the
+    Euler-angle quadrotor plain and with slacks, on K5's gains, against
+    ``rollout_closed_loop`` at B = 128 and the form's problem's own N with
+    two lanes forced to diverge; K3 and K4 of the quadrotor on
+    ``quad_obs()``'s stack (cylinder rows with D = 2 beside sphere rows
+    with D = 3) against their plain versions;
+30. slice 7's paths (``slice7``, after phase 26), float32: (b)
+    ``solve_batch`` on 128 perturbed
+    ``quad_obs()`` starts fused (K3/K4) and, at a cut depth, fused and with
+    ``fused_al=False`` (K5/K2); (c) ``solve_batch`` on 128
+    ``quadrotor_line(N=101, constrained=True)`` starts at the cut depth,
+    phase-split (its goal row is a custom constraint), each held to the JAX
+    package's float32 shares at its depth; and the other forms' launch-only
+    drives through ``altro_solve`` and ``solve_batch`` with ``fused=True``,
+    which these models and forms do not take (no K3, K4, K7a or K7b
+    launch);
+31. slice 7's path (a) (``slice7_mintime``, last), collected from its
+    worker processes, which start after phase 26: ``altro_solve_batch``
+    with ``minimum_time=True`` on the reference's minimum-time pendulum
+    (tests/test_altro.py:64-82) from its start and 8 perturbed ones,
+    feasible (K5 (3, 2), K2 ``pendulum_mintime``) and line-seeded (also K5
+    (3, 4), K2 ``pendulum_slack_mintime``), held to that test's bars and to
+    the JAX package's float32 solves of the same starts
+    (``tools/slice7_gates_jax.py``).
 
 Every log line is stamped with the seconds since the start. The last two
 lines of standard output are the card's ``nvidia-smi`` line and
@@ -433,6 +465,73 @@ SLICE6_J_MEDIAN = dict(kuka=SLICE6_J_RTOL, doublependulum=SLICE6_J_RTOL,
 SLICE6_J_EACH = ("kuka", "doublependulum", "acrobot_free")
 
 
+# --- slice 7 (the minimum-time transform, custom constraints, the rest of
+# the zoo) ---
+# The scalar models, each in the forms K2 gained: every one under MinTime,
+# with and without the slacks; ballonbeam and the Euler-angle quadrotor also
+# plain and with the slacks. Each is checked on the problem that model
+# meets (``slice7_problem``) at its own N.
+SLICE7_MODELS = ("quadrotor", "cartpole", "car", "pendulum",
+                 "doubleintegrator", "ballonbeam", "quadrotor_euler")
+SLICE7_FORMS = tuple((name, slack, True) for name in SLICE7_MODELS
+                     for slack in (False, True)) + tuple(
+    (name, slack, False) for name in ("ballonbeam", "quadrotor_euler")
+    for slack in (False, True))
+# path (a): the reference's minimum-time pendulum (tests/test_altro.py:
+# 64-82) from its own start and 8 starts perturbed by N(0, 0.05²)
+# (tools/slice7_gates_jax.py), in one ``altro_solve_batch`` per arm
+# (feasible; line-seeded, starts 0-4 and 5-8), each in a worker process on
+# the card, because the solve is bound by the host (about 20 line-search
+# candidates an iteration, a launch of K2 and the AL cost of each: 66.9 s
+# feasible and 142.7 s line-seeded for all 9 in one call on the H100):
+# the workers start after the last phase that times a kernel
+# (``rig_kernels``), run beside slice 7's other paths and slice 6's, and
+# phase ``slice7_mintime`` collects them.
+# Gates: every start meets every bar of that test in the JAX package's
+# float32 solves (tools/slice7_gates_jax.jsonl, share_bars 1.0 in both
+# arms); the card's share must reach it less MINTIME_MARGIN, one start in 9
+# (the solve is chaotic, ROADMAP Q3-27: in float64 the JAX package's own
+# total time spreads 0.816–0.945 when x0 moves by 1e-13), and the nominal
+# start must meet every bar; the median total time within MINTIME_TT_RTOL of
+# the JAX package's float32 median.
+MINTIME_MARGIN, MINTIME_TT_RTOL = 1.0 / 9.0 + 1e-9, 0.15
+# paths (b) and (c): 128 starts with the position perturbed by N(0, 0.1²)
+# (seed 0) of ``quad_obs()`` (fused on K3/K4 and with ``fused_al=False`` on
+# K5/K2) and of ``quadrotor_line(N=101, constrained=True)`` (phase-split:
+# its goal row is a custom constraint), ``ALOptions()``; held to the JAX
+# package's float32 shares on the same starts, the first 64
+# (tools/slice7_gates_jax.jsonl), less GATE_MARGIN: c_max < 1e-3
+# ("share_cmax_1e3") and the final position within 0.5 m
+# ("share_pos_0p5"). The phase-split arms run at the cut depth
+# SLICE7_DEPTH (outer iterations, inner cap) of ALOptions()'s (30, 300),
+# as tools/slice7_gates_jax.py's ``*_cut`` pools do: at the full depth
+# quad_obs's phase-split arm took 184 s on 128 starts (2,187 batched
+# iterations: one start runs 30 outer iterations to 2,100 inner ones, and a
+# ``solve_batch`` lasts as long as its slowest problem), its fused arm 4.8
+# s; (c) 46.5 s (H100). quad_obs also runs fused at the cut
+# depth, and the arms of (b) at it are held to each other within
+# SLICE7_ARMS_MARGIN over all 128 starts: at that depth about 30% of the
+# starts stop before the AL converges, and which ones near the edge is
+# float32 rounding's choice (the full-state quadrotor, ROADMAP Q3-9): the
+# arms read 0.6953 fused and 0.6641 phase-split on the same 128, 0.7656
+# and 0.7188 on the first 64 (the JAX package 0.7031; H100).
+SLICE7_POOL = 128
+SLICE7_DEPTH = (10, 30)
+SLICE7_ARMS_MARGIN = 0.05
+# K5's shapes of slice 7, each checked in phase 10 on the form that runs it:
+# (n, m) -> (model, slack, minimum time)
+SLICE7_K5 = {(12, 16): ("quadrotor_euler", True, False),
+             (5, 2): ("cartpole", False, True), (4, 3): ("car", False, True),
+             (14, 5): ("quadrotor", False, True),
+             (13, 5): ("quadrotor_euler", False, True),
+             (3, 4): ("pendulum", True, True), (5, 6): ("cartpole", True, True),
+             (14, 18): ("quadrotor", True, True)}
+SLICE7_SHARES = ("share_cmax_1e3", "share_pos_0p5")
+# the launch-only drives of the other forms: one outer iteration of at most
+# this many inner ones a stage
+SLICE7_MODELS_INNER = 10
+
+
 T0 = time.perf_counter()
 
 
@@ -594,6 +693,7 @@ def kernel_entry(report, **entry):
 
 def phase_build(report):
     import torch
+    import trajopt_tpu_torch as tt
     from trajopt_tpu_torch.kernels import _build
     from trajopt_tpu_torch.models import zoo
     from trajopt_tpu_torch.models.base import Model, discretize
@@ -618,6 +718,9 @@ def phase_build(report):
     _build.load()
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
+    log("build: seconds of each nvcc (side by side): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+            _build.build.seconds.items())))
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
             if line.strip():
@@ -690,6 +793,9 @@ def phase_build(report):
     other = discretize(Model(zoo.quadrotor_dynamics, 13, 4, name="custom"),
                        "rk3")
     obj32 = quadrotor_objective(torch.float32)
+    beam_obj = ballonbeam_problem(torch.float32).obj
+    chain_mt = tt.minimum_time_problem(rig_problem(
+        "acrobot_urdf", torch.float32)).model
     for name, call in (
             ("rollout_closed_loop_cuda: a model without a CUDA step",
              lambda: rollout_closed_loop_cuda(
@@ -702,10 +808,18 @@ def phase_build(report):
              "the chain step)", lambda: fused_backward_cuda(
                  discretize(zoo.acrobot, "rk3"), f(2, N, 4), f(2, N - 1, 1),
                  f(N - 1), obj32, f(2))),
-            ("riccati_sweep_cuda: (n, m) = (5, 2)",
+            ("riccati_sweep_cuda: (n, m) = (6, 2)",
              lambda: riccati_sweep_cuda(
-                 f(2, 3, 5, 5), f(2, 3, 5, 2), f(2, 4, 5), f(2, 3, 2),
-                 f(2, 4, 5, 5), f(2, 3, 2, 2), f(2, 3, 2, 5), f(2))),
+                 f(2, 3, 6, 6), f(2, 3, 6, 2), f(2, 4, 6), f(2, 3, 2),
+                 f(2, 4, 6, 6), f(2, 3, 2, 2), f(2, 3, 2, 6), f(2))),
+            ("fused_backward_cuda: ballonbeam (K2 only: no lane step in "
+             "the JAX package)", lambda: fused_backward_cuda(
+                 discretize(zoo.ballonbeam, "rk3"), f(2, N, 4),
+                 f(2, N - 1, 1), f(N - 1), beam_obj, f(2))),
+            ("rollout_closed_loop_cuda: the minimum-time acrobot rig (no "
+             "MinTime<Chain>)", lambda: rollout_closed_loop_cuda(
+                 chain_mt, f(2, 5), f(2, 4, 5), f(2, 3, 2), f(2, 3, 2, 5),
+                 f(2, 3, 2), f(2), 0.05)),
             ("rollout_closed_loop_cuda: a per-interval dt",
              lambda: rollout_closed_loop_cuda(
                  quad, f(2, 13), f(2, 4, 13), f(2, 3, 4), f(2, 3, 4, 13),
@@ -1691,7 +1805,7 @@ def riccati_flops(n, m):
 # csrc/models.cuh; with one tangent three times that); a rigid-body chain's
 # are counted from its table by chain_dyn_ops
 DYN_OPS = dict(quadrotor=120, cartpole=40, car=8, pendulum=8,
-               doubleintegrator=1)
+               doubleintegrator=1, ballonbeam=30, quadrotor_euler=420)
 
 
 def chain_dyn_ops(table):
@@ -1776,12 +1890,16 @@ def chain_dyn_ops(table):
 
 def step_ops(label, n, model):
     """Operations of one RK3 step of ``model`` (with slack controls,
-    ``label`` ends in ``_slack``: n more additions): three dynamics
-    evaluations and the combinations."""
-    base = label.removesuffix("_slack")
+    ``label`` has ``_slack``: n more additions; in minimum time, ``_mintime``:
+    one more product, h²): three dynamics evaluations and the
+    combinations."""
+    mintime = label.endswith("_mintime")
+    slack = label.removesuffix("_mintime")
+    base = slack.removesuffix("_slack")
     table = getattr(model, "chain_table", None)
     dyn = DYN_OPS[base] if table is None else chain_dyn_ops(table)
-    return 3 * dyn + 8 * n + (n if base != label else 0)
+    n = n - mintime
+    return 3 * dyn + 8 * n + (n if base != slack else 0) + mintime
 
 
 def model_setup(name, batch=B, seed=7):
@@ -2007,21 +2125,30 @@ def phase_k5(report, lin):
     # car (3,2), the pendulum (2,1), the quadrotor's error state (12,4) and
     # the slack-augmented quadrotor of the maze (13,17) with the AL terms of
     # al_cost_fns in its expansion
-    others = [(f"K5 {nm}", sweep_inputs(model_setup(nm), torch.float32))
+    others = [(f"K5 {nm}", sweep_inputs(model_setup(nm), torch.float32), 1.0)
               for nm in ("car", "pendulum")]
-    others.append(("K5 quadrotor error state", list(lin[0])))
+    others.append(("K5 quadrotor error state", list(lin[0]), 1.0))
     mz = maze_setup(torch.float64, B)
     A, Bm = mz["prob"].model.jacobian_traj(mz["X"][:, :-1], mz["U"], mz["dt"])
     e = al_cost_fns(mz["prob"].obj, mz["prob"].constraints, mz["dt"],
                     mz["lam"], mz["mu"])[1](mz["X"], mz["U"])
     others.append(("K5 quadrotor with slacks", [
-        t.float().contiguous() for t in (A, Bm, e.x, e.u, e.xx, e.uu, e.ux)]))
-    for tag, ins in others:
+        t.float().contiguous() for t in (A, Bm, e.x, e.u, e.xx, e.uu, e.ux)],
+        1.0))
+    # slice 7's shapes, each on the linearization of a form that runs it
+    # (``form_setup``): the Euler-angle quadrotor with slacks, and the
+    # minimum-time forms
+    for n_m, form in SLICE7_K5.items():
+        fs = form_setup(*form)
+        check(tuple(fs["ins"][1].shape[-2:]) == n_m, "K5 slice 7 shapes")
+        others.append((f"K5 {fs['label']}", fs["ins"], fs["rho"]))
+    for tag, ins, rho_v in others:
         n, m = ins[1].shape[-2:]
         Nk = ins[2].shape[1]
-        k, p, p64 = three(ins, full(1.0))
-        worst = compare_sweeps(f"{tag} ({n},{m}) rho=1", k, p, p64)
-        rho = full(1.0)
+        rho = full(rho_v)
+        k, p, p64 = three(ins, rho)
+        worst = compare_sweeps(f"{tag} ({n},{m}) rho={rho_v:g}", k, p, p64)
+        check(int(k[4].sum()) <= B // 4, f"{tag}: most problems fail")
         ms_k = cuda_time_ms(lambda: riccati_sweep_cuda(*ins, rho), reps=10)
         exp = Expansion(*ins[2:])
         plain_ms = cuda_time_ms(lambda: scan_sweep(ins[0], ins[1], exp, rho),
@@ -2732,9 +2859,10 @@ def al_problem(name, slack, dtype):
     return infeasible_problem(prob, 1e-1 if name == "car" else 1.0)
 
 
-def al_setup(name, slack, seed=9):
+def al_setup(name, slack, seed=9, factory=None):
     """Kernel inputs of K3 and K4 for one instantiation at B = 128 and the
-    problem's own N, made in float64 and handed out in both types: with
+    problem's own N (the problem of ``al_problem``, or ``factory(dtype=)``'s
+    for model ``name``), made in float64 and handed out in both types: with
     slacks the transform's seeds plus noise (0.05 on the states, 0.02 on the
     controls), without them the open-loop rollouts from starts with 0.02
     noise; duals λ in [0, 0.5] and penalties μ in [0.5, 20] on the valid
@@ -2743,8 +2871,10 @@ def al_setup(name, slack, seed=9):
     from trajopt_tpu_torch.ops.canonical import canonical_stack
     from trajopt_tpu_torch.ops.rollout import rollout
 
-    p64 = al_problem(name, slack, torch.float64)
-    p32 = al_problem(name, slack, torch.float32)
+    if factory is None:
+        def factory(dtype):
+            return al_problem(name, slack, dtype)
+    p64, p32 = factory(dtype=torch.float64), factory(dtype=torch.float32)
     dev = p64.device
     n, m, Nk, P = p64.n, p64.m, p64.N, p64.constraints.P
     rng = np.random.default_rng(seed)
@@ -2802,7 +2932,9 @@ def al_case(report, st):
     """K3 and K4 of one instantiation (``st`` from ``al_setup`` or
     ``kuka_setup``) against their plain versions on the card, and for the
     slack instantiations (or where ``st["phase_split"]``) K2 on K3's gains
-    and K5 on the AL expansion of ``al_cost_fns``."""
+    and K5 on the AL expansion of ``al_cost_fns``. With ``st["entry"]``
+    False the checks add no entry to the ``kernels`` line (another stack of
+    an instantiation that has one)."""
     import torch
     from trajopt_tpu_torch.ops.canonical import canon_al_cost, pad_terminal
     from trajopt_tpu_torch.ops.cost import Expansion, total_cost
@@ -2919,11 +3051,12 @@ def al_case(report, st):
                canon.row_i, canon.row_f) + nbytes(k[0], k[1]) + 9 * B)
     log(f"{tag} time per sweep: kernel {ms_k:.4f} ms, plain version "
         f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms by {bound_by}")
-    kernel_entry(report, name=f"fused_al_backward_{label}",
-                 source="trajopt_tpu_torch/csrc/fused_al_backward.cu",
-                 replaces="trajopt_tpu/ops/pallas_al_fused.py:564",
-                 max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by)
+    if st.get("entry", True):
+        kernel_entry(report, name=f"fused_al_backward_{label}",
+                     source="trajopt_tpu_torch/csrc/fused_al_backward.cu",
+                     replaces="trajopt_tpu/ops/pallas_al_fused.py:564",
+                     max_abs_err=worst, ms=ms_k, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
 
     # ---- K4 on K3's gains: lanes K4_DIVERGE follow a blown-up
     # feedforward, lane K4_EXHAUST gets a cost no candidate can beat
@@ -3011,7 +3144,7 @@ def al_case(report, st):
         ak > 0, torch.log2(alpha0 / ak.clamp(min=1e-30)).round() + 1,
         torch.full_like(ak, ls_opts[2] + 1.0))
     per_knot = (mm(m, 1, n) + 2 * (n * n + m * m + m * n) + 10 * P
-                + step_ops(label, n, model))
+                + step_ops(name + ("_slack" if slack else ""), n, model))
     bound_ms, bound_by = bound(
         float(cands.sum()) * (Nk - 1) * per_knot,
         nbytes(x0, X, U, K, d, lam, mu, dt, obj.Q, obj.R, obj.H, obj.q,
@@ -3020,11 +3153,13 @@ def al_case(report, st):
         f"candidates a problem, {int(cands.max())} at most): kernel "
         f"{ms_k:.4f} ms, plain version {plain_ms:.1f} ms, bound "
         f"{bound_ms:.5f} ms by {bound_by}")
-    kernel_entry(report, name=f"fused_al_forward_{label}",
-                 source="trajopt_tpu_torch/csrc/fused_al_forward.cu",
-                 replaces="trajopt_tpu/ops/pallas_al_fused.py:828",
-                 max_abs_err=float((Xk - Xp)[calm].abs().max()), ms=ms_k,
-                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if st.get("entry", True):
+        kernel_entry(report, name=f"fused_al_forward_{label}",
+                     source="trajopt_tpu_torch/csrc/fused_al_forward.cu",
+                     replaces="trajopt_tpu/ops/pallas_al_fused.py:828",
+                     max_abs_err=float((Xk - Xp)[calm].abs().max()),
+                     ms=ms_k, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
     if not (slack or st.get("phase_split")):
         return
 
@@ -4213,6 +4348,468 @@ def phase_slice6_models(report):
                   prob, True, x0s, al_kernels(rig), False)
 
 
+# ------------------------------------------------------------- slice 7
+
+def ballonbeam_problem(dtype, device=None):
+    """A ball-on-beam problem (no zoo problem of either package drives the
+    model): the ball 0.25 m out on a level beam brought to rest at the
+    centre, N = 51, dt = 0.05, the torque held at the level beam's 9.81 N
+    (m2·g/2) as the seed and bounded to [0, 30], the goal constrained."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.models import zoo
+
+    N, n, m = 51, 4, 1
+    x0 = np.array([0.25, 0.0, 0.0, 0.0])
+    cons = tt.ConstraintSetBuilder(N)
+    cons.add(tt.bound_constraint(n, m, u_min=0.0, u_max=30.0))
+    cons.add(tt.goal_constraint(np.zeros(n)))
+    return tt.problem(tt.discretize(zoo.ballonbeam, "rk3"), tt.LQRObjective(
+        np.eye(n) * 1e-2, np.eye(m) * 1e-2, np.eye(n) * 100.0, np.zeros(n),
+        N, dtype=dtype, device=device), constraints=cons, x0=x0,
+        xf=np.zeros(n), N=N, dt=0.05, U0=np.full((N - 1, m), 9.81),
+        dtype=dtype, device=device)
+
+
+def quadrotor_euler_problem(dtype, device=None):
+    """``quadrotor()``'s flight (60 m in 5 s, N = 101, the same weights, the
+    u ≥ 0 bound and the terminal velocity box) for the Euler-angle
+    quadrotor (n = 12)."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.models import zoo
+
+    N, n, m = 101, 12, 4
+    x0, xf = np.zeros(n), np.zeros(n)
+    x0[2], xf[1:3] = 10.0, (60.0, 10.0)
+    Q = np.eye(n) * 1e-3
+    Q[3:6, 3:6] = np.eye(3) * 1e-2
+    xf_U, xf_L = np.full(n, np.inf), np.full(n, -np.inf)
+    xf_U[:3] = xf_L[:3] = xf[:3]
+    xf_U[6:9] = xf_L[6:9] = 0.0
+    cons = tt.ConstraintSetBuilder(N)
+    cons.add(tt.bound_constraint(n, m, u_min=0.0, label="bnd_u"),
+             knots=range(0, N - 1))
+    cons.add(tt.bound_constraint(n, m, x_min=xf_L, x_max=xf_U,
+                                 label="bnd_xf"), knots=[N - 1])
+    return tt.problem(tt.discretize(zoo.quadrotor_euler, "rk3"),
+                      tt.LQRObjective(Q, np.eye(m) * 1e-4, np.eye(n) * 1e3,
+                                      xf, N, dtype=dtype, device=device),
+                      constraints=cons, x0=x0, xf=xf, N=N, tf=5.0,
+                      U0=np.full((N - 1, m), 0.5 * 9.81 / 4.0), dtype=dtype,
+                      device=device)
+
+
+def mintime_pendulum(dtype, line=False, device=None):
+    """The minimum-time pendulum of tests/test_altro.py:64-82 (N = 31,
+    dt = 0.075, |u| ≤ 5), seeded with the line to the goal if ``line``."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.models import zoo
+
+    N, n, m = 31, 2, 1
+    xf = np.array([np.pi, 0.0])
+    cons = tt.ConstraintSetBuilder(N)
+    cons.add(tt.bound_constraint(n, m, u_min=-5.0, u_max=5.0))
+    cons.add(tt.goal_constraint(xf))
+    prob = tt.problem(tt.discretize(zoo.pendulum, "rk3"), tt.LQRObjective(
+        np.eye(n) * 1e-3, np.eye(m) * 1e-3, np.eye(n) * 1e-3, xf, N,
+        dtype=dtype, device=device), constraints=cons, x0=np.zeros(n),
+        xf=xf, N=N, dt=0.075, U0=np.ones((N - 1, m)), dtype=dtype,
+        device=device)
+    return line_seeded(prob) if line else prob
+
+
+def mintime_options():
+    """tests/test_altro.py:66-68."""
+    import trajopt_tpu_torch as tt
+
+    return tt.ALTROOptions(opts_al=tt.ALOptions(iterations=50,
+                                                penalty_scaling=10.0),
+                           R_minimum_time=15.0, dt_max=0.15, dt_min=1e-3)
+
+
+def slice7_problem(name, dtype, device=None):
+    """The problem model ``name`` meets in slice 7: the minimum-time
+    pendulum, ``quadrotor()``, ``cartpole()``, ``parallel_park()`` (the
+    car), ``doubleintegrator()``, ``ballonbeam_problem``,
+    ``quadrotor_euler_problem``."""
+    from trajopt_tpu_torch.problems import zoo
+
+    return dict(
+        pendulum=lambda **kw: mintime_pendulum(**kw), quadrotor=zoo.quadrotor,
+        cartpole=zoo.cartpole, car=zoo.parallel_park,
+        doubleintegrator=zoo.doubleintegrator, ballonbeam=ballonbeam_problem,
+        quadrotor_euler=quadrotor_euler_problem)[name](dtype=dtype,
+                                                       device=device)
+
+
+def form_label(name, slack, mintime):
+    return name + ("_slack" if slack else "") + ("_mintime" if mintime
+                                                  else "")
+
+
+def form_problem(name, slack, mintime, dtype, device=None):
+    """``slice7_problem(name)`` line-seeded and through the infeasible-start
+    transform if ``slack``, then through the minimum-time transform if
+    ``mintime`` (the order of ``altro_solve``)."""
+    import trajopt_tpu_torch as tt
+
+    prob = slice7_problem(name, dtype, device)
+    if slack:
+        prob = tt.infeasible_problem(line_seeded(prob))
+    if mintime:
+        prob = tt.minimum_time_problem(prob)
+    return prob
+
+
+_FORMS = {}
+
+
+def form_setup(name, slack, mintime, seed=13, device=None):
+    """One K2 form at B = 128 and its problem's own N: the transformed
+    problem in float64 and float32, starts with 0.02 noise on every base
+    state (τ_0 = 0), its control seed with 0.02 noise (none on the
+    quadrotors' hover thrust), the open-loop rollouts in float64, and K5's
+    sweep inputs: the model's Jacobians and the AL expansion of
+    ``al_cost_fns`` with λ = 0 and μ = 10 on the valid rows. Far from its
+    goal a minimum-time stage cost (ℓ + R_mt)·h² is not convex (its
+    Hessian's Schur complement in h is 2R_mt − 6ℓ_x for ℓ_x = ½|x − x_f|²_Q),
+    and a closed loop that moves h moves every later step's dt: (``rho``,
+    ``alpha``) is the first pair of 1, 10, …, 1e6 and 1, 1/4, …, 1/256 at
+    which the float32 plain sweep passes on all but B/16 of the problems,
+    three quarters of the float64 closed-loop rollouts on its gains stay
+    inside the guard, and the float32 plain rollout stays within 1e-4 of
+    scale of the float64 one on the same float32 inputs (a rollout that
+    float32 rounding alone moves further is chaotic, and no kernel can be
+    held to it). Made once per form (phases 10 and ``slice7_kernels`` share
+    it)."""
+    import torch
+    from trajopt_tpu_torch.ops.cost import Expansion
+    from trajopt_tpu_torch.ops.riccati import scan_sweep
+    from trajopt_tpu_torch.ops.rollout import rollout, rollout_closed_loop
+    from trajopt_tpu_torch.solvers.al import al_cost_fns
+
+    key = (name, slack, mintime, seed, device)
+    if key in _FORMS:
+        return _FORMS[key]
+    p64 = form_problem(name, slack, mintime, torch.float64, device)
+    p32 = form_problem(name, slack, mintime, torch.float32, device)
+    dev, n, m, Nk = p64.device, p64.n, p64.m, p64.N
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    nb = n - 1 if mintime else n
+    noise = np.concatenate([rng.normal(size=(B, nb)) * 0.02,
+                            np.zeros((B, n - nb))], axis=1)
+    x0s = p64.x0[None] + t(noise)
+    U = p64.U[None].expand(B, -1, -1)
+    if not name.startswith("quadrotor"):
+        U = U + t(rng.normal(size=(B, Nk - 1, m)) * 0.02)
+    U = U.contiguous()
+    dt = p64.dt_traj()
+    X = rollout(p64.model, x0s, U, dt)
+    A, Bm = p64.model.jacobian_traj(X[:, :-1], U, dt)
+    cs = p64.constraints
+    lam = torch.zeros((B, Nk, cs.P), dtype=torch.float64, device=dev)
+    e = al_cost_fns(p64.obj, cs, dt, lam, 10.0 * cs.mask.double().expand(
+        B, -1, -1))[1](X, U)
+    ins = [a.float().contiguous() for a in (A, Bm, e.x, e.u, e.xx, e.uu,
+                                            e.ux)]
+    x0, X32, U32 = (t.float().contiguous() for t in (X[:, 0], X, U))
+
+    alphas = (1.0, 0.25, 0.0625, 0.015625, 0.00390625)
+
+    def calm(rho):
+        """The first step at which the float32 rollouts on the float32
+        plain sweep's gains at ``rho`` are calm, with the fail flags and
+        the live rollouts (every step's rollouts in one batch)."""
+        rho_t = torch.full((B,), rho, device=dev)
+        K, d, _, _, fail = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]),
+                                      rho_t)
+        args = [t.repeat((len(alphas),) + (1,) * (t.ndim - 1))
+                for t in (x0, X32, U32, K, d)]
+        args.append(torch.tensor(alphas, device=dev).repeat_interleave(B))
+        Xa, _, ok32 = rollout_closed_loop(p32.model, *args, p32.dt)
+        X64, _, ok = rollout_closed_loop(
+            p64.model, *(t.double() for t in args), p64.dt)
+        for i, alpha in enumerate(alphas):
+            at = slice(i * B, (i + 1) * B)
+            live = ok[at] & ok32[at]
+            gap = float((Xa[at].double() - X64[at])[live].abs().max()) / max(
+                1.0, float(X64[at][live].abs().max())) if bool(live.any()) \
+                else float("inf")
+            if int(fail.sum()) <= B // 16 \
+                    and int(ok[at].sum()) >= 3 * B // 4 and gap <= 1e-4:
+                return alpha, fail, ok[at]
+        return None, fail, ok[:B]
+
+    for rho in (1.0, 10.0, 100.0, 1e3, 1e4, 1e5, 1e6):
+        alpha, fail, ok = calm(rho)
+        if alpha is not None:
+            break
+    check(alpha is not None, f"K2 {form_label(name, slack, mintime)}: no "
+          "calm rollout at any rho and alpha")
+    _FORMS[key] = dict(
+        label=form_label(name, slack, mintime), p64=p64, p32=p32, X=X32,
+        U=U32, ins=ins, rho=rho, alpha=alpha, fail32=int(fail.sum()),
+        alive64=int(ok.sum()))
+    return _FORMS[key]
+
+
+def slice7_k2(report, fs):
+    """K2's instantiation of one form on K5's gains at the form's ``rho``
+    and its steps at the form's ``alpha`` (``form_setup``), lanes
+    K4_DIVERGE with the feedforward blown up (``k2_case``)."""
+    import torch
+    from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
+
+    dev = fs["X"].device
+    K, d, _, _, _ = riccati_sweep_cuda(*fs["ins"], torch.full(
+        (B,), fs["rho"], device=dev))
+    for lane in K4_DIVERGE:
+        d[lane] *= 1e5
+    log(f"K2 {fs['label']}: gains of K5 at rho = {fs['rho']:g} (the float32 "
+        f"plain sweep fails on {fs['fail32']} of {B}), steps at alpha = "
+        f"{fs['alpha']:g} ({fs['alive64']} of {B} float64 rollouts alive)")
+    p32 = fs["p32"]
+    k2_case(report, fs["label"], p32.model, fs["p64"].model,
+            [fs["X"][:, 0].contiguous(), fs["X"], fs["U"], K, d,
+             torch.full((B,), fs["alpha"], device=dev)], p32.dt)
+
+
+def phase_slice7_kernels(report):
+    """Slice 7's instantiations against their plain versions: K2 for each
+    form of ``SLICE7_FORMS`` (the K5 shapes they need are phase 10's), and
+    K3/K4 of the quadrotor on ``quad_obs()``'s stack (P = 231: cylinder
+    rows with D = 2 and sphere rows with D = 3 in one stack)."""
+    from trajopt_tpu_torch.problems import zoo
+
+    for name, slack, mintime in SLICE7_FORMS:
+        slice7_k2(report, form_setup(name, slack, mintime))
+    st = al_setup("quadrotor", False, factory=zoo.quad_obs)
+    st.update(label="quadrotor on quad_obs", entry=False)
+    al_case(report, st)
+
+
+def mintime_job(line, starts):
+    """Path (a) in a worker process on the card: ``altro_solve_batch`` of
+    the minimum-time pendulum from the starts ``starts`` (a slice) of the 9
+    of tools/slice7_gates_jax.py, in float32, with the launch counts read
+    around it. Returns the outcome per start, the counts and the time."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.solvers.altro import altro_solve_batch
+    from trajopt_tpu_torch.utils.tree import precise_context
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    prob = mintime_pendulum(torch.float32, line=line, device=dev)
+    x0s = torch.as_tensor(mintime_starts()[starts], dtype=torch.float32,
+                          device=dev)
+    with precise_context():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = altro_solve_batch(prob, mintime_options(), x0s,
+                              minimum_time=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    goal = (r.X[:, -1] - prob.xf).abs().amax(-1)
+    return dict(tt=r.tt.tolist(), c_max=r.c_max.tolist(),
+                goal=goal.tolist(), iterations=r.iterations_total.tolist(),
+                wall=wall, launches=counts, host_syncs=r.host_syncs,
+                finite=bool(torch.isfinite(r.X).all()))
+
+
+def mintime_starts():
+    """tools/slice7_gates_jax.py's 9 starts of path (a)."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([np.zeros((1, 2)),
+                           rng.normal(size=(8, 2)) * 0.05])
+
+
+def jax_slice7():
+    """tools/slice7_gates_jax.jsonl by pool (the float32 lines)."""
+    path = ROOT / "tools" / "slice7_gates_jax.jsonl"
+    lines = [json.loads(x) for x in path.read_text().splitlines()]
+    return {d["pool"]: d for d in lines if d["dtype"] == "float32"}
+
+
+def quad_starts(x0, count=SLICE7_POOL):
+    """Paths (b) and (c)'s starts: the position perturbed by N(0, 0.1²)
+    (seed 0)."""
+    rng = np.random.default_rng(0)
+    noise = np.concatenate([rng.normal(size=(count, 3)) * 0.1,
+                            np.zeros((count, 10))], axis=1)
+    return np.asarray(x0, np.float64)[None] + noise
+
+
+def phase_slice7(report):
+    """Slice 7's paths (b) and (c) and the other forms' drives on the card
+    in float32 (module docstring)."""
+    import torch
+    from trajopt_tpu_torch.problems import zoo
+    import trajopt_tpu_torch as tt
+
+    jax7 = jax_slice7()
+    # (b) quad_obs, fused and phase-split; (c) the constrained line
+    f32 = torch.float32
+    quad = ("riccati_sweep_13x4", "rollout_closed_loop_quadrotor")
+    obs, line = zoo.quad_obs(dtype=f32), zoo.quadrotor_line(
+        N=N, constrained=True, dtype=f32)
+    cut = f", {SLICE7_DEPTH[0]} outer x {SLICE7_DEPTH[1]} inner"
+    arms = (("(b) quad_obs fused", obs, True, None, al_kernels("quadrotor"),
+             "quad_obs"),
+            ("(b) quad_obs fused" + cut, obs, True, SLICE7_DEPTH,
+             al_kernels("quadrotor"), "quad_obs_cut"),
+            ("(b) quad_obs phase-split" + cut, obs, False, SLICE7_DEPTH, quad,
+             "quad_obs_cut"),
+            ("(c) quadrotor_line constrained" + cut, line, True, SLICE7_DEPTH,
+             quad, "quadrotor_line_con_cut"))
+    got = {}
+    for tag, prob, fused_al, depth, ran, pool in arms:
+        x0s = torch.as_tensor(quad_starts(prob.x0.cpu()), dtype=f32,
+                              device=prob.device)
+        outer, inner = depth or (30, 300)
+        opts = tt.ALOptions(iterations=outer, opts_uncon=tt.iLQROptions(
+            iterations=inner, fused_al=fused_al))
+        warm = tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
+            iterations=2, fused_al=fused_al))
+        res = run_arm(report, f"slice 7 {tag}", prob, opts, x0s, ran, warm)
+        err = (res.X[:, -1, :3] - prob.xf[:3]).norm(dim=-1)
+        ref = jax7[pool]
+        k = ref["count"]
+        mine = dict(share_cmax_1e3=float((res.c_max < 1e-3).float().mean()),
+                    share_pos_0p5=float((err < 0.5).float().mean()))
+        first = dict(share_cmax_1e3=float((res.c_max[:k] < 1e-3).float()
+                                          .mean()),
+                     share_pos_0p5=float((err[:k] < 0.5).float().mean()))
+        log(f"slice 7 {tag}: P = {prob.constraints.P}, c_max < 1e-3 on "
+            f"{mine['share_cmax_1e3']:.4f}, final position within 0.5 m on "
+            f"{mine['share_pos_0p5']:.4f}, median c_max "
+            f"{float(res.c_max.median()):.3e}, median position error "
+            f"{float(err.median()):.3e} m; on the first {k}: {first} (the "
+            f"JAX package in float32 on the CPU: "
+            f"{ {s: ref[s] for s in SLICE7_SHARES} }; gate: each less "
+            f"{GATE_MARGIN})")
+        for s in SLICE7_SHARES:
+            check(first[s] >= ref[s] - GATE_MARGIN,
+                  f"slice 7 {tag}: {s} below the JAX package's")
+        got[tag] = mine
+    a = got["(b) quad_obs fused" + cut]
+    b = got["(b) quad_obs phase-split" + cut]
+    log(f"slice 7 (b){cut}: the arms' shares differ by "
+        f"{ {s: abs(a[s] - b[s]) for s in SLICE7_SHARES} } (bar "
+        f"{SLICE7_ARMS_MARGIN})")
+    check(all(abs(a[s] - b[s]) <= SLICE7_ARMS_MARGIN for s in SLICE7_SHARES),
+          "slice 7 (b): the arms disagree")
+    slice7_models(report)
+
+
+def phase_slice7_mintime(report, jobs):
+    """Slice 7's path (a), collected from its workers (``mintime_job``):
+    the feasible arm from one, the line-seeded arm's starts 0-4 and 5-8
+    from two more."""
+    jax7 = jax_slice7()
+    pend = ("riccati_sweep_3x2", "rollout_closed_loop_pendulum_mintime")
+    for line, tag in ((False, "feasible"), (True, "line-seeded")):
+        parts = [f.result() for f in jobs[line]]
+        out = {k: sum((q[k] for q in parts), []) for k in
+               ("tt", "c_max", "goal", "iterations")}
+        out.update(wall=max(q["wall"] for q in parts),
+                   host_syncs=sum(q["host_syncs"] for q in parts),
+                   finite=all(q["finite"] for q in parts),
+                   launches={k: sum(q["launches"][k] for q in parts)
+                             for k in parts[0]["launches"]})
+        ran = pend + (("riccati_sweep_3x4",
+                       "rollout_closed_loop_pendulum_slack_mintime")
+                      if line else ())
+        log(f"slice 7 (a) minimum-time pendulum, {tag}, 9 starts in "
+            f"{len(parts)} altro_solve_batch call(s), a worker process each: "
+            f"{out['wall']:.3f} s (the longest), launches {out['launches']}, "
+            f"host syncs {out['host_syncs']}")
+        record_launches(report, out["launches"], ran=ran)
+        check(out["finite"], f"slice 7 (a) {tag}: non-finite states")
+        tt_, c, g = (np.array(out[k]) for k in ("tt", "c_max", "goal"))
+        bars = (tt_ < 0.5 * 0.15 * 30) & (tt_ < 1.0) & (g < 1e-3) \
+            & (c < 1e-3)
+        ref = jax7["mintime_line" if line else "mintime"]
+        share = float(bars.mean())
+        med = float(np.median(tt_))
+        log(f"slice 7 (a) {tag}: tt {np.round(tt_, 4).tolist()}, c_max "
+            f"{[f'{v:.2e}' for v in c]}, goal error {[f'{v:.2e}' for v in g]}"
+            f", inner iterations {out['iterations']} | every bar of "
+            f"tests/test_altro.py:64-82 met on {share:.4f} (the JAX package "
+            f"in float32 on the same starts: {ref['share_bars']}, gate less "
+            f"{MINTIME_MARGIN:.4f}; the nominal start: {bool(bars[0])}); "
+            f"median tt {med:.4f} (JAX {ref['median_tt']:.4f}, within "
+            f"{MINTIME_TT_RTOL})")
+        check(bool(bars[0]) and share >= ref["share_bars"] - MINTIME_MARGIN,
+              f"slice 7 (a) {tag}: the reference bars")
+        check(abs(med - ref["median_tt"]) <= MINTIME_TT_RTOL
+              * ref["median_tt"], f"slice 7 (a) {tag}: median total time")
+        report[f"slice 7 (a) {tag}"] = dict(wall_s=out["wall"], share=share,
+                                            median_tt=med)
+
+
+def slice7_models(report):
+    """The slice-7 forms no other path reaches, through the entry points a
+    user calls, one outer iteration of at most SLICE7_MODELS_INNER inner
+    ones a stage, the inner options ``fused=True`` (which these models and
+    forms do not take: K3, K4, K7a and K7b must not launch): for each
+    scalar model of ``slice7_problem`` but the pendulum (path (a)) the
+    minimum-time ``altro_solve`` feasible (``MinTime<M>``) and line-seeded
+    (``MinTime<WithSlack<M>>`` and, in the re-solve, ``MinTime<M>``), and
+    for ballonbeam and the Euler-angle quadrotor also ``solve_batch`` on
+    8 starts and the line-seeded ``altro_solve`` (their plain and slack
+    forms). Outcomes are printed, not held."""
+    import torch
+    import trajopt_tpu_torch as tt
+
+    f32 = torch.float32
+    opts = tt.ALTROOptions(opts_al=tt.ALOptions(
+        iterations=1, opts_uncon=tt.iLQROptions(
+            iterations=SLICE7_MODELS_INNER, fused=True)))
+
+    def kernels(name, slack, mintime, n, m):
+        k5 = f"riccati_sweep_{n + mintime}x{m + mintime + n * slack}"
+        return (k5, "rollout_closed_loop_" + form_label(name, slack,
+                                                        mintime))
+
+    for name in SLICE7_MODELS:
+        if name == "pendulum":
+            continue
+        prob = slice7_problem(name, f32)
+        n, m = prob.n, prob.m
+        drives = [("minimum time", prob, True,
+                   kernels(name, False, True, n, m))]
+        drives.append(("minimum time, line-seeded", line_seeded(prob), True,
+                       kernels(name, True, True, n, m)
+                       + kernels(name, False, True, n, m)))
+        if name in ("ballonbeam", "quadrotor_euler"):
+            drives.append(("line-seeded", line_seeded(prob), False,
+                           kernels(name, True, False, n, m)
+                           + kernels(name, False, False, n, m)))
+        for what, p, mt, ran in drives:
+            tag = f"slice 7 {name} {what}, fused=True, 1 outer iteration " \
+                f"of {SLICE7_MODELS_INNER} a stage"
+            res, wall, _ = run_counted(report, tag, lambda: tt.altro_solve(
+                p, opts, minimum_time=mt), tuple(dict.fromkeys(ran)))
+            check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite")
+            log(f"{tag}: c_max {float(res.c_max):.3e}, tt "
+                f"{float(res.tt):.4f} (printed, not held)")
+        if name in ("ballonbeam", "quadrotor_euler"):
+            tag = f"slice 7 {name} solve_batch, 8 starts, fused=True"
+            x0s = prob.x0[None].repeat(8, 1)
+            res, wall, _ = run_counted(report, tag, lambda: tt.solve_batch(
+                prob, opts.opts_al, x0s), kernels(name, False, False, n, m))
+            check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite")
+
+
 # ------------------------------------------ float64 references on the CPU
 
 def cpu_reference(kind, x0s):
@@ -4363,7 +4960,8 @@ PHASES = ("build", "k1", "k2", "slice1", "profile1", "k3", "k4", "maze",
           "profile2", "k5", "k7a", "k7b", "k2full", "almodels", "slice3",
           "profile3", "escape", "escape_pool", "profile4", "slice4models",
           "kuka_kernels", "kuka", "kuka_pool", "kuka_profile", "kuka_slack",
-          "rig_kernels", "slice6", "slice6models")
+          "slice7_kernels", "rig_kernels", "slice7", "slice6",
+          "slice6models", "slice7_mintime")
 
 
 def run_phases(report, only):
@@ -4394,6 +4992,11 @@ def run_phases(report, only):
     # the GPU phases go on; each phase that needs one waits for it
     workers = concurrent.futures.ProcessPoolExecutor(
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
+    # slice 7's path (a) on the card in two worker processes of its own
+    # (``mintime_job``)
+    gpu_workers = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    jobs7 = None
     try:
         # (slice 3's start once the host-bound slice 1 has been timed)
         early = [p for p in ("slice1", "maze", "kuka") if p in want]
@@ -4441,15 +5044,30 @@ def run_phases(report, only):
                 report)
             run("kuka_slack", "slice 5: the kuka slack instantiations",
                 phase_kuka_slack, report)
+            run("slice7_kernels", "slice 7: K2's new forms and K3/K4 on "
+                "quad_obs's stack against their plain versions",
+                phase_slice7_kernels, report)
             run("rig_kernels", "slice 6: K7a/K7b for kuka and the rigs, "
                 "K2-K5 for the rigs, against their plain versions",
                 phase_rig_kernels, report)
+            # path (a) of slice 7 in its workers from here on: beside the
+            # path phases left, after every phase that times a kernel
+            if "slice7_mintime" in want and not failed:
+                jobs7 = {False: [gpu_workers.submit(mintime_job, False,
+                                                    slice(0, 9))],
+                         True: [gpu_workers.submit(mintime_job, True, part)
+                                for part in (slice(0, 5), slice(5, 9))]}
+            run("slice7", "slice 7: quad_obs, the constrained quadrotor_line "
+                "and the other forms", phase_slice7, report)
             run("slice6", "slice 6: the unconstrained kuka and the rigs, "
                 "fused and phase-split", phase_slice6, report, refs)
             run("slice6models", "slice 6: the rigs' other instantiations",
                 phase_slice6_models, report)
+            run("slice7_mintime", "slice 7: the minimum-time pendulum",
+                phase_slice7_mintime, report, jobs7)
     finally:
         workers.shutdown(wait=True, cancel_futures=True)
+        gpu_workers.shutdown(wait=True, cancel_futures=True)
     idle = [k["name"] for k in report["kernels"] if not k.get("launches")]
     if only is None and not failed and idle:
         log(f"chip_smoke: no main path launched {idle}")

@@ -7,7 +7,10 @@ package: the ``car_escape`` problem and its seed at 1e-12; ``tvlqr_projection``
 at 1e-8; ``altro_solve`` on the pendulum of tests/test_altro.py:15-62 count
 for count with X within 1e-6; ``car_escape`` at its own N = 101 and dt after a
 fixed small number of outer iterations (the full float64 solve takes minutes
-on the CPU and is left to ``chip_smoke.py``), with and without the polish.
+on the CPU and is left to ``chip_smoke.py``), with and without the polish;
+the minimum-time pendulum of tests/test_altro.py:64-82 to that test's bars
+and to the JAX package's float64 total time within 20% (a chaotic solve:
+ROADMAP Q3-27).
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from trajopt_tpu.utils.interp import line_trajectory
 
 import trajopt_tpu_torch as tt
 from trajopt_tpu_torch import convert
+from trajopt_tpu_torch.models import zoo as tzoo
 from trajopt_tpu_torch.problems import zoo as probs
 from trajopt_tpu_torch.solvers.projected_newton import _dynamics_defects
 
@@ -208,14 +212,50 @@ def test_altro_solve_car_escape_polish_matches_jax():
 
 # ------------------------------------------------------------ what raises
 
-def test_minimum_time_raises():
-    """The minimum-time transform is not ported: asked for by flag or by
-    ``tf == 0`` it raises and names where it is queued."""
-    pt = probs.pendulum(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #11"):
-        tt.altro_solve(pt, tt.ALTROOptions(), minimum_time=True)
-    with pytest.raises(NotImplementedError, match="minimum-time"):
-        tt.altro_solve(tt.update_problem(pt, tf=0.0), tt.ALTROOptions())
+def test_minimum_time_pendulum():
+    """tests/test_altro.py:64-82 (reference minimum_time_tests.jl:59-63) on
+    the port: the fixed-time pendulum's total time is 0.15·30; the
+    minimum-time solve from dt = 0.075 reaches tt_mt < 0.5·tt_fixed and
+    tt_mt < 1, the goal within 1e-3 in the ∞-norm and c_max < 1e-3 on the
+    original constraints, as the JAX package's float64 solve does; tt_mt
+    within 20% of the JAX package's (the solve is chaotic in float64: the
+    JAX package's own tt spreads over 0.816-0.945 when x0 moves by 1e-13,
+    tools/slice7_gates_jax.py --spread; ROADMAP Q3-27)."""
+    jopts = jalt.ALTROOptions(opts_al=jtt.ALOptions(iterations=50,
+                                                    penalty_scaling=10.0),
+                              R_minimum_time=15.0, dt_max=0.15, dt_min=1e-3)
+    opts = _port_opts(jopts)
+
+    def pendulum(lib, zoo_, **kw):
+        N, n, m = 31, 2, 1
+        xf = np.array([np.pi, 0.0])
+        dev = {"device": "cpu"} if lib is tt else {}
+        obj = lib.LQRObjective(np.eye(n) * 1e-3, np.eye(m) * 1e-3,
+                               np.eye(n) * 1e-3, xf, N, **dev)
+        cons = lib.ConstraintSetBuilder(N)
+        cons.add(lib.bound_constraint(n, m, u_min=-5.0, u_max=5.0))
+        cons.add(lib.goal_constraint(xf))
+        return lib.problem(lib.discretize(zoo_.pendulum, "rk3"), obj,
+                           constraints=cons, x0=np.zeros(n), xf=xf, N=N,
+                           U0=np.ones((N - 1, m)), **kw, **dev)
+
+    res_fixed = tt.altro_solve(pendulum(tt, tzoo, dt=0.15), opts)
+    tt_fixed = float(res_fixed.tt)
+    assert tt_fixed == pytest.approx(0.15 * 30)
+
+    rt = tt.altro_solve(pendulum(tt, tzoo, dt=0.075), opts,
+                        minimum_time=True)
+    rj = jalt.altro_solve(pendulum(jtt, jzoo, dt=0.075), jopts,
+                          minimum_time=True)
+    for r, X in ((rt, rt.X.numpy()), (rj, np.asarray(rj.X))):
+        tt_mt = float(r.tt)
+        assert tt_mt < 0.5 * tt_fixed
+        assert tt_mt < 1.0
+        assert np.linalg.norm(X[-1] - [np.pi, 0.0], np.inf) < 1e-3
+        assert float(r.c_max) < 1e-3
+    assert abs(float(rt.tt) - float(rj.tt)) < 0.2 * float(rj.tt)
+    assert rt.dt_traj.shape == (30,) and bool((rt.dt_traj > 0).all())
+    assert float(rt.dt_traj.sum()) == pytest.approx(float(rt.tt), rel=1e-14)
 
 
 def test_altro_options_carry_over_as_data():

@@ -697,7 +697,10 @@ def test_altro_solve_on_the_card(cuda_device):
     the AL stage on K3/K4 of the slack pendulum, the projection on K5 (2, 1)
     and K2, the re-solve on K3/K4 of the pendulum; the goal within 5e-3 and
     c_max < 1e-3. Then the float64 polish of that result by ``pn_solve`` on
-    the card, which launches no kernel: violation below 1e-6."""
+    the card, which launches no kernel: violation below 1e-6. And the
+    minimum-time transform of the same problem, cut to two outer
+    iterations of five inner ones: phase-split on K5 (3, 4) and (3, 2) and
+    K2's MinTime forms, no fused AL kernel launched."""
     import trajopt_tpu_torch as tt
 
     prob = _line_seeded(problems.pendulum(dtype=torch.float32,
@@ -724,8 +727,18 @@ def test_altro_solve_on_the_card(cuda_device):
     assert counts() == before
     assert pol.X.dtype == torch.float64 and float(pol.viol) <= 1e-6
     assert float(pol.c_max) <= 1e-6
-    with pytest.raises(NotImplementedError, match="#11"):
-        tt.altro_solve(prob, tt.ALTROOptions(), minimum_time=True)
+    fused = counts()[:4]
+    mt = ("pendulum_slack_mintime", "pendulum_mintime")
+    before = ([rollout_closed_loop_cuda.launches_by[k] for k in mt],
+              [riccati_sweep_cuda.launches_by[k] for k in ("3x4", "3x2")])
+    res = tt.altro_solve(prob, tt.ALTROOptions(opts_al=tt.ALOptions(
+        iterations=2, opts_uncon=tt.iLQROptions(iterations=5))),
+        minimum_time=True)
+    after = ([rollout_closed_loop_cuda.launches_by[k] for k in mt],
+             [riccati_sweep_cuda.launches_by[k] for k in ("3x4", "3x2")])
+    assert all(b > a for x, y in zip(before, after) for a, b in zip(x, y))
+    assert counts()[:4] == fused
+    assert bool(torch.isfinite(res.X).all()) and res.dt_traj.shape == (30,)
 
 
 # ------------------------------------------------------ K5, K7a, K7b, K2
@@ -1000,10 +1013,10 @@ def test_slice3_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         riccati_sweep_cuda(*(z(*s, dt=torch.float64) for s in (
             (2, 3, 4, 4), (2, 3, 4, 1), (2, 4, 4), (2, 3, 1), (2, 4, 4, 4),
             (2, 3, 1, 1), (2, 3, 1, 4), (2,))))
-    with pytest.raises(NotImplementedError, match="K6"):
-        riccati_sweep_cuda(z(2, 3, 5, 5), z(2, 3, 5, 2), z(2, 4, 5),
-                           z(2, 3, 2), z(2, 4, 5, 5), z(2, 3, 2, 2),
-                           z(2, 3, 2, 5), z(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        riccati_sweep_cuda(z(2, 3, 6, 6), z(2, 3, 6, 2), z(2, 4, 6),
+                           z(2, 3, 2), z(2, 4, 6, 6), z(2, 3, 2, 2),
+                           z(2, 3, 2, 6), z(2))
     rk4 = discretize(zoo.cartpole, "rk4")
     with pytest.raises(NotImplementedError, match="K6"):
         fused_backward_cuda(rk4, ms["X"], ms["U"], ms["dtt"], ms["obj"],
@@ -1653,3 +1666,114 @@ def test_sqrt_kernel_any_shape_matches_plain_version(cuda_device, n, m):
     assert torch.equal(k[4], p[4]) and not bool(k[4].any())
     for i, tol in ((0, 1e-3), (1, 1e-3), (2, 1e-4), (3, 1e-4)):
         _close(k[i], p[i], p64[i], tol)
+
+
+# ------------------------------------------------------------ slice 7
+
+def _form_problem(name, slack, mintime, device, dtype):
+    """A short problem (N = 21, dt = 0.05) of model ``name`` near its
+    equilibrium (the quadrotors at hover), line-seeded with slacks if
+    ``slack``, then in minimum time if ``mintime`` (``altro_solve``'s
+    order)."""
+    from trajopt_tpu_torch.solvers.altro import minimum_time_problem
+    from trajopt_tpu_torch.utils.interp import line_trajectory
+    import trajopt_tpu_torch as tt
+
+    model = discretize(zoo.MODELS[name], "rk3")
+    n, m, Nk = model.n, model.m, N
+    x0, xf = np.zeros(n), np.zeros(n)
+    quad = name.startswith("quadrotor")
+    if quad:
+        x0[2] = xf[2] = 10.0
+        x0[3] = xf[3] = 1.0 if name == "quadrotor" else 0.0
+        xf[1] = 1.0
+    else:
+        x0[0] = 0.2
+    u0 = 0.5 * 9.81 / 4.0 if quad else (9.81 if name == "ballonbeam" else 0.0)
+    prob = tt.problem(model, tt.LQRObjective(
+        np.eye(n), np.eye(m) * 0.1, np.eye(n) * 10.0, xf, Nk, dtype=dtype,
+        device=device), x0=x0, xf=xf, N=Nk, dt=0.05,
+        U0=np.full((Nk - 1, m), u0), dtype=dtype, device=device)
+    if slack:
+        prob = infeasible_problem(tt.initial_states(
+            prob, line_trajectory(x0, xf, Nk)))
+    if mintime:
+        prob = minimum_time_problem(prob)
+    return prob
+
+
+SLICE7_FORMS = [(name, slack, True)
+                for name in ("quadrotor", "cartpole", "car", "pendulum",
+                             "doubleintegrator", "ballonbeam",
+                             "quadrotor_euler") for slack in (False, True)] \
+    + [(name, slack, False) for name in ("ballonbeam", "quadrotor_euler")
+       for slack in (False, True)]
+
+
+@pytest.mark.parametrize("name,slack,mintime", SLICE7_FORMS)
+def test_slice7_rollout_kernel_matches_plain_version(cuda_device, name,
+                                                     slack, mintime):
+    """K2's slice-7 instantiations (every scalar model under MinTime, with
+    and without slacks; ballonbeam and the Euler-angle quadrotor plain and
+    with slacks) on K5's gains at rho = 1: ok masks equal, X and U within
+    1e-5 of scale or three times the float32 plain version's distance from
+    float64, the launch counted under the form's label."""
+    p64 = _form_problem(name, slack, mintime, cuda_device, torch.float64)
+    p32 = _form_problem(name, slack, mintime, cuda_device, torch.float32)
+    rng = np.random.default_rng(5)
+    n, m = p64.n, p64.m
+    nb = n - 1 if mintime else n
+    x0s = p64.x0 + torch.as_tensor(np.concatenate(
+        [rng.normal(size=(B, nb)) * 0.02, np.zeros((B, n - nb))], axis=1),
+        device=cuda_device)
+    U = p64.U.expand(B, -1, -1).contiguous()
+    X = rollout(p64.model, x0s, U, p64.dt_traj())
+    A, Bm = p64.model.jacobian_traj(X[:, :-1], U, p64.dt_traj())
+    e = p64.obj.expansion(X, U, p64.dt_traj())
+    f32 = [t.float().contiguous() for t in (A, Bm, e.x, e.u, e.xx, e.uu,
+                                            e.ux)]
+    K, d, _, _, _ = riccati_sweep_cuda(*f32, torch.ones(B, device=cuda_device))
+    alpha = (0.5 ** (torch.arange(B, device=cuda_device) % 4)).float()
+    ins = (x0s.float().contiguous(), X.float().contiguous(),
+           U.float().contiguous(), K, d, alpha)
+    label = name + ("_slack" if slack else "") + ("_mintime" if mintime
+                                                  else "")
+    before = rollout_closed_loop_cuda.launches_by[label]
+    Xk, Uk, okk = rollout_closed_loop_cuda(p32.model, *ins, p32.dt)
+    torch.cuda.synchronize()
+    assert rollout_closed_loop_cuda.launches_by[label] == before + 1
+    Xp, Up, okp = rollout_closed_loop(p32.model, *ins, p32.dt)
+    X64, U64, _ = rollout_closed_loop(p64.model, *(t.double() for t in ins),
+                                      p64.dt)
+    assert torch.equal(okk, okp) and bool(okk.any())
+    for a, b, c in ((Xk, Xp, X64), (Uk, Up, U64)):
+        scale = max(1.0, float(c[okk].abs().max()))
+        own = float((b.double() - c)[okk].abs().max()) / scale
+        assert float((a - b)[okk].abs().max()) / scale <= max(1e-5, 3 * own)
+
+
+@pytest.mark.parametrize("n,m", [(12, 16), (5, 2), (4, 3), (14, 5), (13, 5),
+                                 (3, 4), (5, 6), (14, 18)])
+def test_slice7_riccati_shapes_match_plain_version(cuda_device, n, m):
+    """K5's slice-7 shapes on well-conditioned random linearizations
+    (B = 16, N = 21) at rho = 1: no failure, K within 2e-3 and d within
+    1e-1 of scale of ``scan_sweep``, ΔV at rtol 3e-2."""
+    g = torch.Generator().manual_seed(100 * n + m)
+    r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)  # noqa
+    L, Lu = r(B, N, n, n) * 0.3, r(B, N - 1, m, m) * 0.3
+    ins = [t.float().contiguous().to(cuda_device) for t in (
+        torch.eye(n) + 0.05 * r(B, N - 1, n, n), 0.1 * r(B, N - 1, n, m),
+        r(B, N, n), r(B, N - 1, m), L @ L.transpose(-1, -2) + torch.eye(n),
+        Lu @ Lu.transpose(-1, -2) + torch.eye(m), 0.05 * r(B, N - 1, m, n))]
+    rho = torch.ones(B, device=cuda_device)
+    before = riccati_sweep_cuda.launches_by[f"{n}x{m}"]
+    K1, d1, v11, v21, f1 = riccati_sweep_cuda(*ins, rho)
+    torch.cuda.synchronize()
+    assert riccati_sweep_cuda.launches_by[f"{n}x{m}"] == before + 1
+    K0, d0, v10, v20, f0 = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]),
+                                      rho)
+    assert not bool(f1.any()) and not bool(f0.any())
+    assert (K1 - K0).abs().max() < 2e-3 * K0.abs().max()
+    assert (d1 - d0).abs().max() < 1e-1 * d0.abs().max()
+    torch.testing.assert_close(v11, v10, rtol=3e-2, atol=1e-5)
+    torch.testing.assert_close(v21, v20, rtol=3e-2, atol=1e-5)

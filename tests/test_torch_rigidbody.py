@@ -38,7 +38,9 @@ from trajopt_tpu_torch.models.rigidbody_lanes import (
     make_chain_dynamics_lanes, make_chain_step_lanes,
 )
 from trajopt_tpu_torch.ops.canonical import _fk_affine_coeffs
-from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS, SLACK_ID
+from trajopt_tpu_torch.ops.cuda_models import (
+    CHAIN_LABELS, CUDA_MODELS, CUDA_STEPS, MINTIME_ID, SLACK_ID,
+)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(1)
@@ -199,8 +201,10 @@ def test_chain_tables_equal_jax(name):
 
 def test_model_ids_and_table_size_agree_with_models_cuh():
     """csrc/models.cuh's ModelId enum against ops/cuda_models.py (the base
-    ids, and kModelSlack against SLACK_ID), and the size of its ChainTable
-    against chain_table's length."""
+    ids, kModelSlack against SLACK_ID and kModelMinTime against
+    MINTIME_ID), the ids of every entry of the kernels' table against the
+    offsets, and the size of its ChainTable against chain_table's
+    length."""
     src = (CSRC / "models.cuh").read_text()
     enum = dict((name, int(v)) for name, v in re.findall(
         r"kModel(\w+) = (\d+)", src))
@@ -208,12 +212,31 @@ def test_model_ids_and_table_size_agree_with_models_cuh():
              "Pendulum": "pendulum", "DoubleIntegrator": "doubleintegrator",
              "Kuka": "kuka", "AcrobotUrdf": "acrobot_urdf",
              "DoublependulumUrdf": "doublependulum_urdf",
-             "CartpoleUrdf": "cartpole_urdf"}
+             "CartpoleUrdf": "cartpole_urdf", "Ballonbeam": "ballonbeam",
+             "QuadrotorEuler": "quadrotor_euler"}
     assert enum.pop("Slack") == SLACK_ID
+    assert enum.pop("MinTime") == MINTIME_ID == 2 * SLACK_ID
     assert {names[k]: v for k, v in enum.items()} == {
         cm.label: cm.id for cm in CUDA_STEPS.values()}
     assert len(set(enum.values())) == len(enum) and max(enum.values()) \
         < SLACK_ID
+    # every entry: the base id plus its offsets; the K2-only mark on the
+    # two scalar models without a JAX lane step and on every MinTime form
+    by_label = {cm.label: cm for cm in CUDA_STEPS.values()}
+    assert len(CUDA_MODELS) == 2 * len(CUDA_STEPS) + 2 * (
+        len(CUDA_STEPS) - len(CHAIN_LABELS))
+    for (step, slack, mintime), cm in CUDA_MODELS.items():
+        base = CUDA_STEPS[step]
+        assert cm.id == base.id + SLACK_ID * slack + MINTIME_ID * mintime
+        assert cm.k2_only == (mintime or base.label in (
+            "ballonbeam", "quadrotor_euler"))
+        assert (cm.n, cm.m) == (base.n + mintime, base.m + base.n * slack
+                                + mintime)
+        assert by_label[cm.label.removesuffix("_mintime").removesuffix(
+            "_slack")] is base
+    assert not any(mt for (_, _, mt), cm in CUDA_MODELS.items()
+                   if cm.label.split("_slack")[0].split("_mintime")[0]
+                   in CHAIN_LABELS)
     D = int(re.search(r"kChainMaxDof = (\d+)", src).group(1))
     assert D == CHAIN_MAX_DOF
     fields = re.search(r"struct ChainTable \{(.*?)\};", src, re.S).group(1)

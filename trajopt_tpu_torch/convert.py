@@ -18,9 +18,12 @@ name (``PROBLEMS["kuka_obstacles"]``). ``state_arrays`` and
 as nested dicts of plain values: ``options_dict`` reads them off the JAX
 package's option dataclasses (``ALTROOptions`` with its ``ALOptions``,
 ``iLQROptions`` and ``PNOptions``), ``altro_options_from_dict`` builds the
-port's. ``MODELS`` and ``PROBLEMS`` name the ported models (``kuka`` among
-them) and zoo problems (``car_escape``, ``kuka_obstacles`` among them) as
-the JAX package's ``models.zoo`` and ``problems.zoo.PROBLEMS`` do.
+port's. ``MODELS`` and ``PROBLEMS`` name the ported models (``kuka``,
+``ballonbeam`` and ``quadrotor_euler`` among them) and zoo problems
+(``car_escape``, ``quad_obs``, ``kuka_obstacles`` among them) as the JAX
+package's ``models.zoo`` and ``problems.zoo.PROBLEMS`` do. A problem's
+per-interval ``dt`` (the steps of a solved minimum-time problem) carries
+over as a tensor.
 """
 from __future__ import annotations
 
@@ -45,10 +48,11 @@ from trajopt_tpu_torch.solvers.projected_newton import PNOptions
 from trajopt_tpu_torch.utils.device import resolve_device
 
 MODELS = zoo.MODELS
-# the ported zoo problems under the JAX package's names
+# the zoo problems under the JAX package's names
 PROBLEMS = {name: getattr(problems_zoo, name) for name in (
     "doubleintegrator", "pendulum", "cartpole", "parallel_park", "car_3obs",
-    "car_escape", "quadrotor_maze", "kuka_obstacles")}
+    "car_escape", "quadrotor", "quadrotor_maze", "quad_obs",
+    "kuka_obstacles")}
 PROBLEMS.update(doublependulum=problems_zoo.doublependulum_problem,
                 acrobot=problems_zoo.acrobot_problem)
 OBJECTIVE_FIELDS = ("Q", "R", "H", "q", "r", "c")
@@ -61,8 +65,10 @@ def constraint_arrays(cs) -> list:
     or None, and the canonical descriptor (kind 'sphere': coords, ctr, b;
     kind 'linear': rows of (is_u, idx, sign), off; kind 'fk_sphere': meta,
     the chain's coefficients, points and rows as nested tuples). A
-    constraint without a descriptor (a custom function) does not carry
-    over."""
+    constraint without a descriptor is a function of the JAX package's
+    (a ``custom_constraint``) and does not carry over as data: build it
+    with the port's ``custom_constraint`` (as ``quadrotor_line``'s goal
+    row is) or use ``PROBLEMS``."""
     mask = np.asarray(cs.mask)
     out = []
     for con, (r0, r1) in zip(cs.cons, cs.slices):
@@ -70,8 +76,9 @@ def constraint_arrays(cs) -> list:
         if canon is None or canon[0] not in ("sphere", "linear",
                                              "fk_sphere"):
             raise NotImplementedError(
-                f"constraint {con.label!r} has no canonical descriptor and "
-                "does not carry over (ROADMAP Queue 1)")
+                f"constraint {con.label!r} has no canonical descriptor: a "
+                "function does not carry over as data (build it with the "
+                "port's custom_constraint)")
         d = dict(label=con.label, applies=con.applies,
                  equality=np.asarray(con.equality, bool),
                  knots=mask[:, r0:r1].any(axis=1), kind=canon[0],
@@ -106,13 +113,15 @@ def constraints_from_arrays(constraints, N: int, device=None) -> ConstraintSet:
 
 
 def problem_arrays(prob) -> dict:
-    """The data of a JAX ``Problem`` as numpy arrays: x0, xf, X, U, dt, tf,
-    N, the objective's Q, R, H, q, r, c, the model and integrator names,
+    """The data of a JAX ``Problem`` as numpy arrays: x0, xf, X, U, dt (a
+    float, or (N-1,) per interval), tf, N, the objective's Q, R, H, q, r, c, the model and integrator names,
     and the constraint set (:func:`constraint_arrays`)."""
     out = {k: np.asarray(getattr(prob, k)) for k in ("x0", "xf", "X", "U")}
     out.update({k: np.asarray(getattr(prob.obj, k))
                 for k in OBJECTIVE_FIELDS})
-    out.update(dt=float(np.asarray(prob.dt)), tf=float(np.asarray(prob.tf)),
+    dt = np.asarray(prob.dt)
+    out.update(dt=float(dt) if dt.ndim == 0 else dt,
+               tf=float(np.asarray(prob.tf)),
                N=int(prob.N), model=prob.model.name,
                integrator=prob.model.integrator,
                constraints=constraint_arrays(prob.constraints))
@@ -123,18 +132,22 @@ def problem_from_arrays(*, model, integrator, x0, xf, X, U, dt, tf, N, Q, R,
                         H, q, r, c, constraints=(), dtype=torch.float64,
                         device=None) -> Problem:
     """The port's ``Problem`` from the arrays of :func:`problem_arrays`, on
-    ``device`` (None: the current CUDA device). ``dt`` must be uniform (a
-    scalar)."""
+    ``device`` (None: the current CUDA device). A per-interval ``dt``
+    (N-1,), such as the steps a minimum-time solve found (``dt_traj`` of
+    its result), carries over as a tensor: ``Problem.dt_traj`` returns it,
+    and the CPU solves and the fused paths take it (on a CUDA tensor the
+    phase-split path asks for one uniform step)."""
     if model not in MODELS:
-        raise NotImplementedError(f"model {model!r} is not ported yet "
-                                  "(ROADMAP Queue 1, the rest of the zoo)")
-    if np.ndim(dt) != 0:
-        raise NotImplementedError("per-interval dt does not carry over yet")
+        raise NotImplementedError(
+            f"model {model!r} is not ported yet (ROADMAP Queue 1 #4: the "
+            "uncertain models go with discretize_uncertain)")
     device = resolve_device(device)
 
     def tensor(a):
         # a copy: arrays read off JAX are read-only views
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    dt = float(dt) if np.ndim(dt) == 0 else tensor(dt)
 
     obj = Objective(Q=tensor(Q), R=tensor(R), H=tensor(H), q=tensor(q),
                     r=tensor(r), c=tensor(c))
@@ -142,7 +155,7 @@ def problem_from_arrays(*, model, integrator, x0, xf, X, U, dt, tf, N, Q, R,
                    obj=obj,
                    constraints=constraints_from_arrays(constraints, int(N),
                                                        device=device),
-                   dt=float(dt), tf=float(tf),
+                   dt=dt, tf=float(tf),
                    model=discretize(MODELS[model], integrator), N=int(N))
 
 

@@ -24,7 +24,11 @@
 // the kernel is handed; the other models take no table and ignore the
 // argument), and of the slack step of the
 // infeasible-start model (solvers/altro.py: x⁺ = base_step(x, u[:m]) +
-// u[m:]), which WithSlack<M> adds to any of them.
+// u[m:]), which WithSlack<M> adds to any of them; the rollout kernel K2 alone
+// also carries ballonbeam, the Euler-angle quadrotor and the minimum-time
+// form MinTime<M> of every scalar model (solvers/altro.py:
+// x⁺ = [base_step(x[:-1], u[:-1], h²); h], h = u[-1]), which the JAX
+// package gives no lane step and never runs fused.
 // Each dynamics function keeps the order of operations of its plain PyTorch
 // version (models/zoo.py), because a divergence guard or a line-search
 // decision can hinge on the last bits. No fast-math and no rsqrtf: sinf,
@@ -34,9 +38,11 @@
 //
 // The ids are what the C entry points take (ops/cuda_models.py holds the
 // same table): a base model's id, plus kModelSlack for its slack-augmented
-// form.
+// form, plus kModelMinTime for the minimum-time form of either.
 #pragma once
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "warp_linalg.cuh"
 
@@ -54,13 +60,17 @@ enum ModelId {
   kModelAcrobotUrdf = 6,
   kModelDoublependulumUrdf = 7,
   kModelCartpoleUrdf = 8,
-  kModelSlack = 9,      // id of WithSlack<M> = id of M + kModelSlack
+  kModelBallonbeam = 9,
+  kModelQuadrotorEuler = 10,
+  kModelSlack = 11,     // id of WithSlack<M> = id of M + kModelSlack
+  kModelMinTime = 22,   // id of MinTime<M> = id of M + kModelMinTime
 };
 
 // whether model id `model` (with or without slacks) is a rigid-body chain,
 // whose kernels need its ChainTable
 __host__ __device__ constexpr bool is_chain_model(int model) {
-  return model >= 0 && model % kModelSlack >= kModelKuka;
+  return model >= 0 && model % kModelSlack >= kModelKuka
+         && model % kModelSlack <= kModelCartpoleUrdf;
 }
 
 
@@ -273,6 +283,29 @@ struct WithSlack {
   }
 };
 
+// The minimum-time model of M (solvers/altro.py::minimum_time_problem): one
+// more control h = u[NU - 1] and one more state that carries it; the step
+// is M's with dt = h² (the dt argument is ignored) and x⁺[NX - 1] = h. Over
+// WithSlack<M> it is the infeasible-start problem's minimum-time form (the
+// slacks come first and h last, as the transforms are applied). A scalar
+// model's only: K2's warp step (no chain, no table) and nothing else.
+template <class M>
+struct MinTime {
+  static_assert(!M::kChain, "no MinTime form of a rigid-body chain");
+  static constexpr int NX = M::NX + 1, NU = M::NU + 1;
+  static constexpr bool kChain = false;
+  static constexpr int kWarpScratch = M::kWarpScratch;
+  static __device__ __forceinline__ void step_warp(const float* x,
+                                                   const float* u, float,
+                                                   float* out,
+                                                   const ChainTable* tab,
+                                                   float* scr, int lane) {
+    const float h = u[M::NU];
+    M::step_warp(x, u, h * h, out, tab, scr, lane);
+    out[M::NX] = h;
+  }
+};
+
 // cart-pole by the manipulator equations, the 2x2 mass-matrix solve written
 // as an explicit inverse (cartpole_dynamics_lanes): mc = 1, mp = 0.2,
 // l = 0.5, g = 9.81; state [x, theta, v, omega]
@@ -354,6 +387,145 @@ struct DoubleIntegrator : RegisterStep<DoubleIntegrator> {
       const T* x, const T* u, float dt, T* out,
       const ChainTable* chain = nullptr) {
     rk3_step<DoubleIntegrator, T>(x, u, dt, out, chain);
+  }
+};
+
+// ball on beam (ballonbeam_dynamics): g = 9.81, m1 = 0.35, m2 = 2, l = 0.5;
+// state [z, theta, zdot, thetadot]
+struct Ballonbeam : RegisterStep<Ballonbeam> {
+  static constexpr int NX = 4, NU = 1;
+  template <class T>
+  static __device__ __forceinline__ void dynamics(
+      const T* x, const T* u, T* xd, const ChainTable* = nullptr) {
+    constexpr float g = 9.81f, m1 = 0.35f, l = 0.5f;
+    constexpr float m1x2 = (float)(2.0 * 0.35);
+    constexpr float m1g = (float)(0.35 * 9.81);
+    constexpr float m2gl = (float)(2.0 * 9.81 * 0.5);
+    constexpr float inertia = (float)(2.0 * 0.5 * 0.5 / 3.0);
+    const T z = x[0], th = x[1], zd = x[2], thd = x[3];
+    const T c = tcos(th);
+    xd[0] = zd;
+    xd[1] = thd;
+    xd[2] = z * (thd * thd) - g * tsin(th);
+    xd[3] = (u[0] * l * c - m1x2 * z * zd * thd - m1g * z * c
+             - (m2gl * c) / 2.0f)
+            / (inertia + m1 * (z * z));
+  }
+  template <class T>
+  static __device__ __forceinline__ void step(
+      const T* x, const T* u, float dt, T* out,
+      const ChainTable* chain = nullptr) {
+    rk3_step<Ballonbeam, T>(x, u, dt, out, chain);
+  }
+};
+
+// the Euler-angle quadrotor (quadrotor_euler_dynamics): state pos(3),
+// rpy(3), vel(3), rpy rates(3); the quaternion model's constants. The rpy
+// accelerations are rpÿ = G·pqṙ + Ġ·pqr with G = A(rpy)·R(rpy), Ġ the
+// derivative of G along rpẏ, taken by one pass of Dual through G (the
+// plain version takes it by torch.func.jvp). Float only: K2's step.
+struct QuadrotorEuler : RegisterStep<QuadrotorEuler> {
+  static constexpr int NX = 12, NU = 4;
+  // R(rpy), row-major (_rpy2rotmat), from the cosines c and sines s of
+  // roll, pitch and yaw
+  template <class T>
+  static __device__ __forceinline__ void rotmat(const T* c, const T* s,
+                                                T* R) {
+    const T cr = c[0], sr = s[0], cp = c[1], sp = s[1], cy = c[2], sy = s[2];
+    R[0] = cy * cp;
+    R[1] = cy * sp * sr - sy * cr;
+    R[2] = cy * sp * cr + sy * sr;
+    R[3] = sy * cp;
+    R[4] = sy * sp * sr + cy * cr;
+    R[5] = sy * sp * cr - cy * sr;
+    R[6] = -sp;
+    R[7] = cp * sr;
+    R[8] = cp * cr;
+  }
+  // G(rpy) = A(rpy) R(rpy) (A = _angularvel2rpydot_matrix) in the closed
+  // form of the plain version (models/zoo.py::_rpy_g), from the roll's and
+  // pitch's cosines c and sines s:
+  // [[1, sr tp, cr tp], [0, cr, -sr], [0, sr/cp, cr/cp]]
+  template <class T>
+  static __device__ __forceinline__ void gmat(const T* c, const T* s,
+                                              T* G) {
+    const T tp = s[1] / c[1];
+    G[0] = T(1.0f);
+    G[1] = s[0] * tp;
+    G[2] = c[0] * tp;
+    G[3] = T(0.0f);
+    G[4] = c[0];
+    G[5] = -s[0];
+    G[6] = T(0.0f);
+    G[7] = s[0] / c[1];
+    G[8] = c[0] / c[1];
+  }
+  template <class T>
+  static __device__ __forceinline__ void dynamics(
+      const T* x, const T* u, T* xd, const ChainTable* = nullptr) {
+    static_assert(std::is_same<T, float>::value, "K2's float step only");
+    constexpr float m = 0.5f, g = 9.81f, L = 0.1750f, km = 0.0245f;
+    constexpr float J0 = 0.0023f, J1 = 0.0023f, J2 = 0.004f;
+    constexpr float Ji0 = (float)(1.0 / 0.0023), Ji1 = (float)(1.0 / 0.0023);
+    constexpr float Ji2 = (float)(1.0 / 0.004);
+    const float* rpy = x + 3;
+    const float* rpyd = x + 9;
+    // the angles' cosines and sines, once: the latency of the six calls is
+    // most of a step (one warp an SM hides none of it)
+    float c[3], s[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      s[i] = sinf(rpy[i]);
+      c[i] = cosf(rpy[i]);
+    }
+    float R[9];
+    rotmat<float>(c, s, R);
+    const float F0 = u[0], F1 = u[1], F2 = u[2], F3 = u[3];   // kf = 1
+    const float sumF = ((F0 + F1) + F2) + F3;
+    // world angular velocity W(rpy) rpẏ (_rpydot2angularvel_matrix), then
+    // the body rates pqr = Rᵀ (W rpẏ)
+    const float sp = s[1], cp = c[1], sy = s[2], cy = c[2];
+    const float w0 = cp * cy * rpyd[0] - sy * rpyd[1];
+    const float w1 = cp * sy * rpyd[0] + cy * rpyd[1];
+    const float w2 = -sp * rpyd[0] + rpyd[2];
+    float pqr[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      pqr[i] = R[i] * w0 + R[3 + i] * w1 + R[6 + i] * w2;
+    const float tau0 = L * (F1 - F3), tau1 = L * (F2 - F0);
+    const float tau2 = km * F0 - km * F1 + km * F2 - km * F3;
+    const float Jp0 = J0 * pqr[0], Jp1 = J1 * pqr[1], Jp2 = J2 * pqr[2];
+    const float pd0 = Ji0 * (tau0 - (pqr[1] * Jp2 - pqr[2] * Jp1));
+    const float pd1 = Ji1 * (tau1 - (pqr[2] * Jp0 - pqr[0] * Jp2));
+    const float pd2 = Ji2 * (tau2 - (pqr[0] * Jp1 - pqr[1] * Jp0));
+    // G and Ġ by one Dual pass through G along rpẏ: the roll's and pitch's
+    // cosines and sines as Duals (the values and derivatives of tcos and
+    // tsin of Dual(rpy, rpẏ))
+    Dual cD[2], sD[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      cD[i] = Dual(c[i], -(s[i] * rpyd[i]));
+      sD[i] = Dual(s[i], c[i] * rpyd[i]);
+    }
+    Dual G[9];
+    gmat<Dual>(cD, sD, G);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) xd[i] = x[6 + i];
+    xd[6] = (R[2] * sumF) / m;
+    xd[7] = (R[5] * sumF) / m;
+    xd[8] = (-m * g + R[8] * sumF) / m;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      xd[9 + i] = (G[i * 3].v * pd0 + G[i * 3 + 1].v * pd1
+                   + G[i * 3 + 2].v * pd2)
+                  + (G[i * 3].d * pqr[0] + G[i * 3 + 1].d * pqr[1]
+                     + G[i * 3 + 2].d * pqr[2]);
+  }
+  template <class T>
+  static __device__ __forceinline__ void step(
+      const T* x, const T* u, float dt, T* out,
+      const ChainTable* chain = nullptr) {
+    rk3_step<QuadrotorEuler, T>(x, u, dt, out, chain);
   }
 };
 

@@ -182,18 +182,37 @@ int dispatch(int n, int m, F f, int none) {
 #define TRAJOPT_RICCATI(NX, NU) \
   if (n == NX && m == NU) return f(Dims<NX, NU>{})
   TRAJOPT_RICCATI(13, 4);    // quadrotor
-  TRAJOPT_RICCATI(12, 4);    // quadrotor, quaternion error state
-  TRAJOPT_RICCATI(13, 17);   // quadrotor with the infeasible-start slacks
-  TRAJOPT_RICCATI(4, 1);     // cartpole, the acrobot and cartpole rigs
-  TRAJOPT_RICCATI(3, 2);     // car
+  TRAJOPT_RICCATI(12, 4);    // quadrotor, quaternion error state;
+                             // Euler-angle quadrotor
+  TRAJOPT_RICCATI(13, 17);   // quadrotor with the infeasible-start slacks;
+                             // Euler-angle quadrotor under minimum time
+                             // with the slacks
+  TRAJOPT_RICCATI(4, 1);     // cartpole, the acrobot and cartpole rigs,
+                             // ballonbeam
+  TRAJOPT_RICCATI(3, 2);     // car; pendulum, double integrator under
+                             // minimum time
   TRAJOPT_RICCATI(2, 1);     // pendulum, double integrator
-  TRAJOPT_RICCATI(4, 5);     // cartpole (and the two rigs) with the slacks
+  TRAJOPT_RICCATI(4, 5);     // cartpole (and the two rigs), ballonbeam
+                             // with the slacks
   TRAJOPT_RICCATI(3, 5);     // car with the slacks
   TRAJOPT_RICCATI(2, 3);     // pendulum, double integrator with the slacks
   TRAJOPT_RICCATI(14, 7);    // kuka
   TRAJOPT_RICCATI(14, 21);   // kuka with the slacks
   TRAJOPT_RICCATI(4, 2);     // double pendulum rig
-  TRAJOPT_RICCATI(4, 6);     // double pendulum rig with the slacks
+  TRAJOPT_RICCATI(4, 6);     // double pendulum rig with the slacks; car
+                             // under minimum time with the slacks
+  TRAJOPT_RICCATI(12, 16);   // Euler-angle quadrotor with the slacks
+  // the minimum-time forms (one more state and control), with and without
+  // the slacks; (3, 2), (4, 5) and (13, 17) are the pendulum's and double
+  // integrator's, ballonbeam's and the cartpole's with slacks, and the
+  // Euler-angle quadrotor's with slacks above
+  TRAJOPT_RICCATI(5, 2);     // cartpole, ballonbeam
+  TRAJOPT_RICCATI(4, 3);     // car
+  TRAJOPT_RICCATI(14, 5);    // quadrotor
+  TRAJOPT_RICCATI(13, 5);    // Euler-angle quadrotor
+  TRAJOPT_RICCATI(3, 4);     // pendulum, double integrator with the slacks
+  TRAJOPT_RICCATI(5, 6);     // cartpole, ballonbeam with the slacks
+  TRAJOPT_RICCATI(14, 18);   // quadrotor with the slacks
 #undef TRAJOPT_RICCATI
   return none;
 }

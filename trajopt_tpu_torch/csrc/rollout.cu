@@ -2,10 +2,12 @@
 //
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_rollout.py::_rollout_kernel
 // (front end rollout_closed_loop_pallas) with the model's step inlined
-// (models.cuh: the quadrotor, cartpole, car, pendulum, double integrator, the
-// rigid-body chain step of the 7-DOF kuka arm and of the three two-link URDF
-// rigs, and each of them with the slack controls of the infeasible-start
-// transform)
+// (models.cuh: the quadrotor, cartpole, car, pendulum, double integrator,
+// ballonbeam, the Euler-angle quadrotor, the rigid-body chain step of the
+// 7-DOF kuka arm and of the three two-link URDF rigs, each of them with the
+// slack controls of the infeasible-start transform, and the scalar ones in
+// the minimum-time form MinTime<M> of either, whose dt is u[-1]² and which
+// ignores the dt argument)
 // and, for the quadrotor's error-state solves,
 // quadrotor_state_diff_lanes (quaternion error state). For every problem and
 // knot k:
@@ -197,7 +199,8 @@ int launch(const float* x0, const float* X, const float* U, const float* K,
 }  // namespace
 
 // C entry point (bound with ctypes from ops/cuda_rollout.py). Batch-first
-// contiguous float32 for the model `model` (models.cuh ModelId) with n
+// contiguous float32 for the model `model` (models.cuh ModelId, with
+// kModelSlack and kModelMinTime added for those forms) with n
 // states, m controls and gains of width ns = n, or 12 with error_state (the
 // quadrotor only): x0 (B,n), X (B,N,n), U (B,N-1,m), K (B,N-1,m,ns),
 // d (B,N-1,m), alpha (B,) → Xout (B,N,n), Uout (B,N-1,m), ok (B,) bytes;
@@ -219,23 +222,30 @@ extern "C" int trajopt_rollout_f32(
   return launch<M, ES>(x0, X, U, K, d, alpha, Xout, Uout, ok,              \
                        (const ChainTable*)chain, batch, N, dt, max_state,  \
                        max_control, (cudaStream_t)stream)
+  // a scalar model in its four forms: plain, with slacks, minimum time,
+  // minimum time with slacks
+#define TRAJOPT_SCALAR(ID, M)                                               \
+  case kModelSlack + ID: TRAJOPT_ROLLOUT(WithSlack<M>, false);             \
+  case kModelMinTime + ID: TRAJOPT_ROLLOUT(MinTime<M>, false);             \
+  case kModelMinTime + kModelSlack + ID:                                   \
+    TRAJOPT_ROLLOUT(MinTime<WithSlack<M>>, false)
   switch (model) {
     case kModelQuadrotor:
       if (error_state) TRAJOPT_ROLLOUT(Quadrotor, true);
       TRAJOPT_ROLLOUT(Quadrotor, false);
+    TRAJOPT_SCALAR(kModelQuadrotor, Quadrotor);
     case kModelCartpole: TRAJOPT_ROLLOUT(Cartpole, false);
+    TRAJOPT_SCALAR(kModelCartpole, Cartpole);
     case kModelCar: TRAJOPT_ROLLOUT(Car, false);
+    TRAJOPT_SCALAR(kModelCar, Car);
     case kModelPendulum: TRAJOPT_ROLLOUT(Pendulum, false);
+    TRAJOPT_SCALAR(kModelPendulum, Pendulum);
     case kModelDoubleIntegrator: TRAJOPT_ROLLOUT(DoubleIntegrator, false);
-    case kModelSlack + kModelQuadrotor:
-      TRAJOPT_ROLLOUT(WithSlack<Quadrotor>, false);
-    case kModelSlack + kModelCartpole:
-      TRAJOPT_ROLLOUT(WithSlack<Cartpole>, false);
-    case kModelSlack + kModelCar: TRAJOPT_ROLLOUT(WithSlack<Car>, false);
-    case kModelSlack + kModelPendulum:
-      TRAJOPT_ROLLOUT(WithSlack<Pendulum>, false);
-    case kModelSlack + kModelDoubleIntegrator:
-      TRAJOPT_ROLLOUT(WithSlack<DoubleIntegrator>, false);
+    TRAJOPT_SCALAR(kModelDoubleIntegrator, DoubleIntegrator);
+    case kModelBallonbeam: TRAJOPT_ROLLOUT(Ballonbeam, false);
+    TRAJOPT_SCALAR(kModelBallonbeam, Ballonbeam);
+    case kModelQuadrotorEuler: TRAJOPT_ROLLOUT(QuadrotorEuler, false);
+    TRAJOPT_SCALAR(kModelQuadrotorEuler, QuadrotorEuler);
     case kModelKuka: TRAJOPT_ROLLOUT(Kuka, false);
     case kModelSlack + kModelKuka: TRAJOPT_ROLLOUT(WithSlack<Kuka>, false);
     case kModelAcrobotUrdf: TRAJOPT_ROLLOUT(AcrobotUrdf, false);
@@ -248,6 +258,7 @@ extern "C" int trajopt_rollout_f32(
     case kModelSlack + kModelCartpoleUrdf:
       TRAJOPT_ROLLOUT(WithSlack<CartpoleUrdf>, false);
   }
+#undef TRAJOPT_SCALAR
 #undef TRAJOPT_ROLLOUT
   return (int)cudaErrorInvalidValue;
 }

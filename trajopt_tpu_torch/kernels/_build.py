@@ -19,6 +19,7 @@ or a card, and only :func:`load` needs them.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -26,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 import types
 from pathlib import Path
 
@@ -119,13 +121,16 @@ def build() -> dict:
     """Compile every source whose library does not exist yet, all at once
     (one nvcc process per source), and keep nvcc's report beside each
     library (``.log``). Returns {source stem: library path}; raises
-    RuntimeError with nvcc's output if a compile fails."""
+    RuntimeError with nvcc's output if a compile fails. ``build.seconds``
+    keeps each compiled source's seconds."""
     libs = {src.stem: library_path(src) for src in _sources()}
     todo = [src for src in _sources() if not libs[src.stem].exists()]
     if not todo:
         return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    build.seconds.clear()
+    t0 = time.perf_counter()
     jobs = []
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -135,8 +140,16 @@ def build() -> dict:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     errors = []
-    for src, tmp, cmd, proc in jobs:
-        out, _ = proc.communicate()
+
+    def finish(job):
+        """nvcc's output and its seconds from the start of all of them."""
+        out, _ = job[3].communicate()
+        return out, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = list(pool.map(finish, jobs))
+    for (src, tmp, cmd, proc), (out, seconds) in zip(jobs, done):
+        build.seconds[src.stem] = seconds
         if proc.returncode != 0:
             os.unlink(tmp)
             errors.append(f"nvcc failed ({proc.returncode}):\n"
@@ -147,6 +160,11 @@ def build() -> dict:
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs
+
+
+# seconds from the start of the build to each compiled source's end (the
+# last build of this process; empty when every library was built already)
+build.seconds = {}
 
 
 @functools.lru_cache(maxsize=1)

@@ -47,6 +47,9 @@ class DiscreteModel:
     ``slack_m`` is the base model's control width when this is a
     slack-augmented model of the infeasible-start transform
     (``solvers/altro.py::infeasible_problem``), else None.
+    ``mintime`` marks the minimum-time model of
+    ``solvers/altro.py::minimum_time_problem`` (it keeps its base model's
+    ``cuda_step`` and ``slack_m``).
     ``chain_table`` is what the kernels' ``Chain`` trait reads for a
     rigid-body chain (``models/rigidbody_lanes.py::chain_table``), else
     None; ``chain_table_on`` holds its copy on each device the kernels
@@ -64,6 +67,7 @@ class DiscreteModel:
         self.quat_slice = getattr(model, "quat_slice", None)
         self.cuda_step = None
         self.slack_m = None
+        self.mintime = False
         self.chain_table = None     # a chain's table for the CUDA kernels
         self.chain_table_on = {}    # device -> that table on the device
         # (x (B, n), u (B, m), dt (B,)) -> A (B, n, n), B (B, n, m)
@@ -119,7 +123,8 @@ def discretize(model: Model, integrator: str = "rk3") -> DiscreteModel:
     dmodel = DiscreteModel(step, model.n, model.m, model=model,
                            integrator=integrator, name=model.name)
     # the kernels inline the RK3 step of these models (csrc/models.cuh): the
-    # pairs the JAX package registers a lane step for
+    # pairs the JAX package registers a lane step for, and ballonbeam and
+    # the Euler-angle quadrotor, which only K2 carries (k2_only)
     if f"{model.name}_{integrator}" in CUDA_STEPS:
         dmodel.cuda_step = f"{model.name}_{integrator}"
     chain = getattr(model, "chain", None)

@@ -1,14 +1,91 @@
 """Quaternion utilities (scalar-first [w, x, y, z]).
 
-Counterpart of ``trajopt_tpu/models/quaternions.py``: the quaternion error
-state, its Jacobians and the error-state projection of a linearization.
-Every function broadcasts over leading batch dimensions.
+Counterpart of ``trajopt_tpu/models/quaternions.py`` (reference
+dynamics/quaternions.jl): the product matrices, the rotation matrix, the
+quaternion error state, its Jacobians and the error-state projection of a
+linearization. Every function broadcasts over leading batch dimensions.
 """
 from __future__ import annotations
 
 import torch
 
-from trajopt_tpu_torch.models.zoo import quat_mul
+from trajopt_tpu_torch.models.zoo import quat_mul, quat_rotate  # noqa: F401
+
+
+def _mat(rows):
+    """A (…, r, c) matrix from rows of (…) entries."""
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def skew(v):
+    """(reference quaternions.jl:42-48): skew(v) @ r == v × r."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    o = torch.zeros_like(x)
+    return _mat([[o, -z, y], [z, o, -x], [-y, x, o]])
+
+
+def Lmult(q):
+    """Left-multiplication matrix: Lmult(q) @ p == quat_mul(q, p)
+    (reference quaternions.jl:50-56)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return _mat([[w, -x, -y, -z], [x, w, -z, y], [y, z, w, -x],
+                 [z, -y, x, w]])
+
+
+def Rmult(q):
+    """Right-multiplication matrix: Rmult(q) @ p == quat_mul(p, q)
+    (reference quaternions.jl:58-64)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return _mat([[w, -x, -y, -z], [x, w, z, -y], [y, -z, w, x],
+                 [z, y, -x, w]])
+
+
+def quat_to_rotmat(q):
+    """Direction-cosine matrix of a unit quaternion (reference conj(q)
+    matrix form, quaternions.jl:66-75): vvᵀ + w²I + 2wS + S², S = skew(v)."""
+    w, v = q[..., 0:1, None], q[..., 1:]
+    S = skew(v)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    return v[..., :, None] * v[..., None, :] + w * w * eye + 2.0 * w * S \
+        + S @ S
+
+
+def normalize(q):
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_error_jacobian(q):
+    """Attitude Jacobian G(q) (…, 4, 3): d q / d δθ at δθ = 0 for the
+    multiplicative perturbation q ⊗ [1; δθ/2], 0.5·Lmult(q) columns 1:3."""
+    return 0.5 * Lmult(q)[..., :, 1:]
+
+
+def state_diff_jacobian(x, quat_slice):
+    """E(x) (…, n, n-1), E = blockdiag(I, G(q), I): maps error-state
+    tangents to raw-state tangents."""
+    a, b = quat_slice
+    n = x.shape[-1]
+    E = x.new_zeros(x.shape[:-1] + (n, n - 1))
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    E[..., :a, :a] = eye[:a, :a]
+    E[..., a:b, a:a + 3] = quat_error_jacobian(x[..., a:b])
+    E[..., b:, a + 3:] = eye[b:, b:]
+    return E
+
+
+def state_diff_jacobian_inv(x, quat_slice):
+    """E⁺(x) (…, n-1, n): the Jacobian of ``state_diff(·, x)`` at
+    coincidence, blockdiag(I, 2·Lmult(q)ᵀ rows 1:, I), the pseudo-inverse
+    of E (GᵀG = I/4, so Eᵀ alone is not the inverse map)."""
+    a, b = quat_slice
+    n = x.shape[-1]
+    Ei = x.new_zeros(x.shape[:-1] + (n - 1, n))
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    Ei[..., :a, :a] = eye[:a, :a]
+    Ei[..., a:a + 3, a:b] = 2.0 * Lmult(x[..., a:b]).transpose(-1, -2)[
+        ..., 1:, :]
+    Ei[..., a + 3:, b:] = eye[b:, b:]
+    return Ei
 
 
 def quat_conj(q):

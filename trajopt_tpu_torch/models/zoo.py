@@ -2,13 +2,17 @@
 
 Counterpart of ``trajopt_tpu/models/zoo.py``: the quaternion quadrotor, the
 four models whose scalar lane step the JAX package ships (pendulum, double
-integrator, car, cartpole) and the analytic two-link double pendulum and
-acrobot; the rest of the zoo is ROADMAP Queue 1. The JAX package registers
-no lane step for the two-link models, so no kernel carries them: on a CUDA
-tensor their solves raise, and their URDF rigs (``models/robots.py``) are
-the chain models the kernels carry. ``MODELS`` names the models here with
-the four rigid-body rigs (kuka and the URDF acrobot, double pendulum and
-cartpole). Every function
+integrator, car, cartpole), ballonbeam, the Euler-angle quadrotor and the
+analytic two-link double pendulum and acrobot; the uncertain models
+(``f(x, u, w)``) go with ``discretize_uncertain`` (ROADMAP Queue 1 #4). The
+JAX package registers no lane step for the two-link models, so no kernel
+carries them: on a CUDA tensor their solves raise, and their URDF rigs
+(``models/robots.py``) are the chain models the kernels carry. It has none
+for ballonbeam and the Euler-angle quadrotor either, which therefore never
+run fused; the rollout kernel K2 carries them (``ops/cuda_models.py``), so
+their phase-split solves run on the card. ``MODELS`` names the models here
+with the four rigid-body rigs (kuka and the URDF acrobot, double pendulum
+and cartpole). Every function
 takes states with any leading batch dimensions and works under
 ``torch.func.vmap``/``jacfwd``.
 
@@ -84,6 +88,23 @@ def cartpole_dynamics(x, u):
 
 
 cartpole = Model(cartpole_dynamics, 4, 1, name="cartpole")
+
+# ------------------------------------------------------------ ball on beam
+# reference dynamics/ballonbeam.jl:3-24
+
+
+def ballonbeam_dynamics(x, u):
+    g, m1, m2, l = 9.81, 0.35, 2.0, 0.5
+    z, th, zd, thd = x[..., 0:1], x[..., 1:2], x[..., 2:3], x[..., 3:4]
+    c = torch.cos(th)
+    zdd = z * (thd * thd) - g * torch.sin(th)
+    thdd = (u[..., 0:1] * l * c - (2.0 * m1) * z * zd * thd
+            - (m1 * g) * z * c - ((m2 * g * l) * c) / 2.0) \
+        / (m2 * l**2 / 3.0 + m1 * (z * z))
+    return torch.cat([zd, thd, zdd, thdd], dim=-1)
+
+
+ballonbeam = Model(ballonbeam_dynamics, 4, 1, name="ballonbeam")
 
 # ---------------------------------------------------- double pendulum family
 # reference dynamics/doublependulum.jl and acrobot.jl, built there from
@@ -206,6 +227,88 @@ quadrotor = Model(quadrotor_dynamics, 13, 4, name="quadrotor")
 quadrotor.quat_slice = (3, 7)  # unit quaternion at x[3:7]
 
 
+# ------------------------------------------------------- quadrotor (Euler)
+# reference dynamics/quadrotor_euler.jl. State (12): pos(3), rpy(3),
+# vel(3), rpy rates(3).
+
+
+def _rows(*rows):
+    """A (…, 3, 3) matrix from three rows of three (…, 1) entries."""
+    return torch.stack([torch.cat(r, dim=-1) for r in rows], dim=-2)
+
+
+def _rpy2rotmat(rpy):
+    cr, sr = torch.cos(rpy[..., 0:1]), torch.sin(rpy[..., 0:1])
+    cp, sp = torch.cos(rpy[..., 1:2]), torch.sin(rpy[..., 1:2])
+    cy, sy = torch.cos(rpy[..., 2:3]), torch.sin(rpy[..., 2:3])
+    return _rows([cy * cp, cy * sp * sr - sy * cr, cy * sp * cr + sy * sr],
+                 [sy * cp, sy * sp * sr + cy * cr, sy * sp * cr - cy * sr],
+                 [-sp, cp * sr, cp * cr])
+
+
+def _rpydot2angularvel_matrix(rpy):
+    cp, sp = torch.cos(rpy[..., 1:2]), torch.sin(rpy[..., 1:2])
+    cy, sy = torch.cos(rpy[..., 2:3]), torch.sin(rpy[..., 2:3])
+    z, o = torch.zeros_like(cp), torch.ones_like(cp)
+    return _rows([cp * cy, -sy, z], [cp * sy, cy, z], [-sp, z, o])
+
+
+def _angularvel2rpydot_matrix(rpy):
+    sp, cp = torch.sin(rpy[..., 1:2]), torch.cos(rpy[..., 1:2])
+    sy, cy = torch.sin(rpy[..., 2:3]), torch.cos(rpy[..., 2:3])
+    tp = sp / cp
+    z, o = torch.zeros_like(cp), torch.ones_like(cp)
+    return _rows([cy / cp, sy / cp, z], [-sy, cy, z], [cy * tp, tp * sy, o])
+
+
+def _rpy_g(rpy):
+    """G(rpy) = A(rpy)·R(rpy) = _angularvel2rpydot_matrix ·
+    _rpy2rotmat, the map from body rates to rpy rates, in its closed form
+    [[1, sr·tp, cr·tp], [0, cr, −sr], [0, sr/cp, cr/cp]] (the product with
+    cos² + sin² = 1 taken out; the yaw drops out), which ``torch.func.jvp``
+    differentiates in a fraction of the product's tensor operations."""
+    sr, cr = torch.sin(rpy[..., 0:1]), torch.cos(rpy[..., 0:1])
+    sp, cp = torch.sin(rpy[..., 1:2]), torch.cos(rpy[..., 1:2])
+    tp = sp / cp
+    z, o = torch.zeros_like(cp), torch.ones_like(cp)
+    return _rows([o, sr * tp, cr * tp], [z, cr, -sr], [z, sr / cp, cr / cp])
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def quadrotor_euler_dynamics(x, u):
+    m, g, L, kf, km = 0.5, 9.81, 0.1750, 1.0, 0.0245
+    J = (0.0023, 0.0023, 0.004)
+    rpy, rpyd = x[..., 3:6], x[..., 9:12]
+    R = _rpy2rotmat(rpy)
+    F = [kf * u[..., i:i + 1] for i in range(4)]
+    Mo = [km * u[..., i:i + 1] for i in range(4)]
+    sumF = ((F[0] + F[1]) + F[2]) + F[3]
+    acc = R[..., :, 2] * sumF
+    xyz_ddot = torch.cat([acc[..., 0:1], acc[..., 1:2],
+                          -m * g + acc[..., 2:3]], dim=-1) / m
+    # body angular velocity from the rpy rates (world → body by Rᵀ, as in
+    # the reference)
+    pqr = _mv(R.transpose(-1, -2), _mv(_rpydot2angularvel_matrix(rpy), rpyd))
+    tau = torch.cat([L * (F[1] - F[3]), L * (F[2] - F[0]),
+                     Mo[0] - Mo[1] + Mo[2] - Mo[3]], dim=-1)
+    Jp = torch.cat([J[i] * pqr[..., i:i + 1] for i in range(3)], dim=-1)
+    rhs = tau - torch.linalg.cross(pqr, Jp, dim=-1)
+    pqr_dot = torch.cat([(1.0 / J[i]) * rhs[..., i:i + 1] for i in range(3)],
+                        dim=-1)
+    # rpy accelerations: the product rule on rpẏ = G(rpy)·pqr, with
+    # Ġ = jvp(G)(rpy; rpẏ) (the JAX package's form)
+    G, G_dot = torch.func.jvp(_rpy_g, (rpy,), (rpyd,))
+    rpy_ddot = _mv(G, pqr_dot) + _mv(G_dot, pqr)
+    return torch.cat([x[..., 6:12], xyz_ddot, rpy_ddot], dim=-1)
+
+
+quadrotor_euler = Model(quadrotor_euler_dynamics, 12, 4,
+                        name="quadrotor_euler")
+
+
 def _robot_models():
     """The URDF-rig models (``models/robots.py``), by name."""
     from trajopt_tpu_torch.models import robots
@@ -217,6 +320,7 @@ def _robot_models():
 
 
 MODELS = {"pendulum": pendulum, "doubleintegrator": doubleintegrator,
-          "car": car, "cartpole": cartpole, "quadrotor": quadrotor,
+          "car": car, "cartpole": cartpole, "ballonbeam": ballonbeam,
+          "quadrotor": quadrotor, "quadrotor_euler": quadrotor_euler,
           "doublependulum": doublependulum, "acrobot": acrobot,
           **_robot_models()}

@@ -22,8 +22,13 @@ kuka arm's). The same constraint therefore serves a problem and its
 slack-augmented transform (``solvers/altro.py::lift_constraint``), and each
 carries the ``canon`` descriptor that ``ops/canonical.py`` compiles for the
 fused AL kernels.
-``custom_constraint``, ``sphere_constraint_fn`` and
-``planar_obstacle_constraint`` are not ported yet (ROADMAP Queue 1).
+
+A user's constraint (``custom_constraint``, and ``planar_obstacle_constraint``
+built on it) is a per-knot function ``fn(x (n,), u (m,)) -> (p,)``, as in the
+JAX package; it is mapped over the leading dimensions with
+``torch.func.vmap`` and, without an analytic ``jac_fn``, differentiated by
+``torch.func.jacfwd``. It has no canonical descriptor, so a stack that holds
+one runs phase-split, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -61,8 +66,8 @@ class Constraint:
     ``fn(X, U) -> (…, p)`` for X (…, n), U (…, m): equality rows mean
     c = 0, inequality rows c <= 0. At the terminal knot the function sees
     u = 0 (u-dependent rows are masked out there). ``jac_fn(X, U)`` returns
-    (cx (…, p, n), cu (…, p, m)); every ported kind has an analytic one
-    (Jacobians by AD arrive with ``custom_constraint``).
+    (cx (…, p, n), cu (…, p, m)): analytic for the row kinds here, by
+    ``torch.func.jacfwd`` for a ``custom_constraint`` without one.
     """
 
     def __init__(self, fn: Callable, p: int, label: str, jac_fn: Callable,
@@ -87,11 +92,61 @@ class Constraint:
         return f"Constraint({self.label}, p={self.p}, {self.applies})"
 
 
+def _over_knots(f):
+    """``f`` of per-knot vectors (x (n,), u (m,)), mapped with
+    ``torch.func.vmap`` over every leading dimension of X (…, n) and
+    U (…, m); its outputs (a tensor or a tuple of them) come back with
+    those dimensions in front."""
+    mapped = torch.func.vmap(f)
+
+    def call(X, U):
+        lead = X.shape[:-1]
+        out = mapped(X.reshape(-1, X.shape[-1]), U.reshape(-1, U.shape[-1]))
+        if isinstance(out, tuple):
+            return tuple(o.reshape(lead + o.shape[1:]) for o in out)
+        return out.reshape(lead + out.shape[1:])
+
+    return call
+
+
+def custom_constraint(fn, p, label="custom", equality=False, applies="stage",
+                      jac_fn=None):
+    """A constraint from a per-knot function ``fn(x (n,), u (m,)) -> (p,)``
+    (the JAX package's ``custom_constraint``), mapped over the leading
+    dimensions by ``torch.func.vmap``. ``jac_fn(x, u) -> (cx (p, n),
+    cu (p, m))`` per knot, or None: the Jacobians by ``torch.func.jacfwd``.
+    No canonical descriptor (phase-split solves only) and no ``al_terms``
+    (the AL expansion takes the dense Gauss-Newton products)."""
+    if jac_fn is None:
+        jac_fn = torch.func.jacfwd(fn, argnums=(0, 1))
+    return Constraint(_over_knots(fn), p, label, _over_knots(jac_fn),
+                      equality=equality, applies=applies)
+
+
 # --------------------------------------------------------------- primitives
 
 def circle_constraint_fn(x, xc, yc, r):
     """(reference src/utils.jl:140-144): r² − (px−xc)² − (py−yc)² ≤ 0."""
     return r**2 - (x[..., 0] - xc) ** 2 - (x[..., 1] - yc) ** 2
+
+
+def sphere_constraint_fn(x, xc, yc, zc, r):
+    """(reference src/utils.jl:150-156): r² − (px−xc)² − (py−yc)² −
+    (pz−zc)² ≤ 0."""
+    return (r**2 - (x[..., 0] - xc) ** 2 - (x[..., 1] - yc) ** 2
+            - (x[..., 2] - zc) ** 2)
+
+
+def planar_obstacle_constraint(n, m, x_obs, r_obs, label="obstacle"):
+    """One circular obstacle (reference src/constraints.jl:288-292), as the
+    JAX package builds it: a ``custom_constraint`` at every knot, its
+    Jacobian by AD, no canonical descriptor."""
+    xc, yc = x_obs
+
+    def fn(x, u):
+        return circle_constraint_fn(x, xc, yc, r_obs)[None]
+
+    return custom_constraint(fn, 1, label, equality=False, applies="all")
 
 
 def sphere_rows_constraint(coords, ctr, b, label, applies="stage"):

@@ -8,11 +8,18 @@ of the knot axis.
 Conventions (reference src/cost.jl:112-198):
 - stage cost  k < N-1:  dt_k * (½xᵀQx + ½uᵀRu + qᵀx + rᵀu + uᵀHx + c)
 - terminal    k = N-1:  ½xᵀQx + qᵀx + c         (no dt, no control terms)
+
+``GenericObjective`` is the nonquadratic objective: per-knot functions
+ℓ(x, u) and ℓf(x), mapped over the leading dimensions by
+``torch.func.vmap`` and expanded by ``torch.func`` unless analytic hooks are
+given. It is not an ``Objective``, so its solves run phase-split, as in the
+JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -196,3 +203,116 @@ def cost_expansion(obj: Objective, X, U, dt) -> Expansion:
     return Expansion(x=lx, u=lu_s, xx=lxx,
                      uu=luu_s.expand(*batch, N - 1, m, m),
                      ux=lux_s.expand(*batch, N - 1, m, n))
+
+
+def stage_cost(obj: Objective, k, x, u, dt):
+    """Running cost at knot k (reference src/cost.jl:175-177): x (…, n),
+    u (…, m) → (…,)."""
+    Q, R, H = obj.Q[k], obj.R[k], obj.H[k]
+    q, r, c = obj.q[k], obj.r[k], obj.c[k]
+    quad = (0.5 * torch.einsum("...i,ij,...j->...", x, Q, x)
+            + 0.5 * torch.einsum("...i,ij,...j->...", u, R, u))
+    lin = torch.einsum("i,...i->...", q, x) + torch.einsum("i,...i->...",
+                                                           r, u)
+    cross = torch.einsum("...i,ij,...j->...", u, H, x)
+    return (quad + lin + c + cross) * dt
+
+
+# ------------------------------------------------------------- generic costs
+
+def _flat_map(f, *args):
+    """``f`` of per-knot arguments, mapped with ``torch.func.vmap`` over
+    the leading dimensions of ``args`` (each (…, ·) or, for a scalar per
+    knot, (…)); the outputs come back with those dimensions in front."""
+    lead = args[0].shape[:-1]
+    flat = [a.reshape(-1) if a.shape == lead else a.reshape(-1, a.shape[-1])
+            for a in args]
+    out = torch.func.vmap(f)(*flat)
+
+    def back(o):
+        return o.reshape(lead + o.shape[1:])
+
+    return tuple(back(o) for o in out) if isinstance(out, tuple) \
+        else back(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class GenericObjective:
+    """Nonquadratic cost ℓ(x, u) + terminal ℓf(x) with an AD expansion
+    (reference src/cost.jl:239-322, GenericCost via ForwardDiff): the
+    counterpart of the JAX package's ``GenericObjective``. ``ell`` and
+    ``ellf`` take per-knot vectors (x (n,), u (m,)) and return a scalar;
+    the stage cost is multiplied by dt, as the quadratic one is.
+
+    Optional analytic hooks (reference src/cost.jl:246-262), per knot:
+    ``grad(x, u) -> (lx, lu)`` and ``hess(x, u) -> (lxx, luu, lux)`` of ℓ
+    (unscaled: the expansion multiplies them by dt, as the AD path does),
+    ``gradf(x) -> lx`` and ``hessf(x) -> lxx`` of ℓf. Provide all four or
+    none; a missing hook falls back to ``torch.func`` for its piece."""
+
+    ell: Callable
+    ellf: Callable
+    N: int
+    grad: Optional[Callable] = None
+    hess: Optional[Callable] = None
+    gradf: Optional[Callable] = None
+    hessf: Optional[Callable] = None
+
+    @property
+    def n(self):
+        return None
+
+    def to(self, dtype=None, device=None):
+        """The functions hold no tensors: the same objective."""
+        return self
+
+    def stage(self, x, u, dt):
+        return self.ell(x, u) * dt
+
+    def terminal(self, x):
+        return self.ellf(x)
+
+    def total(self, X, U, dt):
+        return generic_total_cost(self, X, U, dt)
+
+    def expansion(self, X, U, dt):
+        return generic_cost_expansion(self, X, U, dt)
+
+
+def generic_total_cost(obj: GenericObjective, X, U, dt):
+    """X (…, N, n), U (…, N-1, m) → (…,)."""
+    dt = torch.as_tensor(dt, dtype=X.dtype, device=X.device).expand(
+        U.shape[:-1])
+    J_stage = _flat_map(obj.stage, X[..., :-1, :], U, dt).sum(-1)
+    return J_stage + _flat_map(obj.terminal, X[..., -1, :])
+
+
+def generic_cost_expansion(obj: GenericObjective, X, U, dt) -> Expansion:
+    """The expansion of a ``GenericObjective``: its hooks where given,
+    ``torch.func`` (``grad`` and ``jacfwd`` of it) for the rest."""
+    dt = torch.as_tensor(dt, dtype=X.dtype, device=X.device).expand(
+        U.shape[:-1])
+    Xs = X[..., :-1, :]
+    fn = torch.func
+    if obj.grad is not None:
+        lx_s, lu_s = _flat_map(
+            lambda x, u, d: tuple(g * d for g in obj.grad(x, u)), Xs, U, dt)
+    else:
+        lx_s, lu_s = _flat_map(fn.grad(obj.stage, argnums=(0, 1)), Xs, U, dt)
+    if obj.hess is not None:
+        lxx_s, luu_s, lux_s = _flat_map(
+            lambda x, u, d: tuple(h * d for h in obj.hess(x, u)), Xs, U, dt)
+    else:
+        gx = fn.grad(obj.stage, argnums=0)
+        gu = fn.grad(obj.stage, argnums=1)
+        lxx_s = _flat_map(fn.jacfwd(gx, argnums=0), Xs, U, dt)
+        luu_s = _flat_map(fn.jacfwd(gu, argnums=1), Xs, U, dt)
+        lux_s = _flat_map(fn.jacfwd(gu, argnums=0), Xs, U, dt)
+    xN = X[..., -1, :]
+    lxN = _flat_map(obj.gradf if obj.gradf is not None
+                    else fn.grad(obj.terminal), xN)
+    lxxN = _flat_map(obj.hessf if obj.hessf is not None
+                     else fn.jacfwd(fn.grad(obj.terminal)), xN)
+    lx = torch.cat([lx_s, lxN[..., None, :]], dim=-2)
+    lxx = torch.cat([lxx_s, lxxN[..., None, :, :]], dim=-3)
+    return Expansion(x=lx, u=lu_s, xx=lxx, uu=luu_s, ux=lux_s)

@@ -104,7 +104,10 @@ def fused_al_forward(model, canon: CanonStack, x0, X, U, K, d, dV1, dV2,
 
 def cuda_model_supported(model) -> bool:
     """True for the models the kernels carry: an RK3 step of
-    ``ops/cuda_models.py``, with or without the slack controls."""
+    ``ops/cuda_models.py``, with or without the slack controls, that is not
+    marked ``k2_only`` (ballonbeam, the Euler-angle quadrotor and the
+    minimum-time forms have no lane step in the JAX package, which runs
+    them phase-split)."""
     return find_cuda_model(model, slack_ok=True) is not None
 
 

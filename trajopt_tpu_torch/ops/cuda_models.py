@@ -5,9 +5,20 @@ The kernels inline a model's RK3 step as a compile-time trait
 step function. ``DiscreteModel.cuda_step`` names the step
 (``models/base.py::discretize`` sets it for every (model, "rk3") pair that has
 a trait); the infeasible-start model of ``solvers/altro.py`` keeps its base
-model's name and carries ``slack_m``, the base model's control width. Every
-base model has a slack-augmented instantiation: n slack controls after the
-base controls, x⁺ = base_step(x, u[:m]) + u[m:].
+model's name and carries ``slack_m``, the base model's control width, and
+the minimum-time model keeps it too and carries ``mintime``. Every base
+model has a slack-augmented instantiation: n slack controls after the base
+controls, x⁺ = base_step(x, u[:m]) + u[m:]. Every scalar model has a
+minimum-time instantiation of itself and of its slack form: one more control
+h after the others and one more state that carries it,
+x⁺ = [base_step(x[:-1], u[:-1], h²); h].
+
+An entry marked ``k2_only`` is carried by the rollout kernel K2 alone (and
+takes K5's sweep, which is model-free): ballonbeam, the Euler-angle
+quadrotor and every minimum-time form. The JAX package gives them no lane
+step, so it never runs them fused, and neither does the port: the fused
+kernels (K3, K4, K7a, K7b) refuse them, and the fused paths' eligibility
+says no for them on either device.
 """
 from __future__ import annotations
 
@@ -19,9 +30,10 @@ import torch
 class CudaModel(NamedTuple):
     id: int        # ModelId of csrc/models.cuh
     label: str     # names the instantiation in launch counts and reports
-    n: int
-    m: int         # all controls, the slacks included
+    n: int         # all states, the minimum-time state included
+    m: int         # all controls, the slacks and h included
     m_base: int    # the base model's controls (m_base == m without slacks)
+    k2_only: bool = False   # no fused kernel carries it (module docstring)
 
 
 CUDA_STEPS = {
@@ -36,53 +48,104 @@ CUDA_STEPS = {
     "acrobot_urdf_rk3": CudaModel(6, "acrobot_urdf", 4, 1, 1),
     "doublependulum_urdf_rk3": CudaModel(7, "doublependulum_urdf", 4, 2, 2),
     "cartpole_urdf_rk3": CudaModel(8, "cartpole_urdf", 4, 1, 1),
+    # scalar models without a lane step in the JAX package: K2 only
+    "ballonbeam_rk3": CudaModel(9, "ballonbeam", 4, 1, 1, True),
+    "quadrotor_euler_rk3": CudaModel(10, "quadrotor_euler", 12, 4, 4, True),
 }
-# kModelSlack of csrc/models.cuh: a slack-augmented model's id is its base
-# model's plus this (tests/test_torch_rigidbody.py holds the two tables
-# equal)
-SLACK_ID = 9
+# kModelSlack and kModelMinTime of csrc/models.cuh: a slack-augmented
+# model's id is its base model's plus SLACK_ID, a minimum-time model's its
+# base model's (with or without slacks) plus MINTIME_ID
+# (tests/test_torch_rigidbody.py holds the two tables equal)
+SLACK_ID = 11
+MINTIME_ID = 22
+# the CUDA steps that are rigid-body chains (the Chain trait); K2 has no
+# minimum-time form of them (ROADMAP Queue 1 #4)
+CHAIN_LABELS = ("kuka", "acrobot_urdf", "doublependulum_urdf",
+                "cartpole_urdf")
 
 
 def with_slack(base: CudaModel) -> CudaModel:
     """The slack-augmented instantiation of ``base``."""
     return CudaModel(base.id + SLACK_ID, base.label + "_slack", base.n,
-                     base.m + base.n, base.m)
+                     base.m + base.n, base.m, base.k2_only)
 
 
-# (cuda_step, with slacks) -> the kernels' entry: the one table of what the
-# model-templated kernels (K2, K3, K4; K7a and K7b without slacks) carry
-CUDA_MODELS = {(step, slack): with_slack(cm) if slack else cm
-               for step, cm in CUDA_STEPS.items() for slack in (False, True)}
+def with_mintime(cm: CudaModel) -> CudaModel:
+    """The minimum-time instantiation of ``cm`` (a scalar model, with or
+    without slacks): one more state and control, K2 only."""
+    return CudaModel(cm.id + MINTIME_ID, cm.label + "_mintime", cm.n + 1,
+                     cm.m + 1, cm.m_base, True)
 
 
-def find_cuda_model(model, slack_ok: bool = False):
+def _entries():
+    out = {}
+    for step, cm in CUDA_STEPS.items():
+        for slack in (False, True):
+            e = with_slack(cm) if slack else cm
+            out[(step, slack, False)] = e
+            if cm.label not in CHAIN_LABELS:
+                out[(step, slack, True)] = with_mintime(e)
+    return out
+
+
+# (cuda_step, with slacks, minimum time) -> the kernels' entry: the one
+# table of what the model-templated kernels carry (K2 all of it; K3 and K4
+# the entries that are not k2_only; K7a and K7b those without slacks)
+CUDA_MODELS = _entries()
+
+
+def find_cuda_model(model, slack_ok: bool = False,
+                    k2_only_ok: bool = False):
     """The kernels' entry for ``model``, or None: a model without a CUDA
-    step (``cuda_step`` is None), widths that are not the step's, or a
-    slack-augmented model where ``slack_ok`` is False."""
+    step (``cuda_step`` is None), widths that are not the step's, a
+    slack-augmented model where ``slack_ok`` is False, a chain's
+    minimum-time model, or an entry marked ``k2_only`` where ``k2_only_ok``
+    is False."""
     slack = getattr(model, "slack_m", None)
     found = CUDA_MODELS.get((getattr(model, "cuda_step", None),
-                             slack is not None))
+                             slack is not None,
+                             bool(getattr(model, "mintime", False))))
     if found is None or (model.n, model.m) != (found.n, found.m):
         return None
     if slack is not None and not (slack_ok and slack == found.m_base):
         return None
+    if found.k2_only and not k2_only_ok:
+        return None
     return found
 
 
-def cuda_model(model, fn: str, slack_ok: bool = False) -> CudaModel:
+def cuda_model(model, fn: str, slack_ok: bool = False,
+               k2_only_ok: bool = False) -> CudaModel:
     """:func:`find_cuda_model`, or NotImplementedError in the name of the
     wrapper ``fn`` (``slack_ok``: whether the kernel behind it has slack
-    instantiations)."""
-    found = find_cuda_model(model, slack_ok)
-    if found is None:
+    instantiations; ``k2_only_ok``: whether it is the rollout kernel K2,
+    which carries the ``k2_only`` entries)."""
+    found = find_cuda_model(model, slack_ok, k2_only_ok)
+    if found is not None:
+        return found
+    name = getattr(model, "name", model)
+    base = CUDA_STEPS.get(getattr(model, "cuda_step", None))
+    if getattr(model, "mintime", False) and base is not None \
+            and base.label in CHAIN_LABELS:
         raise NotImplementedError(
-            f"{fn}: no CUDA step for model {getattr(model, 'name', model)!r} "
-            f"(n={model.n}, m={model.m}); the kernels carry the RK3 steps of "
-            f"{sorted(c.label for c in CUDA_STEPS.values())}"
-            + (", each with or without slack controls" if slack_ok else "")
-            + " (no other model has a lane step, K6, in the JAX package "
-            "either: ROADMAP Queue 1)")
-    return found
+            f"{fn}: model {name!r} is the minimum-time form of the "
+            f"rigid-body chain {base.label!r}: K2 has no MinTime<Chain> "
+            "instantiation and K5 none of its shapes yet (ROADMAP Queue 1 "
+            "#4); on the CPU its plain solve runs")
+    if not k2_only_ok and find_cuda_model(model, slack_ok, True) is not None:
+        raise NotImplementedError(
+            f"{fn}: model {name!r} has no lane step in the JAX package, so "
+            "no fused kernel carries it: its solves run phase-split on K5 "
+            "and K2, as the JAX package runs them on XLA")
+    raise NotImplementedError(
+        f"{fn}: no CUDA step for model {name!r} "
+        f"(n={model.n}, m={model.m}); the kernels carry the RK3 steps of "
+        f"{sorted(c.label for c in CUDA_STEPS.values())}"
+        + (", each with or without slack controls" if slack_ok else "")
+        + (", the scalar ones also in their minimum-time form"
+           if k2_only_ok else "")
+        + " (no other model has a lane step, K6, in the JAX package "
+        "either: ROADMAP Queue 1)")
 
 
 def chain_table_ptr(model, cm: CudaModel, device):
@@ -101,7 +164,3 @@ def chain_table_ptr(model, cm: CudaModel, device):
         on[device] = torch.as_tensor(table, device=device)
     return on[device].data_ptr()
 
-
-# the CUDA steps that are rigid-body chains (the Chain trait)
-CHAIN_LABELS = ("kuka", "acrobot_urdf", "doublependulum_urdf",
-                "cartpole_urdf")

@@ -5,8 +5,9 @@
 model's RK3 step inlined (``csrc/models.cuh``): the full-state rollout
 (``quat_slice=None``) for every model of ``ops/cuda_models.py`` (kuka's
 rigid-body chain step among them), with or without the slack controls of
-the infeasible-start transform, and the quaternion error state for the
-quadrotor; one warp a problem, a chain's step computed by the warp
+the infeasible-start transform, the scalar models (ballonbeam and the
+Euler-angle quadrotor among them) in their minimum-time form too, and the
+quaternion error state for the quadrotor; one warp a problem, a chain's step computed by the warp
 together. A tensor on the CPU goes to the plain version
 ``ops/rollout.py::rollout_closed_loop``; a CUDA tensor goes to the kernel,
 and anything the kernel does not take raises.
@@ -41,12 +42,13 @@ def rollout_closed_loop_cuda(model, x0, X, U, K, d, alpha, dt,
                                    max_control_value=max_control_value,
                                    quat_slice=quat_slice)
     fn = "rollout_closed_loop_cuda"
-    cm = cuda_model(model, fn, slack_ok=True)
+    cm = cuda_model(model, fn, slack_ok=True, k2_only_ok=True)
     if not isinstance(dt, numbers.Real):
         raise NotImplementedError(
             f"{fn} takes one uniform dt as a Python float, got "
             f"{type(dt).__name__}: a per-interval dt has no rollout kernel "
-            "(ROADMAP Queue 1, the minimum-time transform)")
+            "(a minimum-time model takes its dt from its controls and "
+            "ignores this one)")
     error_state = quat_slice is not None
     if error_state and (quat_slice != (3, 7) or cm.label != "quadrotor"):
         raise ValueError(f"{fn}: quat_slice {quat_slice} on model "

@@ -5,7 +5,7 @@ src/integration.jl). Each takes a continuous dynamics function
 ``f(x, u) -> xdot`` and returns a discrete step ``step(x, u, dt)``. They are
 plain tensor arithmetic, so they broadcast over any leading batch dimensions
 and work under ``torch.func`` transforms. The implicit integrators are not
-ported yet (ROADMAP Queue 1, "the rest of the zoo").
+ported yet (ROADMAP Queue 1 #4).
 """
 from __future__ import annotations
 

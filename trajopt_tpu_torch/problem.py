@@ -4,7 +4,9 @@ Counterpart of ``trajopt_tpu/problem.py`` (reference src/problem.jl). A
 ``Problem`` bundles the discrete model, the stacked objective, the
 constraint set, the initial state and the seeds, all on one device and in
 one dtype. ``dt`` is kept as a Python float: the kernels take one uniform
-step size as an argument.
+step size as an argument. A per-interval ``dt`` (N-1,) carried over from
+the JAX package (``convert.py``: the steps a minimum-time solve found) is a
+tensor, which the CPU solves and the fused paths take.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ class Problem:
     U: torch.Tensor           # (N-1, m) control seed/solution
     obj: Objective
     constraints: ConstraintSet
-    dt: float
+    dt: float                 # or a (N-1,) tensor (module docstring)
     tf: float
     model: DiscreteModel
     N: int
@@ -51,6 +53,8 @@ class Problem:
     def dt_traj(self):
         """(N-1,) per-interval step sizes (reference get_dt_traj,
         problem.jl:292-314)."""
+        if torch.is_tensor(self.dt):
+            return self.dt
         return torch.full((self.N - 1,), self.dt, dtype=self.U.dtype,
                           device=self.U.device)
 
@@ -117,6 +121,16 @@ def _validate_time(N, tf, dt, obj):
     return N, float(dt), float(tf)
 
 
+def initial_controls(prob: Problem, U0) -> Problem:
+    """(reference initial_controls!, problem.jl:148-150): a (N-1, m) seed,
+    or one (m,) control held at every knot."""
+    U = torch.as_tensor(np.asarray(U0), dtype=prob.U.dtype,
+                        device=prob.device)
+    if U.ndim == 1:
+        U = U.expand(prob.U.shape).clone()
+    return dataclasses.replace(prob, U=U)
+
+
 def initial_states(prob: Problem, X0) -> Problem:
     """(reference initial_states!, problem.jl:152-154). A finite state seed
     asks ALTRO for the infeasible-start transform (reference
@@ -130,3 +144,15 @@ def update_problem(prob: Problem, **kwargs) -> Problem:
     """(reference update_problem, problem.jl:137-146)."""
     return dataclasses.replace(prob, **kwargs)
 
+
+
+def cost(prob: Problem) -> torch.Tensor:
+    """(reference cost(prob), problem.jl:240): the objective at the
+    problem's own X and U."""
+    return prob.obj.total(prob.X, prob.U, prob.dt_traj())
+
+
+def max_violation(prob: Problem) -> torch.Tensor:
+    """(reference max_violation(prob), problem.jl:242-267)."""
+    C = prob.constraints.evaluate(prob.X, prob.U)
+    return prob.constraints.max_violation(C)

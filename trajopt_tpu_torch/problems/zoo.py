@@ -1,12 +1,14 @@
 """Problem zoo.
 
-Counterpart of ``trajopt_tpu/problems/zoo.py``: ``doubleintegrator``,
-``pendulum``, ``cartpole``, ``doublependulum_problem``, ``acrobot_problem``,
-``parallel_park``, ``car_3obs``, ``car_escape``, the unconstrained
-``quadrotor_line``, ``quadrotor_maze`` and ``kuka_obstacles`` are ported
-(ROADMAP Queue 1: the rest of the zoo comes after). Every factory builds on
-``device``; None is the current CUDA device, and the CPU is asked for with
-``device="cpu"``.
+Counterpart of ``trajopt_tpu/problems/zoo.py``, every problem of it:
+``doubleintegrator``, ``pendulum``, ``cartpole``, ``doublependulum_problem``,
+``acrobot_problem``, ``parallel_park``, ``car_3obs``, ``car_escape``,
+``quadrotor_line`` (its constrained form's goal row is a
+``custom_constraint``, so that form runs phase-split), ``quadrotor``,
+``quadrotor_maze``, ``quad_obs`` (its spheres a sphere-row constraint with
+the JAX package's canonical descriptor, so it runs fused) and
+``kuka_obstacles``. Every factory builds on ``device``; None is the current
+CUDA device, and the CPU is asked for with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from trajopt_tpu_torch.models import zoo as dynamics
 from trajopt_tpu_torch.models.base import discretize
 from trajopt_tpu_torch.ops.canonical import fk_sphere_canon
 from trajopt_tpu_torch.ops.constraints import (
-    ConstraintSetBuilder, bound_constraint, fk_sphere_constraint,
-    goal_constraint, obstacle_field_constraint,
+    ConstraintSetBuilder, _Const, bound_constraint, custom_constraint,
+    fk_sphere_constraint, goal_constraint, obstacle_field_constraint,
+    sphere_rows_constraint,
 )
 from trajopt_tpu_torch.ops.cost import LQRObjective
 from trajopt_tpu_torch.problem import initial_states, problem, update_problem
@@ -205,14 +208,39 @@ def car_escape(dtype=torch.float64, device=None):
 def quadrotor_line(N=101, dtype=torch.float64, device=None,
                    constrained=False, distance=60.0):
     """Flagship benchmark problem: quadrotor ``distance``-meter translation
-    (reference problems/quadrotor.jl spec, tf=5, minus bounds)."""
-    if constrained:
-        raise NotImplementedError(
-            "quadrotor_line(constrained=True) needs custom_constraint "
-            "(ROADMAP Queue 1)")
+    (reference problems/quadrotor.jl spec, tf=5, minus bounds).
+    ``constrained=True`` adds the u ≥ 0 bound and a position + velocity
+    goal equality, a ``custom_constraint`` as in the JAX package (the
+    quaternion block is left to the terminal cost), so that form has no
+    canonical stack and runs phase-split."""
     device = resolve_device(device)
     model_d = discretize(dynamics.quadrotor, "rk3")
     n, m = 13, 4
+    x0, xf, Q = _quad_ends(distance)
+    obj = LQRObjective(Q, np.eye(m) * 1e-4, np.eye(n) * 1000.0, xf, N,
+                       dtype=dtype, device=device)
+    cons = None
+    if constrained:
+        xf_pv = _Const(np.concatenate([xf[0:3], xf[7:10]]))
+
+        def goal_pv(x, u):
+            return torch.cat([x[0:3], x[7:10]]) - xf_pv.like(x)
+
+        cons = ConstraintSetBuilder(N)
+        cons.add(bound_constraint(n, m, u_min=0.0, label="bnd_u"),
+                 knots=range(0, N - 1))
+        cons.add(custom_constraint(goal_pv, 6, label="goal_pv",
+                                   equality=True, applies="terminal"))
+    return problem(model_d, obj, constraints=cons, x0=x0, xf=xf, N=N,
+                   dt=5.0 / (N - 1),
+                   U0=np.full((N - 1, m), 0.5 * 9.81 / 4.0), dtype=dtype,
+                   device=device)
+
+
+def _quad_ends(distance=60.0):
+    """The quadrotor problems' start (10 m up, level), goal ``distance`` m
+    along y, and state weight."""
+    n = 13
     x0 = np.zeros(n)
     x0[0:3] = [0.0, 0.0, 10.0]
     x0[3] = 1.0
@@ -221,11 +249,35 @@ def quadrotor_line(N=101, dtype=torch.float64, device=None,
     xf[3] = 1.0
     Q = np.eye(n) * 1e-3
     Q[3:7, 3:7] = np.eye(4) * 1e-2
+    return x0, xf, Q
+
+
+def _terminal_velocity_box(xf, n, m):
+    """The terminal box of the quadrotor problems: the position at xf, the
+    velocity zero, the attitude and rates free."""
+    xf_U, xf_L = xf.copy(), xf.copy()
+    xf_U[3:7], xf_L[3:7] = np.inf, -np.inf
+    xf_U[7:10], xf_L[7:10] = 0.0, 0.0
+    xf_U[10:], xf_L[10:] = np.inf, -np.inf
+    return bound_constraint(n, m, x_min=xf_L, x_max=xf_U, label="bnd_xf")
+
+
+def quadrotor(dtype=torch.float64, device=None):
+    """(reference problems/quadrotor.jl): 60 m translation, u ≥ 0 bound,
+    the terminal velocity box. Every row canonical: it runs fused."""
+    device = resolve_device(device)
+    model_d = discretize(dynamics.quadrotor, "rk3")
+    n, m, N = 13, 4, 101
+    x0, xf, Q = _quad_ends()
     obj = LQRObjective(Q, np.eye(m) * 1e-4, np.eye(n) * 1000.0, xf, N,
                        dtype=dtype, device=device)
-    return problem(model_d, obj, x0=x0, xf=xf, N=N, dt=5.0 / (N - 1),
-                   U0=np.full((N - 1, m), 0.5 * 9.81 / 4.0), dtype=dtype,
-                   device=device)
+    cons = ConstraintSetBuilder(N)
+    cons.add(bound_constraint(n, m, u_min=0.0, label="bnd_u"),
+             knots=range(0, N - 1))
+    cons.add(_terminal_velocity_box(xf, n, m), knots=[N - 1])
+    return problem(model_d, obj, constraints=cons, x0=x0, xf=xf, N=N,
+                   tf=5.0, U0=np.full((N - 1, m), 0.5 * 9.81 / 4.0),
+                   dtype=dtype, device=device)
 
 
 def _maze_cylinders():
@@ -259,14 +311,7 @@ def quadrotor_maze(dtype=torch.float64, device=None):
     n, m, N = 13, 4, 101
     tf = 5.0
     q0 = [1.0, 0.0, 0.0, 0.0]
-    x0 = np.zeros(n)
-    x0[0:3] = [0.0, 0.0, 10.0]
-    x0[3:7] = q0
-    xf = np.zeros(n)
-    xf[0:3] = [0.0, 60.0, 10.0]
-    xf[3:7] = q0
-    Q = np.eye(n) * 1e-3
-    Q[3:7, 3:7] = np.eye(4) * 1e-2
+    x0, xf, Q = _quad_ends()
     obj = LQRObjective(Q, np.eye(m) * 1e-4, np.eye(n) * 1000.0, xf, N,
                        dtype=dtype, device=device)
 
@@ -278,15 +323,6 @@ def quadrotor_maze(dtype=torch.float64, device=None):
     bnd1 = bound_constraint(n, m, u_min=u_min, u_max=u_max, label="bnd1")
     bnd2 = bound_constraint(n, m, u_min=u_min, u_max=u_max, x_min=x_min,
                             x_max=x_max, label="bnd2")
-    xf_U = xf.copy()
-    xf_L = xf.copy()
-    xf_U[3:7] = np.inf
-    xf_L[3:7] = -np.inf
-    xf_U[7:10] = 0.0
-    xf_L[7:10] = 0.0
-    xf_U[10:] = np.inf
-    xf_L[10:] = -np.inf
-    bnd_xf = bound_constraint(n, m, x_min=xf_L, x_max=xf_U, label="bnd_xf")
     maze = obstacle_field_constraint(_maze_cylinders(), label="maze",
                                      inflate=2.0)  # + r_quad
 
@@ -294,7 +330,7 @@ def quadrotor_maze(dtype=torch.float64, device=None):
     cons.add(bnd1, knots=[0])
     cons.add(bnd2, knots=range(1, N - 1))
     cons.add(maze, knots=range(1, N - 1))
-    cons.add(bnd_xf, knots=[N - 1])
+    cons.add(_terminal_velocity_box(xf, n, m), knots=[N - 1])
     prob = problem(model_d, obj, constraints=cons, x0=x0, xf=xf, N=N, tf=tf,
                    U0=np.full((N - 1, m), 0.5 * 9.81 / 4.0), dtype=dtype,
                    device=device)
@@ -310,6 +346,51 @@ def quadrotor_maze(dtype=torch.float64, device=None):
     ])
     X_guess[3:7, :] = np.array(q0)[:, None]
     return initial_states(prob, interp_rows(N, tf, X_guess))
+
+
+def quad_obs(dtype=torch.float64, device=None):
+    """(reference problems/quad_obs.jl): the quadrotor among 4 cylinders
+    (D = 2 rows) and 3 spheres (D = 3 rows), the state and control boxes,
+    the terminal velocity box. The JAX package builds the spheres as a
+    hand-written ``Constraint`` with ``sphere_canon((0, 1, 2), …)``; here
+    they are the sphere-row kind with the same descriptor, so the whole
+    stack is canonical and runs fused."""
+    device = resolve_device(device)
+    model_d = discretize(dynamics.quadrotor, "rk3")
+    n, m, N = 13, 4, 101
+    x0, xf, _ = _quad_ends()
+    obj = LQRObjective(np.eye(n) * 1e-3, np.eye(m) * 1e-2, np.eye(n), xf, N,
+                       dtype=dtype, device=device)
+
+    r_quad = 2.0
+    cylinders = [(0.0, 10.0, 3.0), (10.0, 30.0, 3.0), (-13.0, 25.0, 2.0),
+                 (5.0, 50.0, 4.0)]
+    spheres = np.array([(0.0, 40.0, 5.0, 2.0), (-5.0, 15.0, 3.0, 1.0),
+                        (10.0, 20.0, 7.0, 2.0)])
+    cyl_con = obstacle_field_constraint(cylinders, label="cylinders",
+                                        inflate=r_quad)
+    sph_con = sphere_rows_constraint((0, 1, 2), spheres[:, :3],
+                                     (spheres[:, 3] + r_quad) ** 2,
+                                     "spheres", applies="stage")
+
+    u_min, u_max = 0.0, 50.0
+    x_max = np.full(n, np.inf)
+    x_min = np.full(n, -np.inf)
+    x_max[0:3] = [25.0, np.inf, 20.0]
+    x_min[0:3] = [-25.0, -np.inf, 0.0]
+    bnd_u = bound_constraint(n, m, u_min=u_min, u_max=u_max, label="bnd_u")
+    bnd = bound_constraint(n, m, u_min=u_min, u_max=u_max, x_min=x_min,
+                           x_max=x_max, label="bnd")
+
+    cons = ConstraintSetBuilder(N)
+    cons.add(bnd_u, knots=[0])
+    cons.add(bnd, knots=range(1, N - 1))
+    cons.add(cyl_con, knots=range(1, N - 1))
+    cons.add(sph_con, knots=range(1, N - 1))
+    cons.add(_terminal_velocity_box(xf, n, m), knots=[N - 1])
+    return problem(model_d, obj, constraints=cons, x0=x0, xf=xf, N=N,
+                   tf=5.0, U0=np.full((N - 1, m), 0.5 * 9.81 / 4.0),
+                   dtype=dtype, device=device)
 
 
 def kuka_obstacles(dtype=torch.float64, device=None):

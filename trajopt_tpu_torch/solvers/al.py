@@ -3,6 +3,7 @@ of the queued pool solver (``parallel/batch.py::solve_batch_queued``).
 
 Counterpart of ``trajopt_tpu/solvers/al.py``: ``ALOptions``, ``ALResult``,
 ``ALLaneState``, ``al_cost_fns``, ``dual_update``, ``penalty_update``,
+``max_violation``,
 ``al_lane_stepper`` and ``al_solve``, batched over a leading problem
 dimension.
 
@@ -152,6 +153,12 @@ def penalty_update(cs: ConstraintSet, mu, scaling, opts: ALOptions):
     """μ ← min(scaling·μ, μ_max) (reference penalty_update!, :121-126)."""
     mu_new = torch.clamp(scaling * mu, 0.0, opts.penalty_max)
     return torch.where(cs.mask, mu_new, torch.zeros_like(mu_new))
+
+
+def max_violation(cs: ConstraintSet, C):
+    """Per-problem max violation of constraint values C (…, N, P) (the
+    JAX package's ``solvers.al.max_violation``)."""
+    return cs.max_violation(C)
 
 
 class ALLaneState(NamedTuple):

@@ -1,23 +1,28 @@
 """ALTRO meta-solver.
 
 Counterpart of ``trajopt_tpu/solvers/altro.py`` (reference
-src/solvers/altro/). ALTRO = problem transforms (infeasible start) + the
-AL-iLQR primary solve + the optional projected-Newton polish + result
-post-processing (reference altro_methods.jl:2-124): the options, the
-infeasible-start slack transform, ALTRO's per-row penalty schedules (which
-``parallel/batch.py::solve_batch_queued_altro`` also drives) and
-``altro_solve``. The minimum-time transform is not ported yet (ROADMAP
-Queue 1 #11): ``altro_solve`` raises for it, and ``ALTROOptions`` keeps its
-fields so options carry across.
+src/solvers/altro/). ALTRO = problem transforms (infeasible start, minimum
+time) + the AL-iLQR primary solve + the optional projected-Newton polish +
+result post-processing (reference altro_methods.jl:2-124): the options, the
+infeasible-start slack transform, the minimum-time transform (τ = √dt as one
+more control and state, ``MinTimeObjective``, ``mintime_equality``,
+``minimum_time_problem``, ``total_time``), ALTRO's per-row penalty schedules
+(which ``parallel/batch.py::solve_batch_queued_altro`` also drives) and
+``altro_solve``.
 
 On a CUDA tensor the AL stages run on the fused AL kernels K3 and K4 (the
 slack-augmented model first, the base model in the feasible re-solve), the
 TVLQR projection on K5 and K2; the polish is plain tensor code
-(``solvers/projected_newton.py``).
+(``solvers/projected_newton.py``). A minimum-time problem runs phase-split
+on K5 and K2 (its objective is not an ``Objective`` and its τ row has no
+canonical descriptor, as in the JAX package): K2 carries the minimum-time
+form of every scalar model, with and without the slacks
+(``ops/cuda_models.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -25,13 +30,15 @@ import torch
 
 from trajopt_tpu_torch.models.base import DiscreteModel
 from trajopt_tpu_torch.ops.constraints import (
-    Constraint, ConstraintSet, infeasible_constraint,
+    Constraint, ConstraintSet, bound_constraint, infeasible_constraint,
 )
-from trajopt_tpu_torch.ops.cost import Objective
+from trajopt_tpu_torch.ops.cost import Expansion, Objective
 from trajopt_tpu_torch.problem import Problem, update_problem
-from trajopt_tpu_torch.solvers.al import ALOptions, _al_solve_one
+from trajopt_tpu_torch.solvers.al import ALOptions, al_solve_batch
 from trajopt_tpu_torch.solvers.ilqr import HostSyncs, tvlqr_projection
-from trajopt_tpu_torch.solvers.projected_newton import PNOptions, pn_solve
+from trajopt_tpu_torch.solvers.projected_newton import (
+    PNOptions, pn_solve_batch,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,15 +88,44 @@ def lift_constraint(con: Constraint, n: int, m: int) -> Constraint:
     """Re-target a constraint built for (n, m) onto an augmented problem
     with extra trailing state/control dims (reference
     update_constraint_set_jacobians, constraint_sets.jl:286-302). The
-    port's constraint kinds index x and u relative to whatever widths they
-    are called with (``ops/constraints.py``), and their canonical
-    descriptors are dimension-relative too, so the same object serves the
-    augmented problem."""
-    if con.canon is None:
-        raise NotImplementedError(
-            f"constraint {con.label!r} has no canonical descriptor: lifting "
-            "a custom constraint is not ported yet (ROADMAP Queue 1)")
-    return con
+    port's row kinds (those with a canonical descriptor) index x and u
+    relative to whatever widths they are called with
+    (``ops/constraints.py``), and their descriptors are dimension-relative
+    too, so the same object serves the augmented problem. Any other
+    constraint (a ``custom_constraint``) is lifted as the JAX package lifts
+    it: its function and Jacobian are evaluated on the leading n and m
+    columns and the Jacobian zero-padded, and so are its ``al_terms``."""
+    if con.canon is not None:
+        return con
+
+    def fn(x, u):
+        return con.fn(x[..., :n], u[..., :m])
+
+    def pad(t, *widths):
+        """t zero-padded on its trailing axes to ``widths``."""
+        out = t.new_zeros(t.shape[:t.ndim - len(widths)] + widths)
+        out[(...,) + tuple(slice(0, w) for w in t.shape[-len(widths):])] = t
+        return out
+
+    def jac(x, u):
+        cx, cu = con.jac_fn(x[..., :n], u[..., :m])
+        return pad(cx, x.shape[-1]), pad(cu, u.shape[-1])
+
+    lifted = Constraint(fn, con.p, con.label, jac, equality=con.equality,
+                        applies=con.applies)
+    lifted.term_rows = con.term_rows
+    if con.al_terms is not None:
+        hook = con.al_terms
+
+        def al_terms(X, U_pad, g, imu):
+            t = hook(X[..., :n], U_pad[..., :m], g, imu)
+            nb, mb = X.shape[-1], U_pad.shape[-1]
+            widths = {"x": (nb,), "u": (mb,), "xx": (nb, nb),
+                      "uu": (mb, mb), "ux": (mb, nb)}
+            return {k: pad(v, *widths[k]) for k, v in t.items()}
+
+        lifted.al_terms = al_terms
+    return lifted
 
 
 def _lift_entries(cs: ConstraintSet, n: int, m: int):
@@ -159,13 +195,211 @@ def infeasible_problem(prob: Problem, R_inf: float = 1.0) -> Problem:
     entries.append((infeasible_constraint(n, m), kmask))
     cs_inf = ConstraintSet.build(entries, N, device=dev)
 
-    # slack seeding from state-trajectory defects (infeasible.jl:62-80)
-    Xc = torch.cat([prob.x0[None], prob.X[1:-1]], dim=0)
-    u_slack = prob.X[1:] - base.step(Xc, prob.U, prob.dt_traj()[:, None])
-    U_inf = torch.cat([prob.U, u_slack], dim=1)
-
     return update_problem(prob, model=model_inf, obj=obj_inf,
-                          constraints=cs_inf, U=U_inf)
+                          constraints=cs_inf,
+                          U=_slack_seed(base, prob.x0, prob.X, prob.U,
+                                        prob.dt_traj()))
+
+
+def _slack_seed(base, x0, X, U, dt_traj):
+    """The infeasible start's controls [U, slacks] with the slacks seeded
+    from the state seed's defects, u_slack_k = X_{k+1} − f(X_k, U_k) with
+    X_0 = x0 (infeasible.jl:62-80). Leading batch dimensions allowed."""
+    Xc = torch.cat([x0[..., None, :], X[..., 1:-1, :]], dim=-2)
+    return torch.cat([U, X[..., 1:, :] - base.step(Xc, U, dt_traj[:, None])],
+                     dim=-1)
+
+
+# --------------------------------------------------------------- minimum time
+
+@dataclasses.dataclass(frozen=True)
+class MinTimeObjective:
+    """Objective of the τ = √dt augmented problem (reference MinTimeCost,
+    minimum_time.jl:150-281): stage = ℓ(x̄, ū)·h² + R_mt·h² with ℓ the base
+    stage cost on the base states and controls and h = τ = u[-1],
+    terminal = the base terminal cost on the original states. The dt
+    arguments are ignored: the step is h².
+
+    The expansion is the closed form of the JAX package's AD one (the
+    reference's analytic τ chain rule): with g_x = ∇ₓℓ, g_u = ∇ᵤℓ,
+        lx = h² g_x,  lu = [h² g_u; 2h(ℓ + R_mt)],
+        lxx = h² ∇²ₓₓℓ,  luu = [[h² ∇²ᵤᵤℓ, 2h g_u], [2h g_uᵀ, 2(ℓ + R_mt)]],
+        lux = [[h² ∇²ᵤₓℓ], [2h g_xᵀ]],
+    zero in the τ state's rows and columns. It is held against
+    ``torch.func`` AD of :meth:`total` and against the JAX package
+    (tests/test_torch_mintime.py). AD here takes many times the tensor
+    operations of the closed form, and a minimum-time solve is bound by its
+    host's tensor operations on either device."""
+
+    base: Objective
+    R_mt: torch.Tensor
+
+    @property
+    def N(self):
+        return self.base.N
+
+    def _ell(self, X, U):
+        """h (…, N-1, 1) and ℓ (…, N-1, 1) at the stage knots, and what
+        the expansion reuses: Q and R symmetrized, Qx̄, Rū, Hx̄, x̄, ū."""
+        b = self.base
+        Q = 0.5 * (b.Q[:-1] + b.Q[:-1].transpose(-1, -2))
+        R = 0.5 * (b.R[:-1] + b.R[:-1].transpose(-1, -2))
+        # h as a width-1 slice, never a 0-d index (Q3-4)
+        h = U[..., -1:]
+        xb, ub = X[..., :-1, :-1], U[..., :-1]
+        Qx = torch.einsum("kij,...kj->...ki", Q, xb)
+        Ru = torch.einsum("kij,...kj->...ki", R, ub)
+        Hx = torch.einsum("kij,...kj->...ki", b.H[:-1], xb)
+        ell = (((0.5 * Qx + b.q[:-1]) * xb).sum(-1)
+               + ((0.5 * Ru + b.r[:-1] + Hx) * ub).sum(-1)
+               + b.c[:-1])[..., None]
+        return h, ell, (Q, R, Qx, Ru, Hx, xb, ub)
+
+    def total(self, X, U, dt_ignored=None):
+        h, ell, _ = self._ell(X, U)
+        b = self.base
+        xN = X[..., -1, :-1]
+        return (((ell + self.R_mt) * h * h)[..., 0].sum(-1)
+                + 0.5 * torch.einsum("...i,ij,...j->...", xN, b.Q[-1], xN)
+                + torch.einsum("i,...i->...", b.q[-1], xN) + b.c[-1])
+
+    def expansion(self, X, U, dt_ignored=None) -> Expansion:
+        h, ell, (Q, R, Qx, Ru, Hx, xb, ub) = self._ell(X, U)
+        b = self.base
+        gx = Qx + b.q[:-1] + torch.einsum("kji,...kj->...ki", b.H[:-1], ub)
+        gu = Ru + b.r[:-1] + Hx
+        lead, (Nm1, nu) = U.shape[:-2], U.shape[-2:]
+        nx = X.shape[-1]
+        h2 = (h * h)[..., None]
+        z = X.new_zeros
+        lx = z(lead + (Nm1 + 1, nx))
+        lx[..., :-1, :-1] = h * h * gx
+        lx[..., -1, :-1] = torch.einsum("ij,...j->...i", b.Q[-1],
+                                        X[..., -1, :-1]) + b.q[-1]
+        lu = torch.cat([h * h * gu, 2.0 * h * (ell + self.R_mt)], dim=-1)
+        lxx = z(lead + (Nm1 + 1, nx, nx))
+        lxx[..., :-1, :-1, :-1] = h2 * Q
+        lxx[..., -1, :-1, :-1] = b.Q[-1]
+        luu = z(lead + (Nm1, nu, nu))
+        luu[..., :-1, :-1] = h2 * R
+        luu[..., :-1, -1] = 2.0 * h * gu
+        luu[..., -1, :-1] = 2.0 * h * gu
+        luu[..., -1, -1] = (2.0 * (ell + self.R_mt))[..., 0]
+        lux = z(lead + (Nm1, nu, nx))
+        lux[..., :-1, :-1] = h2 * b.H[:-1]
+        lux[..., -1, :-1] = 2.0 * h * gx
+        return Expansion(x=lx, u=lu, xx=lxx, uu=luu, ux=lux)
+
+
+def mintime_equality(n: int, m: int) -> Constraint:
+    """τ consistency across knots: u[end] − x[end] = 0 (reference
+    mintime_equality, minimum_time.jl:112-124), with its analytic Jacobian
+    and its structured AL terms. Two entries in one row, so no canonical
+    descriptor, as in the JAX package."""
+
+    def fn(x, u):
+        return u[..., -1:] - x[..., -1:]
+
+    def jac(x, u):
+        cx = x.new_zeros(x.shape[:-1] + (1, x.shape[-1]))
+        cu = x.new_zeros(x.shape[:-1] + (1, u.shape[-1]))
+        cx[..., 0, -1] = -1.0
+        cu[..., 0, -1] = 1.0
+        return cx, cu
+
+    con = Constraint(fn, 1, "min_time_eq", jac, equality=True,
+                     applies="stage")
+
+    def al_terms(X, U_pad, g, imu):
+        # cx = −e_last, cu = +e_last: scalar terms on the τ entries
+        nb, mb = X.shape[-1], U_pad.shape[-1]
+        g0, i0 = g[..., 0], imu[..., 0]
+        lx, lu = X.new_zeros(X.shape), X.new_zeros(U_pad.shape)
+        lxx = X.new_zeros(X.shape + (nb,))
+        luu = X.new_zeros(U_pad.shape + (mb,))
+        lux = X.new_zeros(U_pad.shape + (nb,))
+        lx[..., -1] = -g0
+        lu[..., -1] = g0
+        lxx[..., -1, -1] = i0
+        luu[..., -1, -1] = i0
+        lux[..., -1, -1] = -i0
+        return {"x": lx, "u": lu, "xx": lxx, "uu": luu, "ux": lux}
+
+    con.al_terms = al_terms
+    return con
+
+
+def minimum_time_problem(prob: Problem, R_min_time: float = 1.0,
+                         dt_max: float = 1.0, dt_min: float = 1e-3) -> Problem:
+    """τ = √dt state/control augmentation (reference minimum_time_problem,
+    minimum_time.jl:2-37 + add_min_time_controls, :85-110). The model's
+    step is x⁺ = [base_step(x[:-1], u[:-1], h²); h] with h = u[-1]; it
+    ignores its dt argument. It keeps the base model's CUDA step name and
+    slack width and is marked ``mintime``: K2's ``MinTime`` entry
+    (``ops/cuda_models.py``)."""
+    base = prob.model
+    n, m, N = base.n, base.m, prob.N
+    dtype, dev = prob.U.dtype, prob.device
+
+    def step(x, u, dt):
+        h = u[..., -1:]
+        return torch.cat([base.step(x[..., :-1], u[..., :-1], h * h), h],
+                         dim=-1)
+
+    model_mt = DiscreteModel(step, n + 1, m + 1, model=base.model,
+                             integrator=base.integrator,
+                             name=base.name + "_mintime")
+    model_mt.cuda_step = base.cuda_step
+    model_mt.slack_m = base.slack_m
+    model_mt.mintime = True
+
+    obj_mt = MinTimeObjective(base=prob.obj, R_mt=torch.as_tensor(
+        R_min_time, dtype=dtype, device=dev))
+
+    # constraints: the lifted originals, the τ bounds at every stage knot
+    # and the τ equality at the interior knots (minimum_time.jl:126-147)
+    entries = _lift_entries(prob.constraints, n, m)
+    tau_bnd = bound_constraint(n + 1, m + 1,
+                               u_min=[-np.inf] * m + [math.sqrt(dt_min)],
+                               u_max=[np.inf] * m + [math.sqrt(dt_max)],
+                               label="min_time_bnd")
+    kmask_b = np.zeros(N, bool)
+    kmask_b[: N - 1] = True
+    entries.append((tau_bnd, kmask_b))
+    kmask_eq = np.zeros(N, bool)
+    kmask_eq[1: N - 1] = True   # 1 < k < N in 1-based == knots 1..N-2 here
+    entries.append((mintime_equality(n, m), kmask_eq))
+    cs_mt = ConstraintSet.build(entries, N, device=dev)
+
+    x0_mt, X_mt, U_mt = _mintime_seed(prob.x0, prob.X, prob.U, prob.dt)
+    return update_problem(prob, model=model_mt, obj=obj_mt,
+                          constraints=cs_mt, U=U_mt, X=X_mt, x0=x0_mt,
+                          xf=torch.cat([prob.xf, prob.xf.new_zeros(1)]))
+
+
+def _mintime_seed(x0, X, U, dt: float):
+    """The minimum-time problem's start and seeds: τ = 0 appended to x0,
+    √dt appended to every control, and to every state of a finite state
+    seed (τ_0 = 0); a seed that is not finite becomes all NaN
+    (minimum_time.jl:20-31). Leading batch dimensions allowed."""
+    sqrt_dt = math.sqrt(dt)
+    U_mt = torch.cat([U, torch.full_like(U[..., :1], sqrt_dt)], dim=-1)
+    X_mt = torch.cat([X, torch.full_like(X[..., :1], sqrt_dt)], dim=-1)
+    X_mt[..., 0, -1] = 0.0
+    finite = torch.isfinite(X).flatten(-2).all(-1)[..., None, None]
+    X_mt = torch.where(finite, X_mt, torch.full_like(X_mt, float("nan")))
+    return torch.cat([x0, x0.new_zeros(x0.shape[:-1] + (1,))], dim=-1), \
+        X_mt, U_mt
+
+
+def total_time(prob: Problem, U=None) -> torch.Tensor:
+    """(reference total_time, minimum_time.jl:74-82): Σ τ² for a
+    minimum-time problem (tf == 0), else dt·(N−1)."""
+    U = prob.U if U is None else U
+    if prob.tf == 0.0:
+        return (U[..., -1] ** 2).sum(-1)
+    return torch.as_tensor(prob.dt * (prob.N - 1), dtype=U.dtype,
+                           device=U.device)
 
 
 # ------------------------------------------------------------ penalty rows
@@ -200,31 +434,63 @@ def _al_fields(o: ALOptions):
 def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
                 infeasible: Optional[bool] = None,
                 minimum_time: Optional[bool] = None) -> ALTROResult:
-    """(reference solve!, altro_methods.jl:2-53).
+    """(reference solve!, altro_methods.jl:2-53): :func:`altro_solve_batch`
+    for the problem's own start and seeds, the leading dimension taken off
+    the result.
 
-    The infeasible-start transform is selected from the problem's data (a
-    finite state seed, reference altro_methods.jl:98-124) unless
-    ``infeasible`` says otherwise. With it: the AL solve of the
-    slack-augmented problem, the optional projected-Newton polish, the
-    slacks stripped, and with ``resolve_feasible_problem`` the AL re-solve
-    of the original problem from the TVLQR projection of that trajectory
-    onto the dynamics (``dynamically_feasible_projection``). ``c_max`` of
-    the result is scored on the original constraints. A minimum-time problem
-    (``minimum_time=True`` or ``tf == 0``) raises ``NotImplementedError``.
-    ``host_syncs`` counts the device-to-host reads of the AL stages' loop
-    tests; ``seed_held`` whether the initial-rollout guard held x0.
+    The transforms are selected from the problem's data unless the flags
+    say otherwise: a finite state seed asks for the infeasible start, and
+    ``tf == 0`` for minimum time (reference altro_methods.jl:98-124). With
+    the infeasible start: the AL solve of the slack-augmented problem, the
+    optional projected-Newton polish, the slacks stripped, and with
+    ``resolve_feasible_problem`` the AL re-solve of the original problem
+    from the TVLQR projection of that trajectory onto the dynamics
+    (``dynamically_feasible_projection``). With minimum time the slacks
+    come first and τ second, the feasible stage is the minimum-time problem
+    again, seeded with the τ the first stage found, and ``dt_traj`` and
+    ``tt`` report τ². ``c_max`` of the result is scored on the original
+    constraints. ``host_syncs`` counts the device-to-host reads of the AL
+    stages' loop tests; ``seed_held`` whether the initial-rollout guard
+    held x0.
     """
+    res = altro_solve_batch(prob, opts, prob.x0[None], prob.X[None],
+                            prob.U[None], infeasible, minimum_time)
+    return res._replace(**{k: getattr(res, k)[0] for k in res._fields
+                           if k not in ("host_syncs", "seed_held")})
+
+
+def altro_solve_batch(prob: Problem, opts: ALTROOptions, x0s, X0s=None,
+                      U0s=None, infeasible: Optional[bool] = None,
+                      minimum_time: Optional[bool] = None) -> ALTROResult:
+    """:func:`altro_solve` for a batch of starts x0s (B, n) of the template
+    ``prob``, with state seeds X0s (B, N, n) and control seeds
+    U0s (B, N-1, m) (default: the problem's own, from each start): what
+    ``vmap(altro_solve)`` is in the JAX package. Every stage runs for the
+    whole batch at once (each problem frozen once its own loop is done), and
+    every field of the result but ``host_syncs`` and ``seed_held`` has a
+    leading problem dimension. The transforms are chosen from the template
+    (``prob.X`` finite, ``prob.tf == 0``) unless the flags say otherwise;
+    each start's slacks are seeded from its own defects."""
     dtype = prob.U.dtype
+    Bz = x0s.shape[0]
+    if X0s is None:
+        X0s = prob.X.expand((Bz,) + prob.X.shape).clone()
+        X0s[:, 0] = x0s
+    if U0s is None:
+        U0s = prob.U.expand((Bz,) + prob.U.shape)
     if infeasible is None:
         infeasible = bool(torch.isfinite(prob.X).all())
     if minimum_time is None:
         minimum_time = prob.tf == 0.0
-    if minimum_time:
-        raise NotImplementedError(
-            "altro_solve: the minimum-time transform (minimum_time=True or "
-            "tf == 0) is not ported yet (ROADMAP Queue 1 #11)")
 
-    prob_altro = infeasible_problem(prob, opts.R_inf) if infeasible else prob
+    prob_altro, x0a, Xa, Ua = prob, x0s, X0s, U0s
+    if infeasible:
+        prob_altro = infeasible_problem(prob_altro, opts.R_inf)
+        Ua = _slack_seed(prob.model, x0a, Xa, Ua, prob.dt_traj())
+    if minimum_time:
+        prob_altro = minimum_time_problem(prob_altro, opts.R_minimum_time,
+                                          opts.dt_max, opts.dt_min)
+        x0a, Xa, Ua = _mintime_seed(x0a, Xa, Ua, prob.dt)
 
     # PN handoff tolerance (altro_methods.jl:6-14)
     ctol = opts.opts_al.constraint_tolerance
@@ -241,8 +507,8 @@ def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
 
     mu0, sca = _penalty_rows(prob_altro.constraints, opts, dtype)
     syncs = HostSyncs()
-    res_al = _al_solve_one(prob_altro, opts_al, None, mu0[None, :], sca,
-                           syncs)
+    res_al = al_solve_batch(prob_altro, opts_al, x0a, Xa, Ua, None,
+                            mu0[None, :], sca, syncs=syncs)
     X_a, U_a = res_al.X, res_al.U
     iterations_total = res_al.iterations_total
     J = res_al.J
@@ -250,38 +516,50 @@ def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
     # projected newton polish (altro_methods.jl:30-40)
     if opts.projected_newton:
         pn_opts = opts.opts_pn if opts.opts_pn is not None else PNOptions()
-        res_pn = pn_solve(update_problem(prob_altro, X=X_a, U=U_a), pn_opts)
+        res_pn = pn_solve_batch(prob_altro, x0a, X_a, U_a, pn_opts)
         X_a, U_a, J = res_pn.X, res_pn.U, res_pn.J
 
     # ---------------- process results (altro_methods.jl:56-95)
     n, m = prob.model.n, prob.model.m
-    X_out = X_a[:, :n].contiguous()
-    U_out = U_a[:, :m].contiguous()
+    X_out = X_a[..., :n].contiguous()
+    U_out = U_a[..., :m].contiguous()
+    dt_out = U_a[..., -1] ** 2 if minimum_time \
+        else prob.dt_traj().expand(Bz, -1)
 
     if infeasible:
         # strip the slacks, project to feasible, optionally re-solve
         # (infeasible.jl:38-59)
-        prob_feas = update_problem(prob, X=X_out, U=U_out)
+        prob_feas, x0f, Xf, Uf = prob, x0s, X_out, U_out
+        if minimum_time:
+            prob_feas = minimum_time_problem(prob, opts.R_minimum_time,
+                                             opts.dt_max, opts.dt_min)
+            # seeded with the τ the first stage found (τ_0 = 0)
+            tau = X_a[..., -1:].clone()
+            tau[:, 0] = 0.0
+            x0f = torch.cat([x0s, x0s.new_zeros(Bz, 1)], dim=-1)
+            Xf = torch.cat([X_out, tau], dim=-1)
+            Uf = torch.cat([U_out, U_a[..., -1:]], dim=-1)
         if opts.dynamically_feasible_projection:
+            # as in the JAX package, the projection seeds the re-solve;
+            # without one the stripped trajectory is what comes back (Q3-14;
+            # a minimum-time step ignores the dt it is given)
             dtf = prob_feas.dt_traj()
-            Xp, Up = tvlqr_projection(
+            Xf, Uf = tvlqr_projection(
                 prob_feas.model,
                 lambda X, U: prob_feas.obj.expansion(X, U, dtf),
-                prob_feas.x0[None], prob_feas.X[None], prob_feas.U[None],
-                prob_feas.dt, opts.opts_al.opts_uncon)
-            # as in the JAX package, the projection seeds the re-solve;
-            # without one the stripped trajectory is what comes back
-            prob_feas = update_problem(prob_feas, X=Xp[0], U=Up[0])
+                x0f, Xf, Uf, prob_feas.dt, opts.opts_al.opts_uncon)
 
         if opts.resolve_feasible_problem:
             mu0f, scaf = _penalty_rows(prob_feas.constraints, opts, dtype)
-            res2 = _al_solve_one(prob_feas, opts_al, None, mu0f[None, :],
-                                 scaf, syncs)
+            res2 = al_solve_batch(prob_feas, opts_al, x0f, Xf, Uf, None,
+                                  mu0f[None, :], scaf, syncs=syncs)
             iterations_total = iterations_total + res2.iterations_total
             J = res2.J
-            X_out, U_out = res2.X, res2.U
+            X_out = res2.X[..., :n].contiguous()
+            U_out = res2.U[..., :m].contiguous()
+            if minimum_time:
+                dt_out = res2.U[..., -1] ** 2
 
-    dt_out = prob.dt_traj()
     # the final violation on the ORIGINAL constraints (reference
     # max_violation(prob) post-solve, problem.jl:242-267: the augmented rows
     # are internal)
@@ -291,5 +569,5 @@ def altro_solve(prob: Problem, opts: ALTROOptions = ALTROOptions(),
                        iterations=res_al.iterations,
                        iterations_total=iterations_total,
                        gradient=res_al.gradient, dt_traj=dt_out,
-                       tt=dt_out.sum(), host_syncs=syncs.count,
+                       tt=dt_out.sum(-1), host_syncs=syncs.count,
                        seed_held=syncs.held)

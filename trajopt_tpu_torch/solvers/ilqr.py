@@ -54,7 +54,7 @@ from trajopt_tpu_torch.ops.cuda_al_fused import (
 from trajopt_tpu_torch.ops.cuda_fused import (
     fused_backward_cuda, fused_forward_cuda,
 )
-from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS, cuda_model
+from trajopt_tpu_torch.ops.cuda_models import cuda_model, find_cuda_model
 from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
 from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
 from trajopt_tpu_torch.ops.cuda_sqrt import (  # noqa: F401  (re-export)
@@ -109,7 +109,7 @@ def _check_supported(opts: iLQROptions):
     if not sqrt and opts.bp_type != "scan":
         raise NotImplementedError(
             f"bp_type={opts.bp_type!r}: the square-root and scan backward "
-            "passes are ported (parallel: ROADMAP Queue 1 #13)")
+            "passes are ported (parallel: ROADMAP Queue 1 #5)")
     if opts.bp_reg_type not in ("control", "state"):
         raise ValueError(f"bp_reg_type={opts.bp_reg_type!r}")
     for name, off in (("bp_step_limit", 0.0), ("verbose", False),
@@ -125,12 +125,13 @@ def _check_card_path(model, X0, dt):
     version runs on the card in a kernel's place."""
     if X0.device.type != "cuda":
         return
-    cuda_model(model, "ilqr_solve", slack_ok=True)
+    cuda_model(model, "ilqr_solve", slack_ok=True, k2_only_ok=True)
     if torch.is_tensor(dt):
         raise NotImplementedError(
             "a per-interval dt tensor on a CUDA tensor: the rollout kernel "
-            "K2 takes one uniform dt (ROADMAP Queue 1, the minimum-time "
-            "transform); the fused path (fused=True) takes dt per knot")
+            "K2 takes one uniform dt (a minimum-time model takes its dt from "
+            "its controls: pass the problem's seed dt); the fused path "
+            "(fused=True) takes dt per knot")
 
 
 class ILQRResult(NamedTuple):
@@ -306,7 +307,9 @@ def _fused_al_eligible(model, opts: iLQROptions, meta, like=None):
     objective, the scan backward pass on the full state, the default
     limits), and for a CUDA tensor ``like`` the Hopper kernels' own:
     float32 and a model they carry (``ops/cuda_models.py``, with or without
-    slack controls). A stack with fk rows needs ``fused_al_fk``. Nothing of
+    slack controls). Never, on either device, a ``k2_only`` entry
+    (ballonbeam, the Euler-angle quadrotor, a minimum-time model, whose
+    objective and τ row rule it out besides). A stack with fk rows needs ``fused_al_fk``. Nothing of
     the TPU dispatch (batch % 128, VMEM budgets, chunking) applies."""
     ok = ((opts.fused or opts.fused_al)
           and meta is not None and meta.canon is not None
@@ -315,9 +318,18 @@ def _fused_al_eligible(model, opts: iLQROptions, meta, like=None):
           and not opts.error_state and opts.bp_step_limit == 0.0
           and opts.max_state_value == 1e8 and opts.max_control_value == 1e8)
     ok = ok and (opts.fused_al_fk or not _canon_has_fk(meta.canon))
+    ok = ok and not _k2_only(model)
     if ok and like is not None and like.device.type == "cuda":
         ok = like.dtype == torch.float32 and cuda_model_supported(model)
     return ok
+
+
+def _k2_only(model) -> bool:
+    """Whether ``model`` is an entry of ``ops/cuda_models.py`` marked
+    ``k2_only``: a model the JAX package gives no lane step, which it never
+    runs fused."""
+    found = find_cuda_model(model, slack_ok=True, k2_only_ok=True)
+    return found is not None and found.k2_only
 
 
 def _canon_has_fk(canon) -> bool:
@@ -329,13 +341,15 @@ def _canon_has_fk(canon) -> bool:
 def _fused_eligible(model, opts: iLQROptions, objective, like=None):
     """Whether an unconstrained solve runs as the fused iteration (kernels
     K7a and K7b). The rules the JAX package shares (``fused``, a plain
-    quadratic objective, a model whose step the kernels carry, the scan
+    quadratic objective, a model whose step the kernels carry and that has
+    a lane step in the JAX package, so not a ``k2_only`` entry of
+    ``ops/cuda_models.py``: ballonbeam, the Euler-angle quadrotor and a
+    minimum-time model run phase-split on either device; the scan
     backward pass on the full state, the default limits), and for a CUDA
     tensor ``like`` the Hopper kernels' own: float32. Nothing of the TPU
     dispatch (batch % 128, VMEM budgets, chunking) applies."""
     ok = (opts.fused and isinstance(objective, Objective)
-          and getattr(model, "cuda_step", None) in CUDA_STEPS
-          and getattr(model, "slack_m", None) is None
+          and find_cuda_model(model) is not None
           and opts.bp_type == "scan" and not opts.square_root
           and not opts.error_state
           and opts.max_state_value == 1e8 and opts.max_control_value == 1e8)
