@@ -4,17 +4,26 @@
     python3 chip_smoke.py               # about seventeen minutes on one H100
 
 Phases, each of which must pass (the float64 reference solves of phases 4, 8,
-15, 17 and 18 run on the CPU in worker processes beside the GPU phases, and
-slice 7's path (a) on the card in three worker processes beside the last
-path phases, after every phase that times a kernel):
+15, 17 and 18 run on the CPU in worker processes beside the GPU phases).
+Phases 1 to 21 run in their order; then the kernel phases 29, 32 and 26,
+the profile 24, and from there on the host-bound paths side by side on the
+card, each in a worker process of its own (the kuka pool 23, slice 6's
+paths 27 in two, slice 7's path (a) in three and its phase-split arms,
+slice 8's paths in two), while the main process runs phases 22, 25, 30 and 28 and
+then collects the workers' results in the order 23, 27, 31, 30, 33, 34
+(``PHASES``):
 
 1. device and build: the card's name and power limit from ``nvidia-smi``,
-   TF32 off (``precise``), the CUDA kernels built from ``csrc/`` by nvcc,
-   one compiler per source side by side (each one's seconds, ptxas's
-   register and spill report printed, and for every K2, K3, K4 and K7b
-   instantiation its registers, stack and spill), each wrapper refusing a
+   TF32 off (``precise``), the CUDA kernels' build from ``csrc/`` by nvcc
+   started, one compiler per source side by side (each phase waits for its
+   own kernels' libraries only, so phases 2 to 5 run while the slowest
+   sources still compile; phase ``build_report``, after phase 5, waits for
+   every library and prints each compiler's seconds and ptxas's register
+   and spill report, for every K2, K3, K4 and K7b instantiation its
+   registers, stack and spill), each wrapper refusing a
    float64 CUDA input, and what has no kernel refused (a shape K5 is not
-   built for, ballonbeam in a fused kernel, a chain's minimum-time model);
+   built for, ballonbeam and a chain's minimum-time model in a fused
+   kernel, a model under rk4);
 2. kernel K1 (``csrc/sqrt_sweep.cu``) against its plain version on the
    card, float32, at the main path's shapes (B=128, N=101, error state
    n=12, m=4), on error-state linearizations of ``quadrotor_line`` around
@@ -31,11 +40,11 @@ path phases, after every phase that times a kernel):
    the same problems at B = 128, 1024 and 1152 (tiled) and 33, bitwise
    equal;
 4. slice 1: ``solve_batch_queued`` on ``quadrotor_line(N=101)`` in float32
-   with the quadrotor benchmark's options, a pool of 512 perturbed starts
+   with the quadrotor benchmark's options, a pool of 256 perturbed starts
    over 128 lanes. K1's and K2's launch counters must move, the outcome
    bars must hold, and the first problems of the pool must agree with a
    float64 solve of the same problems by the plain versions on the CPU;
-5. profile of one slice-1 round of 6 iLQR iterations on 128 lanes, timed
+5. profile of one slice-1 round of 3 iLQR iterations on 128 lanes, timed
    plainly and then under ``torch.profiler``: device busy share, launches
    and host syncs per iteration, and the kernels that take the device time;
 6. kernel K3 (``csrc/fused_al_backward.cu``) against its plain version on
@@ -120,41 +129,69 @@ path phases, after every phase that times a kernel):
     ``kuka_profile``, ``kuka_slack``): every kuka instantiation against its
     plain version (with K3's, K4's and K2's launch shapes on the arm),
     ``altro_solve(kuka_obstacles())``, its pool in two
-    arms, their profile, the slack instantiations;
+    arms (in a worker process), their profile, the slack instantiations;
 26. slice 6's kernels (``rig_kernels``): K7a and K7b for kuka and the three
     URDF rigs (K7b's launch shapes on the cartpole rig), K3, K4, K2 and K5
     for the rigs with and without slacks, each against its plain version;
-27. slice 6's paths (``slice6``): ``solve_batch`` on the unconstrained kuka
-    and on the rigs' zoo problems, fused and phase-split, held to the JAX
+27. slice 6's paths (``slice6``, in a worker process): ``solve_batch`` on
+    the unconstrained kuka and on the rigs' zoo problems, fused and
+    phase-split, held to the JAX
     package's outcomes (``tools/slice6_gates_jax.py``) and to float64 CPU
     references;
 28. the rigs' other instantiations (``slice6models``);
-29. slice 7's kernels (``slice7_kernels``, run between phases 25 and 26,
-    before path (a)'s workers start): K2 for each scalar model under
+29. slice 7's kernels (``slice7_kernels``, after phase 21): K2 for each
+    scalar model under
     ``MinTime`` with and without slacks and for ballonbeam and the
     Euler-angle quadrotor plain and with slacks, on K5's gains, against
     ``rollout_closed_loop`` at B = 128 and the form's problem's own N with
     two lanes forced to diverge; K3 and K4 of the quadrotor on
     ``quad_obs()``'s stack (cylinder rows with D = 2 beside sphere rows
     with D = 3) against their plain versions;
-30. slice 7's paths (``slice7``, after phase 26), float32: (b)
+30. slice 7's paths (``slice7``), float32: (b)
     ``solve_batch`` on 128 perturbed
     ``quad_obs()`` starts fused (K3/K4) and, at a cut depth, fused and with
     ``fused_al=False`` (K5/K2); (c) ``solve_batch`` on 128
     ``quadrotor_line(N=101, constrained=True)`` starts at the cut depth,
     phase-split (its goal row is a custom constraint), each held to the JAX
-    package's float32 shares at its depth; and the other forms' launch-only
-    drives through ``altro_solve`` and ``solve_batch`` with ``fused=True``,
-    which these models and forms do not take (no K3, K4, K7a or K7b
-    launch);
-31. slice 7's path (a) (``slice7_mintime``, last), collected from its
-    worker processes, which start after phase 26: ``altro_solve_batch``
+    package's float32 shares at its depth (the two phase-split arms run in
+    a worker process and are collected after phase 31, ``slice7_split``);
+    and the other forms' launch-only drives through
+    ``altro_solve`` and ``solve_batch`` with ``fused=True``, which these
+    models and forms do not take (no K3, K4, K7a or K7b launch);
+31. slice 7's path (a) (``slice7_mintime``), collected from its
+    worker processes: ``altro_solve_batch``
     with ``minimum_time=True`` on the reference's minimum-time pendulum
     (tests/test_altro.py:64-82) from its start and 8 perturbed ones,
     feasible (K5 (3, 2), K2 ``pendulum_mintime``) and line-seeded (also K5
     (3, 4), K2 ``pendulum_slack_mintime``), held to that test's bars and to
     the JAX package's float32 solves of the same starts
-    (``tools/slice7_gates_jax.py``).
+    (``tools/slice7_gates_jax.py``);
+32. slice 8's kernels (``slice8_kernels``, after phase 29): K2 for kuka and
+    the three URDF rigs under ``MinTime`` with and without slacks and for
+    the analytic double pendulum and acrobot in all four forms, on K5's
+    gains, against ``rollout_closed_loop`` at B = 128 and each form's
+    problem's own N (kuka 41, the double pendulums 101, the acrobots 151,
+    the cartpole rig 101) with two lanes forced to diverge; K5's four new
+    shapes ((15, 8), (15, 22), (5, 3), (5, 7)) in phase 10's loop;
+33. slice 8's paths (``slice8``, collected from its worker process),
+    float32: (a)
+    ``solve_batch`` on 128 perturbed starts of ``doublependulum_problem()``
+    (N = 101) and of ``acrobot_problem()`` (N = 151) with the analytic
+    models, phase-split on K5 and K2 (``TwoLink``), held to the JAX
+    package's float32 shares on the same starts (the acrobot's to the lower
+    of its float32 and float64 ones; ``tools/slice8_gates_jax.py``); and
+    the launch-only drives of the other slice-8 forms: the minimum-time
+    ``altro_solve`` of kuka on ``kuka_obstacles()``, of each URDF rig on its
+    zoo problem and of the two analytic models, feasible and line-seeded,
+    and the analytic models' line-seeded ``altro_solve``;
+34. slice 8's path (b) (``slice8_mintime``, last), collected from a worker
+    process of its own: ``altro_solve_batch`` with
+    ``minimum_time=True`` on ``doublependulum_problem()`` with the
+    double-pendulum rig's model, |u| ≤ 20 and the goal constraint, from its
+    start and 7 perturbed ones (K5 (5, 3), K2
+    ``doublependulum_urdf_mintime``), held to the JAX package's float32
+    share of starts that meet c_max < 1e-3 and the goal within 1e-3 and to
+    its median total time (``tools/slice8_gates_jax.py``).
 
 Every log line is stamped with the seconds since the start. The last two
 lines of standard output are the card's ``nvidia-smi`` line and
@@ -183,17 +220,21 @@ ROOT = Path(__file__).resolve().parent
 # (kappa(Quu) ~ 1e9); dV at rtol 3e-2, atol 1e-5; rollouts at atol 1e-4.
 K_TOL, D_TOL, DV_RTOL, DV_ATOL, X_ATOL = 2e-3, 1e-1, 3e-2, 1e-5, 1e-4
 # the quadrotor pool: the first 1024 of the benchmark's 4096 starts; slice 1
-# drives the first 512 of them, slice 3 all 1024
-B, N, POOL, SLICE1_POOL = 128, 101, 1024, 512
+# drives the first 256 of them (512 until slice 8, cut for time: 53.6 s of
+# a 1,095 s run of this script before slice 8 on the H100, 18 rounds over
+# 128 lanes),
+# slice 3 all 1024
+B, N, POOL, SLICE1_POOL = 128, 101, 1024, 256
 GOAL = (0.0, 60.0, 10.0)
 # small-input agreement with the CPU float64 twins: problems and the bar on
 # their final positions
 N_REF, REF_TOL = 8, 1e-2
-# the share of the slice's 512 starts within 5 mm of the goal by the JAX
+# the share of the slice's 256 starts within 5 mm of the goal by the JAX
 # package in float32 on the CPU, same starts and options
-# (tools/slice1_gates_jax.py: 0.88671875; within 0.5 m 0.986328125, median
-# 2.93e-4 m); the card must reach it less GATE_MARGIN (ROADMAP Q3-22)
-JAX_SLICE1_5MM = 0.88671875
+# (tools/slice1_gates_jax.py 256: 0.890625; within 0.5 m 0.984375, median
+# 2.68e-4 m; on 512: 0.88671875, 0.986328125, 2.93e-4 m); the card must
+# reach it less GATE_MARGIN (ROADMAP Q3-22)
+JAX_SLICE1_5MM = 0.890625
 # K1's branch problems (phase 2, rho = 0): (lane, knot) of a stage whose
 # control Hessian is made mildly indefinite, so the plain float32 factor
 # breaks down and the equilibrated one succeeds on its pivot floor, and of
@@ -463,6 +504,10 @@ SLICE6_J_MEDIAN = dict(kuka=SLICE6_J_RTOL, doublependulum=SLICE6_J_RTOL,
                        cartpole=SLICE6_J_RTOL,
                        cartpole_free=SLICE6_J_RTOL_CARTPOLE)
 SLICE6_J_EACH = ("kuka", "doublependulum", "acrobot_free")
+# the pools of the two worker processes that run them (about 55 s and 58 s
+# on the H100 alone)
+SLICE6_SPLIT = (("kuka", "doublependulum", "acrobot", "acrobot_free"),
+                ("cartpole", "cartpole_free"))
 
 
 # --- slice 7 (the minimum-time transform, custom constraints, the rest of
@@ -470,7 +515,7 @@ SLICE6_J_EACH = ("kuka", "doublependulum", "acrobot_free")
 # The scalar models, each in the forms K2 gained: every one under MinTime,
 # with and without the slacks; ballonbeam and the Euler-angle quadrotor also
 # plain and with the slacks. Each is checked on the problem that model
-# meets (``slice7_problem``) at its own N.
+# meets (``form_base_problem``) at its own N.
 SLICE7_MODELS = ("quadrotor", "cartpole", "car", "pendulum",
                  "doubleintegrator", "ballonbeam", "quadrotor_euler")
 SLICE7_FORMS = tuple((name, slack, True) for name in SLICE7_MODELS
@@ -532,12 +577,64 @@ SLICE7_SHARES = ("share_cmax_1e3", "share_pos_0p5")
 SLICE7_MODELS_INNER = 10
 
 
+# --- slice 8 (every model on the card: minimum time for the chains, the
+# analytic two-link models in K2) ---
+# K2's new forms: kuka and the three URDF rigs under MinTime with and
+# without the slacks; the analytic double pendulum and acrobot in all four
+# forms. Each is checked on the problem its model meets
+# (``form_base_problem``: kuka on ``kuka_obstacles()``, N = 41; each rig on
+# its zoo problem, the double pendulums N = 101, the acrobots N = 151, the
+# cartpole rig N = 101), at B = 128.
+SLICE8_CHAINS = ("kuka", "acrobot_urdf", "doublependulum_urdf",
+                 "cartpole_urdf")
+SLICE8_TWO_LINK = ("doublependulum", "acrobot")
+SLICE8_FORMS = tuple((name, slack, True) for name in SLICE8_CHAINS
+                     + SLICE8_TWO_LINK for slack in (False, True)) + tuple(
+    (name, slack, False) for name in SLICE8_TWO_LINK
+    for slack in (False, True))
+# K5's shapes of slice 8, each checked in phase 10 on the form that runs it
+SLICE8_K5 = {(15, 8): ("kuka", False, True), (15, 22): ("kuka", True, True),
+             (5, 3): ("doublependulum", False, True),
+             (5, 7): ("doublependulum", True, True)}
+# path (a): ``doublependulum_problem()`` and ``acrobot_problem()`` with the
+# analytic models, 128 starts with 0.02 noise on every state entry (seed 0,
+# ``cartpole_starts``) in one ``solve_batch`` call each, ``ALOptions()``
+# (phase-split on K5 and K2: no fused kernel takes them); held to the JAX
+# package's float32 shares on the same 128 starts
+# (tools/slice8_gates_jax.jsonl) less GATE_MARGIN, the acrobot's to the
+# lower of its float32 and float64 shares (ROADMAP Q3-26): the double
+# pendulum's terminal error within 0.03 (its median 0.0195 in JAX), the
+# acrobot's c_max < 1e-3 and its terminal error within 1e-2 and 1e-3.
+SLICE8_POOL = 128
+SLICE8_SHARES = dict(doublependulum=("err_0.03",),
+                     acrobot=("cmax_1e3", "err_0.01", "err_0.001"))
+# path (b): the double-pendulum rig's minimum-time solve
+# (``mintime_rig``: ``doublependulum_problem()`` with the rig's model,
+# |u| ≤ 20 and the goal constraint), ``altro_solve_batch`` from its nominal
+# start and 7 perturbed ones (tools/slice8_gates_jax.py) in a worker
+# process on the card beside the last path phases, as slice 7's path (a):
+# the share of starts with c_max < 1e-3 and the goal within 1e-3 at least
+# the JAX package's float32 share less one start, and the median total
+# time within MINTIME_RIG_TT_RTOL of the JAX package's float32 median.
+MINTIME_RIG_STARTS, MINTIME_RIG_TT_RTOL = 8, 0.2
+
+
 T0 = time.perf_counter()
 
 
+# a worker process's log lines, kept for the main process to print
+# (``slice8_job``); None: print them
+LOG_LINES = None
+
+
 def log(*a):
-    """Print, each line stamped with the seconds since the script began."""
-    print(f"[{time.perf_counter() - T0:7.1f}]", *a, flush=True)
+    """Print, each line stamped with the seconds since the script (or the
+    worker process) began."""
+    line = " ".join([f"[{time.perf_counter() - T0:7.1f}]", *map(str, a)])
+    if LOG_LINES is None:
+        print(line, flush=True)
+    else:
+        LOG_LINES.append(line)
 
 
 def check(ok, what):
@@ -680,10 +777,53 @@ def record_launches(report, counts, ran):
     for k in report["kernels"]:
         if k["name"] in ran:
             k["launches"] = k.get("launches", 0) + counts[k["name"]]
+    report.setdefault("recorded", []).append((counts, ran))
     check(all(counts.get(name, 0) > 0 for name in ran),
           f"a kernel never launched: {counts}")
     other = {k: v for k, v in counts.items() if v and k not in ran}
     check(not other, f"a kernel of another path was launched: {other}")
+
+
+def run_worker(name, *args):
+    """The phase function ``name`` of this module, run on ``report``-like
+    state in a worker process on the card (host-bound path phases run
+    side by side after every phase that times a kernel): its result, its
+    log lines, its launch counts and the report entries it made, or the
+    traceback of its failure with the log lines so far."""
+    global LOG_LINES
+    LOG_LINES = []
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    torch.set_num_threads(1)
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.utils.tree import precise_context
+
+    _build.load()
+    wreport = {"kernels": []}
+    try:
+        with precise_context():
+            result, error = globals()[name](wreport, *args), None
+    except Exception:
+        result, error = None, traceback.format_exc()
+    return dict(result=result, error=error, log=LOG_LINES,
+                recorded=wreport.pop("recorded", []),
+                entries={k: v for k, v in wreport.items() if k != "kernels"})
+
+
+def collect_worker(report, job, who):
+    """A ``run_worker`` job's result: its log lines printed, its launch
+    counts written into the kernels' entries (``record_launches``) and its
+    report entries merged; its failure raised."""
+    out = job.result()
+    for line in out["log"]:
+        log(f"[{who} worker]", line)
+    if out["error"]:
+        raise RuntimeError(f"the {who} worker failed:\n{out['error']}")
+    for counts, ran in out["recorded"]:
+        record_launches(report, counts, ran)
+    report.update(out["entries"])
+    return out["result"]
 
 
 def kernel_entry(report, **entry):
@@ -713,31 +853,11 @@ def phase_build(report):
         torch.backends.cudnn.allow_tf32)
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
-    t0 = time.perf_counter()
-    libs = _build.build()
-    _build.load()
-    log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s: "
+    libs = _build.start_build()
+    log(f"build: {len(libs)} libraries, each compiler started side by side "
+        "(each kernel's phases wait for their own library; "
+        "phase build_report reads the compilers' seconds): "
         + ", ".join(p.name for p in libs.values()))
-    log("build: seconds of each nvcc (side by side): "
-        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
-            _build.build.seconds.items())))
-    for path in libs.values():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if line.strip():
-                log("nvcc:", line.strip())
-    for stem in ("sqrt_sweep", "rollout", "fused_al_forward",
-                 "fused_al_backward", "fused_forward", "fused_backward",
-                 "riccati_sweep"):
-        for name, regs, stack, spill in ptxas_report(
-                libs[stem].with_suffix(".log").read_text()):
-            log(f"ptxas {stem}: {name}: {regs} registers, {stack} B stack, "
-                f"{spill} B spilled")
-    log("K2 launch shape: one warp a problem, blocks of "
-        "32 threads (csrc/rollout.cu kWarpsPerBlock = 1); K4 and K7b: a "
-        "block of 32·W threads a problem, W from the batch (printed by each "
-        "K4 and K7b check); K1, K3, K5 and K7a: Wc consumer and Wp "
-        "producer warps a problem (printed by each K3 check, the K1, K5 and "
-        "K7a launch-shape checks and each K1, K5 and K7a timing)")
 
     dev = torch.device("cuda", 0)
     z = lambda *s: torch.zeros(s, dtype=torch.float64, device=dev)  # noqa
@@ -816,10 +936,14 @@ def phase_build(report):
              "the JAX package)", lambda: fused_backward_cuda(
                  discretize(zoo.ballonbeam, "rk3"), f(2, N, 4),
                  f(2, N - 1, 1), f(N - 1), beam_obj, f(2))),
-            ("rollout_closed_loop_cuda: the minimum-time acrobot rig (no "
-             "MinTime<Chain>)", lambda: rollout_closed_loop_cuda(
-                 chain_mt, f(2, 5), f(2, 4, 5), f(2, 3, 2), f(2, 3, 2, 5),
-                 f(2, 3, 2), f(2), 0.05)),
+            ("fused_backward_cuda: the minimum-time acrobot rig (K2 only: "
+             "MinTime<Chain>)", lambda: fused_backward_cuda(
+                 chain_mt, f(2, N, 5), f(2, N - 1, 2), f(N - 1), obj32,
+                 f(2))),
+            ("rollout_closed_loop_cuda: the pendulum under rk4 (only rk3 "
+             "has CUDA steps)", lambda: rollout_closed_loop_cuda(
+                 discretize(zoo.pendulum, "rk4"), f(2, 2), f(2, 4, 2),
+                 f(2, 3, 1), f(2, 3, 1, 2), f(2, 3, 1), f(2), 0.05)),
             ("rollout_closed_loop_cuda: a per-interval dt",
              lambda: rollout_closed_loop_cuda(
                  quad, f(2, 13), f(2, 4, 13), f(2, 3, 4), f(2, 3, 4, 13),
@@ -830,6 +954,37 @@ def phase_build(report):
             log(f"{name}: refused ({e})")
         else:
             raise AssertionError(f"{name}: accepted")
+
+
+def phase_build_report(report):
+    """Every library built (waited for): the seconds of each nvcc from the
+    start of the build, side by side, nvcc's output and ptxas's registers,
+    stack and spill for every kernel."""
+    from trajopt_tpu_torch.kernels import _build
+
+    libs = _build.build()
+    log(f"build: {len(libs)} libraries: "
+        + ", ".join(p.name for p in libs.values()))
+    log("build: seconds of each nvcc (side by side, from the start of the "
+        "build): " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+            _build.build.seconds.items())))
+    for path in libs.values():
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if line.strip():
+                log("nvcc:", line.strip())
+    for stem in ("sqrt_sweep", "rollout", "fused_al_forward",
+                 "fused_al_backward", "fused_forward", "fused_backward",
+                 "riccati_sweep"):
+        for name, regs, stack, spill in ptxas_report(
+                libs[stem].with_suffix(".log").read_text()):
+            log(f"ptxas {stem}: {name}: {regs} registers, {stack} B stack, "
+                f"{spill} B spilled")
+    log("K2 launch shape: one warp a problem, blocks of "
+        "32 threads (csrc/rollout.cu kWarpsPerBlock = 1); K4 and K7b: a "
+        "block of 32·W threads a problem, W from the batch (printed by each "
+        "K4 and K7b check); K1, K3, K5 and K7a: Wc consumer and Wp "
+        "producer warps a problem (printed by each K3 check, the K1, K5 and "
+        "K7a launch-shape checks and each K1, K5 and K7a timing)")
 
 
 def ptxas_report(text):
@@ -1344,8 +1499,9 @@ def profile_round(tag, one_round, iters, names, lanes=B):
 
 
 def phase_profile(report):
-    """One slice-1 AL round of 6 iLQR iterations on the first 128 pool
-    problems."""
+    """One slice-1 AL round of 3 iLQR iterations on the first 128 pool
+    problems (6 until slice 8, cut for time: the profiler's events of 6
+    iterations took 22.9 s of a run before slice 8 on the H100)."""
     import torch
     from trajopt_tpu_torch.parallel.batch import solve_batch_queued
     from trajopt_tpu_torch.problems.zoo import quadrotor_line
@@ -1355,7 +1511,7 @@ def phase_profile(report):
     prob = quadrotor_line(N=N, dtype=torch.float32, device=dev)
     x0s = torch.as_tensor(pool_starts(prob.x0.cpu())[:B],
                           dtype=torch.float32, device=dev)
-    iters = 6
+    iters = 3
     opts = tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
         iterations=iters, error_state=True, bp_type="sqrt"))
 
@@ -1805,7 +1961,8 @@ def riccati_flops(n, m):
 # csrc/models.cuh; with one tangent three times that); a rigid-body chain's
 # are counted from its table by chain_dyn_ops
 DYN_OPS = dict(quadrotor=120, cartpole=40, car=8, pendulum=8,
-               doubleintegrator=1, ballonbeam=30, quadrotor_euler=420)
+               doubleintegrator=1, ballonbeam=30, quadrotor_euler=420,
+               doublependulum=45, acrobot=45)
 
 
 def chain_dyn_ops(table):
@@ -2135,12 +2292,12 @@ def phase_k5(report, lin):
     others.append(("K5 quadrotor with slacks", [
         t.float().contiguous() for t in (A, Bm, e.x, e.u, e.xx, e.uu, e.ux)],
         1.0))
-    # slice 7's shapes, each on the linearization of a form that runs it
-    # (``form_setup``): the Euler-angle quadrotor with slacks, and the
-    # minimum-time forms
-    for n_m, form in SLICE7_K5.items():
+    # slice 7's and slice 8's shapes, each on the linearization of a form
+    # that runs it (``form_setup``): the Euler-angle quadrotor with slacks,
+    # and the minimum-time forms
+    for n_m, form in {**SLICE7_K5, **SLICE8_K5}.items():
         fs = form_setup(*form)
-        check(tuple(fs["ins"][1].shape[-2:]) == n_m, "K5 slice 7 shapes")
+        check(tuple(fs["ins"][1].shape[-2:]) == n_m, "K5 slice 7/8 shapes")
         others.append((f"K5 {fs['label']}", fs["ins"], fs["rho"]))
     for tag, ins, rho_v in others:
         n, m = ins[1].shape[-2:]
@@ -4167,36 +4324,66 @@ def slice6_outcome(c_max, err):
     return out
 
 
-def phase_slice6(report, refs):
+def slice6_job(report, names):
     """Paths (a) and (b) through ``solve_batch`` in float32, one call per
-    arm: the unconstrained kuka with ``fused=True`` (K7a and K7b only) and
+    arm, in a worker process on the card, which starts with slice 7's path
+    (a) (host-bound: 103 s of the main process on the H100 before slice
+    8): the unconstrained kuka with ``fused=True`` (K7a and K7b only) and
     with ``fused=False`` (K5 (14, 7) and K2 only), the rigs on their zoo
     problems fused (K7a/K7b unconstrained, K3/K4 constrained) and
-    phase-split (K5 and K2). Each arm's shares and final costs on the JAX
-    package's starts are held to its (``SLICE6_SHARES``, SLICE6_J_RTOL), the
-    arms to each other within GATE_MARGIN on their shares and SLICE6_J_RTOL
-    in median relative J, and problems 0 and 1 to a float64 solve by the
-    plain versions on the CPU."""
+    phase-split (K5 and K2). Returns each arm's final J, c_max, terminal
+    error (of the joints for the arm) and iterations, with the log lines
+    (``run_worker``), for ``phase_slice6``."""
     import torch
     import trajopt_tpu_torch as tt
-
-    gates = jax_slice6()
 
     def warm(fused):
         return tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
             iterations=2, fused=fused, fused_al=fused))
 
+    outs = {}
     for pool, label, make, starts in slice6_pools():
+        if pool not in names:
+            continue
         prob = make()
         n, m = prob.n, prob.m
-        count = SLICE6_POOL
-        x0s = torch.as_tensor(starts(prob.x0.cpu(), count),
+        x0s = torch.as_tensor(starts(prob.x0.cpu(), SLICE6_POOL),
                               dtype=torch.float32, device=prob.device)
         U0s = kuka_hold_seeds(prob, x0s) if pool == "kuka" else None
         constrained = prob.constraints.P > 0
         fused_ran = al_kernels(label) if constrained else (
             f"fused_backward_{label}", f"fused_forward_{label}")
         split_ran = (f"riccati_sweep_{n}x{m}", f"rollout_closed_loop_{label}")
+        q = slice(0, 7) if pool == "kuka" else slice(None)
+        for how, fused, ran in (("fused", True, fused_ran),
+                                ("phase-split", False, split_ran)):
+            arm = f"slice 6 {pool} {how}"
+            res = run_arm(report, arm, prob, slice6_options(pool, fused),
+                          x0s, ran, warm(fused), U0s)
+            outs[arm] = dict(
+                J=res.J.tolist(), c_max=res.c_max.tolist(),
+                err=(res.X[:, -1, q] - prob.xf[q]).norm(dim=-1).tolist(),
+                iterations=res.iterations_total.tolist())
+    return outs
+
+
+def phase_slice6(report, refs, jobs):
+    """Paths (a) and (b), collected from their two workers
+    (``slice6_job``: the cartpole rig's two pools in one, the others in
+    the other):
+    each arm's shares and final costs on the JAX package's starts are held
+    to its (``SLICE6_SHARES``, SLICE6_J_RTOL), the arms to each other within
+    GATE_MARGIN on their shares and SLICE6_J_RTOL in median relative J, and
+    problems 0 and 1 to a float64 solve by the plain versions on the
+    CPU."""
+    import torch
+
+    gates = jax_slice6()
+    done = {}
+    for job in jobs:
+        done.update(collect_worker(report, job, "slice 6"))
+    for pool, _, _, _ in slice6_pools():
+        count = SLICE6_POOL
         jax = gates[pool, "float32"]
         jax64 = gates.get((pool, "float64"))
         k = min(jax["count"], count)
@@ -4206,17 +4393,14 @@ def phase_slice6(report, refs):
         r = SLICE6_REFS[pool]
         ref = refs.pop(f"ref_s6_{pool}").result() if r else None
         outs = {}
-        for how, fused, ran in (("fused", True, fused_ran),
-                                ("phase-split", False, split_ran)):
+        for how in ("fused", "phase-split"):
             arm = f"slice 6 {pool} {how}"
-            res = run_arm(report, arm, prob, slice6_options(pool, fused),
-                          x0s, ran, warm(fused), U0s)
+            o = done[arm]
             # the terminal error, of the joints for the arm
-            q = slice(0, 7) if pool == "kuka" else slice(None)
-            err = (res.X[:, -1, q] - prob.xf[q]).norm(dim=-1).double()
-            J = res.J.double()
-            every = slice6_outcome(res.c_max, err)
-            gated = slice6_outcome(res.c_max[:k], err[:k])
+            err, J, c_max = (torch.as_tensor(o[key], dtype=torch.float64)
+                             for key in ("err", "J", "c_max"))
+            every = slice6_outcome(c_max, err)
+            gated = slice6_outcome(c_max[:k], err[:k])
             theirs = slice6_outcome(torch.as_tensor(jax["c_max"]),
                                     torch.as_tensor(jax["err"]))
             if jax64:
@@ -4245,7 +4429,7 @@ def phase_slice6(report, refs):
                 + f" | median J {float(J.median()):.6g} (JAX "
                 f"{float(Jj.median()):.6g}), median error "
                 f"{float(err.median()):.4e}, median c_max "
-                f"{float(res.c_max.median()):.3e}")
+                f"{float(c_max.median()):.3e}")
             if pool == "acrobot":
                 # the starts past the goal's 1e-3 bar, beside the JAX
                 # package's errors on them in float32 and float64
@@ -4253,7 +4437,7 @@ def phase_slice6(report, refs):
                 log(f"{arm}: of the first {k}, at the goal within 1e-3 "
                     f"but for starts {past}: error "
                     f"{[float(f'{float(err[i]):.4g}') for i in past]}, c_max "
-                    f"{[float(f'{float(res.c_max[i]):.4g}') for i in past]}"
+                    f"{[float(f'{float(c_max[i]):.4g}') for i in past]}"
                     f" (JAX float32: {[jax['err'][i] for i in past]}, float64"
                     f": {[jax64['err'][i] for i in past] if jax64 else None})"
                     f"; the JAX package's past it: float32 "
@@ -4279,15 +4463,15 @@ def phase_slice6(report, refs):
             log(f"{arm}: problems 0 to {r - 1} in float64 on the CPU by the "
                 f"plain versions ({ref['seconds']:.1f} s): J {ref['J']} "
                 f"(card: {J[:r].tolist()}), c_max {ref['c_max']} (card: "
-                f"{res.c_max[:r].tolist()}), error {ref['err']} (card: "
+                f"{c_max[:r].tolist()}), error {ref['err']} (card: "
                 f"{err[:r].tolist()}), inner iterations {ref['iterations']} "
-                f"(card: {res.iterations_total[:r].tolist()})")
+                f"(card: {o['iterations'][:r]})")
             # (in outcome; in J too where the solves are smooth)
             check((pool not in SLICE6_J_EACH or all(
                 abs(a - b) <= SLICE6_J_RTOL * abs(b)
                 for a, b in zip(J[:r].tolist(), ref["J"])))
                   and [c < 1e-3 for c in ref["c_max"]]
-                  == (res.c_max[:r] < 1e-3).tolist(),
+                  == (c_max[:r] < 1e-3).tolist(),
                   f"{arm}: the card disagrees with the CPU reference")
             outs[how] = every, J
         # (on the shares the pool is held by: the unsolved cartpole pools'
@@ -4426,19 +4610,23 @@ def mintime_options():
                            R_minimum_time=15.0, dt_max=0.15, dt_min=1e-3)
 
 
-def slice7_problem(name, dtype, device=None):
-    """The problem model ``name`` meets in slice 7: the minimum-time
+def form_base_problem(name, dtype, device=None):
+    """The problem model ``name`` meets in slices 7 and 8: the minimum-time
     pendulum, ``quadrotor()``, ``cartpole()``, ``parallel_park()`` (the
     car), ``doubleintegrator()``, ``ballonbeam_problem``,
-    ``quadrotor_euler_problem``."""
+    ``quadrotor_euler_problem``, ``kuka_obstacles()``, each URDF rig on its
+    zoo problem, ``doublependulum_problem()``, ``acrobot_problem()``."""
     from trajopt_tpu_torch.problems import zoo
 
+    if name in RIGS:
+        return rig_problem(name, dtype, device=device)
     return dict(
         pendulum=lambda **kw: mintime_pendulum(**kw), quadrotor=zoo.quadrotor,
         cartpole=zoo.cartpole, car=zoo.parallel_park,
         doubleintegrator=zoo.doubleintegrator, ballonbeam=ballonbeam_problem,
-        quadrotor_euler=quadrotor_euler_problem)[name](dtype=dtype,
-                                                       device=device)
+        quadrotor_euler=quadrotor_euler_problem, kuka=zoo.kuka_obstacles,
+        doublependulum=zoo.doublependulum_problem,
+        acrobot=zoo.acrobot_problem)[name](dtype=dtype, device=device)
 
 
 def form_label(name, slack, mintime):
@@ -4447,12 +4635,12 @@ def form_label(name, slack, mintime):
 
 
 def form_problem(name, slack, mintime, dtype, device=None):
-    """``slice7_problem(name)`` line-seeded and through the infeasible-start
+    """``form_base_problem(name)`` line-seeded and through the infeasible-start
     transform if ``slack``, then through the minimum-time transform if
     ``mintime`` (the order of ``altro_solve``)."""
     import trajopt_tpu_torch as tt
 
-    prob = slice7_problem(name, dtype, device)
+    prob = form_base_problem(name, dtype, device)
     if slack:
         prob = tt.infeasible_problem(line_seeded(prob))
     if mintime:
@@ -4467,7 +4655,9 @@ def form_setup(name, slack, mintime, seed=13, device=None):
     """One K2 form at B = 128 and its problem's own N: the transformed
     problem in float64 and float32, starts with 0.02 noise on every base
     state (τ_0 = 0), its control seed with 0.02 noise (none on the
-    quadrotors' hover thrust), the open-loop rollouts in float64, and K5's
+    quadrotors' hover thrust; a chain's slacks 0; kuka's: each start's own
+    gravity hold and, under minimum time, steps of 0.02 s), the open-loop
+    rollouts in float64, and K5's
     sweep inputs: the model's Jacobians and the AL expansion of
     ``al_cost_fns`` with λ = 0 and μ = 10 on the valid rows. Far from its
     goal a minimum-time stage cost (ℓ + R_mt)·h² is not convex (its
@@ -4479,8 +4669,8 @@ def form_setup(name, slack, mintime, seed=13, device=None):
     inside the guard, and the float32 plain rollout stays within 1e-4 of
     scale of the float64 one on the same float32 inputs (a rollout that
     float32 rounding alone moves further is chaotic, and no kernel can be
-    held to it). Made once per form (phases 10 and ``slice7_kernels`` share
-    it)."""
+    held to it). Made once per form (phase 10 and ``slice7_kernels`` or
+    ``slice8_kernels`` share it)."""
     import torch
     from trajopt_tpu_torch.ops.cost import Expansion
     from trajopt_tpu_torch.ops.riccati import scan_sweep
@@ -4506,6 +4696,20 @@ def form_setup(name, slack, mintime, seed=13, device=None):
     if not name.startswith("quadrotor"):
         U = U + t(rng.normal(size=(B, Nk - 1, m)) * 0.02)
     U = U.contiguous()
+    if slack and name in SLICE8_CHAINS:
+        # a chain's slacks start at 0: the line-seeded slack seed of the
+        # cartpole rig rolls out to non-finite states from the perturbed
+        # starts
+        mb = p64.model.slack_m
+        U[..., mb:m - mintime] = 0.0
+    if name == "kuka":
+        # each start's own gravity hold, under minimum time steps of
+        # 0.02 s: from the problem's seed (the nominal start's hold,
+        # dt = 0.125) every perturbed start's open-loop rollout leaves the
+        # finite numbers (ROADMAP Q3-24)
+        U[..., :7] = kuka_hold_seeds(p64, x0s)
+        if mintime:
+            U[..., -1] = 0.02 ** 0.5
     dt = p64.dt_traj()
     X = rollout(p64.model, x0s, U, dt)
     A, Bm = p64.model.jacobian_traj(X[:, :-1], U, dt)
@@ -4519,34 +4723,41 @@ def form_setup(name, slack, mintime, seed=13, device=None):
 
     alphas = (1.0, 0.25, 0.0625, 0.015625, 0.00390625)
 
-    def calm(rho):
-        """The first step at which the float32 rollouts on the float32
-        plain sweep's gains at ``rho`` are calm, with the fail flags and
-        the live rollouts (every step's rollouts in one batch)."""
-        rho_t = torch.full((B,), rho, device=dev)
-        K, d, _, _, fail = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]),
-                                      rho_t)
-        args = [t.repeat((len(alphas),) + (1,) * (t.ndim - 1))
-                for t in (x0, X32, U32, K, d)]
-        args.append(torch.tensor(alphas, device=dev).repeat_interleave(B))
+    def calm(rhos):
+        """The first (rho, alpha) of ``rhos`` and ``alphas`` at which the
+        rollouts are calm, with the fail flags and the float64 rollouts'
+        ok flags, or None: the float32 plain sweep's gains at each rho, and
+        the float32 and float64 closed-loop rollouts on them at every step
+        in one batch each (a chain's plain rollout costs its launches, not
+        its batch)."""
+        sweeps = [scan_sweep(ins[0], ins[1], Expansion(*ins[2:]),
+                             torch.full((B,), r, device=dev)) for r in rhos]
+        runs = len(rhos) * len(alphas)
+        args = [t.repeat((runs,) + (1,) * (t.ndim - 1))
+                for t in (x0, X32, U32)]
+        args += [torch.cat([sw[i].repeat((len(alphas),) + (1,) * (
+            sw[i].ndim - 1)) for sw in sweeps]) for i in (0, 1)]
+        args.append(torch.tensor(alphas, device=dev).repeat_interleave(
+            B).repeat(len(rhos)))
         Xa, _, ok32 = rollout_closed_loop(p32.model, *args, p32.dt)
-        X64, _, ok = rollout_closed_loop(
+        X64, _, ok64 = rollout_closed_loop(
             p64.model, *(t.double() for t in args), p64.dt)
-        for i, alpha in enumerate(alphas):
-            at = slice(i * B, (i + 1) * B)
-            live = ok[at] & ok32[at]
-            gap = float((Xa[at].double() - X64[at])[live].abs().max()) / max(
-                1.0, float(X64[at][live].abs().max())) if bool(live.any()) \
-                else float("inf")
-            if int(fail.sum()) <= B // 16 \
-                    and int(ok[at].sum()) >= 3 * B // 4 and gap <= 1e-4:
-                return alpha, fail, ok[at]
-        return None, fail, ok[:B]
+        for j, (rho_j, sw) in enumerate(zip(rhos, sweeps)):
+            for i, alpha_i in enumerate(alphas):
+                at = slice((j * len(alphas) + i) * B,
+                           (j * len(alphas) + i + 1) * B)
+                live = ok64[at] & ok32[at]
+                gap = float((Xa[at].double() - X64[at])[live].abs().max()) \
+                    / max(1.0, float(X64[at][live].abs().max())) \
+                    if bool(live.any()) else float("inf")
+                if int(sw[4].sum()) <= B // 16 \
+                        and int(ok64[at].sum()) >= 3 * B // 4 and gap <= 1e-4:
+                    return rho_j, alpha_i, sw[4], ok64[at]
+        return None
 
-    for rho in (1.0, 10.0, 100.0, 1e3, 1e4, 1e5, 1e6):
-        alpha, fail, ok = calm(rho)
-        if alpha is not None:
-            break
+    # rho = 1 first (most forms are calm there), then the others at once
+    found = calm((1.0,)) or calm((10.0, 100.0, 1e3, 1e4, 1e5, 1e6))
+    rho, alpha, fail, ok = found or (None, None, None, None)
     check(alpha is not None, f"K2 {form_label(name, slack, mintime)}: no "
           "calm rollout at any rho and alpha")
     _FORMS[key] = dict(
@@ -4556,7 +4767,7 @@ def form_setup(name, slack, mintime, seed=13, device=None):
     return _FORMS[key]
 
 
-def slice7_k2(report, fs):
+def form_k2(report, fs):
     """K2's instantiation of one form on K5's gains at the form's ``rho``
     and its steps at the form's ``alpha`` (``form_setup``), lanes
     K4_DIVERGE with the feedforward blown up (``k2_case``)."""
@@ -4585,7 +4796,7 @@ def phase_slice7_kernels(report):
     from trajopt_tpu_torch.problems import zoo
 
     for name, slack, mintime in SLICE7_FORMS:
-        slice7_k2(report, form_setup(name, slack, mintime))
+        form_k2(report, form_setup(name, slack, mintime))
     st = al_setup("quadrotor", False, factory=zoo.quad_obs)
     st.update(label="quadrotor on quad_obs", entry=False)
     al_case(report, st)
@@ -4648,21 +4859,20 @@ def quad_starts(x0, count=SLICE7_POOL):
     return np.asarray(x0, np.float64)[None] + noise
 
 
-def phase_slice7(report):
-    """Slice 7's paths (b) and (c) and the other forms' drives on the card
-    in float32 (module docstring)."""
+def slice7_arms():
+    """Paths (b) and (c): (tag, problem, fused_al, depth, kernels, the JAX
+    package's pool): quad_obs fused at the full and the cut depth, and
+    phase-split at the cut depth; the constrained line at the cut depth
+    (phase-split: its goal row is a custom constraint)."""
     import torch
     from trajopt_tpu_torch.problems import zoo
-    import trajopt_tpu_torch as tt
 
-    jax7 = jax_slice7()
-    # (b) quad_obs, fused and phase-split; (c) the constrained line
     f32 = torch.float32
     quad = ("riccati_sweep_13x4", "rollout_closed_loop_quadrotor")
     obs, line = zoo.quad_obs(dtype=f32), zoo.quadrotor_line(
         N=N, constrained=True, dtype=f32)
     cut = f", {SLICE7_DEPTH[0]} outer x {SLICE7_DEPTH[1]} inner"
-    arms = (("(b) quad_obs fused", obs, True, None, al_kernels("quadrotor"),
+    return (("(b) quad_obs fused", obs, True, None, al_kernels("quadrotor"),
              "quad_obs"),
             ("(b) quad_obs fused" + cut, obs, True, SLICE7_DEPTH,
              al_kernels("quadrotor"), "quad_obs_cut"),
@@ -4670,44 +4880,90 @@ def phase_slice7(report):
              "quad_obs_cut"),
             ("(c) quadrotor_line constrained" + cut, line, True, SLICE7_DEPTH,
              quad, "quadrotor_line_con_cut"))
-    got = {}
-    for tag, prob, fused_al, depth, ran, pool in arms:
-        x0s = torch.as_tensor(quad_starts(prob.x0.cpu()), dtype=f32,
-                              device=prob.device)
-        outer, inner = depth or (30, 300)
-        opts = tt.ALOptions(iterations=outer, opts_uncon=tt.iLQROptions(
-            iterations=inner, fused_al=fused_al))
-        warm = tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
-            iterations=2, fused_al=fused_al))
-        res = run_arm(report, f"slice 7 {tag}", prob, opts, x0s, ran, warm)
-        err = (res.X[:, -1, :3] - prob.xf[:3]).norm(dim=-1)
-        ref = jax7[pool]
-        k = ref["count"]
-        mine = dict(share_cmax_1e3=float((res.c_max < 1e-3).float().mean()),
-                    share_pos_0p5=float((err < 0.5).float().mean()))
-        first = dict(share_cmax_1e3=float((res.c_max[:k] < 1e-3).float()
-                                          .mean()),
-                     share_pos_0p5=float((err[:k] < 0.5).float().mean()))
-        log(f"slice 7 {tag}: P = {prob.constraints.P}, c_max < 1e-3 on "
-            f"{mine['share_cmax_1e3']:.4f}, final position within 0.5 m on "
-            f"{mine['share_pos_0p5']:.4f}, median c_max "
-            f"{float(res.c_max.median()):.3e}, median position error "
-            f"{float(err.median()):.3e} m; on the first {k}: {first} (the "
-            f"JAX package in float32 on the CPU: "
-            f"{ {s: ref[s] for s in SLICE7_SHARES} }; gate: each less "
-            f"{GATE_MARGIN})")
-        for s in SLICE7_SHARES:
-            check(first[s] >= ref[s] - GATE_MARGIN,
-                  f"slice 7 {tag}: {s} below the JAX package's")
-        got[tag] = mine
-    a = got["(b) quad_obs fused" + cut]
+
+
+def slice7_run(report, arm):
+    """One arm of ``slice7_arms`` through ``run_arm`` on 128 starts: its
+    c_max and final position errors."""
+    import torch
+    import trajopt_tpu_torch as tt
+
+    tag, prob, fused_al, depth, ran, pool = arm
+    x0s = torch.as_tensor(quad_starts(prob.x0.cpu()), dtype=torch.float32,
+                          device=prob.device)
+    outer, inner = depth or (30, 300)
+    opts = tt.ALOptions(iterations=outer, opts_uncon=tt.iLQROptions(
+        iterations=inner, fused_al=fused_al))
+    warm = tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
+        iterations=2, fused_al=fused_al))
+    res = run_arm(report, f"slice 7 {tag}", prob, opts, x0s, ran, warm)
+    err = (res.X[:, -1, :3] - prob.xf[:3]).norm(dim=-1)
+    return dict(c_max=res.c_max.tolist(), err=err.tolist(),
+                P=prob.constraints.P)
+
+
+def slice7_shares(tag, pool, out):
+    """An arm's shares (``slice7_run``'s ``out``) on all 128 starts and on
+    the JAX package's first ones, held to the JAX package's less
+    GATE_MARGIN; returns the shares of all 128."""
+    import torch
+
+    ref = jax_slice7()[pool]
+    k = ref["count"]
+    c, err = (torch.as_tensor(out[key]) for key in ("c_max", "err"))
+    mine = dict(share_cmax_1e3=float((c < 1e-3).float().mean()),
+                share_pos_0p5=float((err < 0.5).float().mean()))
+    first = dict(share_cmax_1e3=float((c[:k] < 1e-3).float().mean()),
+                 share_pos_0p5=float((err[:k] < 0.5).float().mean()))
+    log(f"slice 7 {tag}: P = {out['P']}, c_max < 1e-3 on "
+        f"{mine['share_cmax_1e3']:.4f}, final position within 0.5 m on "
+        f"{mine['share_pos_0p5']:.4f}, median c_max "
+        f"{float(c.median()):.3e}, median position error "
+        f"{float(err.median()):.3e} m; on the first {k}: {first} (the "
+        f"JAX package in float32 on the CPU: "
+        f"{ {s: ref[s] for s in SLICE7_SHARES} }; gate: each less "
+        f"{GATE_MARGIN})")
+    for s in SLICE7_SHARES:
+        check(first[s] >= ref[s] - GATE_MARGIN,
+              f"slice 7 {tag}: {s} below the JAX package's")
+    return mine
+
+
+def phase_slice7(report):
+    """Slice 7's fused arms of path (b) and the other forms' drives on the
+    card in float32 (module docstring); its phase-split arms of (b) and (c)
+    run in a worker process (``slice7_split_job``)."""
+    for arm in slice7_arms()[:2]:
+        out = slice7_run(report, arm)
+        report[f"slice 7 {arm[0]}"]["shares"] = slice7_shares(arm[0], arm[5],
+                                                               out)
+    slice7_models(report)
+
+
+def slice7_split_job(report):
+    """Slice 7's phase-split arms of paths (b) and (c), in a worker process
+    on the card (``run_worker``; host-bound: about 40 s and 27 s of the
+    main process before slice 8): their outcomes for
+    ``phase_slice7_split``."""
+    return {arm[0]: slice7_run(report, arm) for arm in slice7_arms()[2:]}
+
+
+def phase_slice7_split(report, job):
+    """Slice 7's phase-split arms, collected from their worker: held to the
+    JAX package's shares, and quad_obs's to its fused arm's at the same
+    depth within SLICE7_ARMS_MARGIN."""
+    outs = collect_worker(report, job, "slice 7")
+    arms = {arm[0]: arm for arm in slice7_arms()}
+    got = {tag: slice7_shares(tag, arms[tag][5], o)
+           for tag, o in outs.items()}
+    cut = f", {SLICE7_DEPTH[0]} outer x {SLICE7_DEPTH[1]} inner"
+    a = report["slice 7 (b) quad_obs fused" + cut]["shares"]
     b = got["(b) quad_obs phase-split" + cut]
     log(f"slice 7 (b){cut}: the arms' shares differ by "
         f"{ {s: abs(a[s] - b[s]) for s in SLICE7_SHARES} } (bar "
         f"{SLICE7_ARMS_MARGIN})")
     check(all(abs(a[s] - b[s]) <= SLICE7_ARMS_MARGIN for s in SLICE7_SHARES),
           "slice 7 (b): the arms disagree")
-    slice7_models(report)
 
 
 def phase_slice7_mintime(report, jobs):
@@ -4761,15 +5017,30 @@ def slice7_models(report):
     user calls, one outer iteration of at most SLICE7_MODELS_INNER inner
     ones a stage, the inner options ``fused=True`` (which these models and
     forms do not take: K3, K4, K7a and K7b must not launch): for each
-    scalar model of ``slice7_problem`` but the pendulum (path (a)) the
+    scalar model of ``form_base_problem`` but the pendulum (path (a)) the
     minimum-time ``altro_solve`` feasible (``MinTime<M>``) and line-seeded
     (``MinTime<WithSlack<M>>`` and, in the re-solve, ``MinTime<M>``), and
     for ballonbeam and the Euler-angle quadrotor also ``solve_batch`` on
     8 starts and the line-seeded ``altro_solve`` (their plain and slack
     forms). Outcomes are printed, not held."""
+    drive_forms(report, "slice 7", [m for m in SLICE7_MODELS
+                                    if m != "pendulum"],
+                ("ballonbeam", "quadrotor_euler"))
+
+
+def drive_forms(report, tag0, names, plain_too, batch_too=None):
+    """The launch-only drives of the forms of ``names`` (slice 7's and
+    slice 8's): per model the minimum-time ``altro_solve`` feasible and
+    line-seeded, and for the models of ``plain_too`` the line-seeded
+    ``altro_solve`` (their slack and plain forms); for those of
+    ``batch_too`` (default ``plain_too``) also ``solve_batch`` on 8
+    starts. One outer iteration of at most SLICE7_MODELS_INNER inner ones a
+    stage, ``fused=True`` (which these forms do not take: K3, K4, K7a and
+    K7b must not launch). Outcomes are printed, not held."""
     import torch
     import trajopt_tpu_torch as tt
 
+    batch_too = plain_too if batch_too is None else batch_too
     f32 = torch.float32
     opts = tt.ALTROOptions(opts_al=tt.ALOptions(
         iterations=1, opts_uncon=tt.iLQROptions(
@@ -4780,34 +5051,229 @@ def slice7_models(report):
         return (k5, "rollout_closed_loop_" + form_label(name, slack,
                                                         mintime))
 
-    for name in SLICE7_MODELS:
-        if name == "pendulum":
-            continue
-        prob = slice7_problem(name, f32)
+    for name in names:
+        prob = form_base_problem(name, f32)
         n, m = prob.n, prob.m
         drives = [("minimum time", prob, True,
                    kernels(name, False, True, n, m))]
         drives.append(("minimum time, line-seeded", line_seeded(prob), True,
                        kernels(name, True, True, n, m)
                        + kernels(name, False, True, n, m)))
-        if name in ("ballonbeam", "quadrotor_euler"):
+        if name in plain_too:
             drives.append(("line-seeded", line_seeded(prob), False,
                            kernels(name, True, False, n, m)
                            + kernels(name, False, False, n, m)))
         for what, p, mt, ran in drives:
-            tag = f"slice 7 {name} {what}, fused=True, 1 outer iteration " \
+            tag = f"{tag0} {name} {what}, fused=True, 1 outer iteration " \
                 f"of {SLICE7_MODELS_INNER} a stage"
             res, wall, _ = run_counted(report, tag, lambda: tt.altro_solve(
                 p, opts, minimum_time=mt), tuple(dict.fromkeys(ran)))
             check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite")
             log(f"{tag}: c_max {float(res.c_max):.3e}, tt "
                 f"{float(res.tt):.4f} (printed, not held)")
-        if name in ("ballonbeam", "quadrotor_euler"):
-            tag = f"slice 7 {name} solve_batch, 8 starts, fused=True"
+        if name in batch_too:
+            tag = f"{tag0} {name} solve_batch, 8 starts, fused=True"
             x0s = prob.x0[None].repeat(8, 1)
             res, wall, _ = run_counted(report, tag, lambda: tt.solve_batch(
                 prob, opts.opts_al, x0s), kernels(name, False, False, n, m))
             check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite")
+
+
+# ------------------------------------------------------------- slice 8
+
+def phase_slice8_kernels(report):
+    """Slice 8's K2 forms (``SLICE8_FORMS``: kuka and the URDF rigs under
+    MinTime with and without slacks, the analytic double pendulum and
+    acrobot in all four forms) against ``rollout_closed_loop`` on K5's
+    gains, at B = 128 and each form's problem's own N, two lanes forced to
+    diverge (``form_k2``); the K5 shapes they need are phase 10's."""
+    for form in SLICE8_FORMS:
+        form_k2(report, form_setup(*form))
+
+
+def mintime_rig(dtype, device=None):
+    """Path (b)'s problem: ``doublependulum_problem()`` with the
+    ``doublependulum_urdf`` rig's model, |u| ≤ 20 and the goal constraint
+    (tools/slice8_gates_jax.py)."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.models import zoo as mzoo
+    from trajopt_tpu_torch.problems import zoo
+
+    p = zoo.doublependulum_problem(dtype=dtype, device=device)
+    n, m, Nk = 4, 2, p.N
+    xf = np.array([np.pi, 0.0, 0.0, 0.0])
+    cons = tt.ConstraintSetBuilder(Nk)
+    cons.add(tt.bound_constraint(n, m, u_min=-20.0, u_max=20.0))
+    cons.add(tt.goal_constraint(xf))
+    return tt.problem(tt.discretize(mzoo.MODELS["doublependulum_urdf"],
+                                    "rk3"), p.obj, constraints=cons,
+                      x0=np.zeros(n), xf=xf, N=Nk, dt=0.01,
+                      U0=np.ones((Nk - 1, m)), dtype=dtype, device=device)
+
+
+def mintime_rig_options():
+    """tools/slice8_gates_jax.py's: R_minimum_time and dt_max chosen there
+    so that the JAX package's float64 solve from the nominal start meets
+    path (b)'s bars."""
+    import trajopt_tpu_torch as tt
+
+    return tt.ALTROOptions(opts_al=tt.ALOptions(iterations=30,
+                                                penalty_scaling=10.0),
+                           R_minimum_time=10.0, dt_max=0.02, dt_min=1e-3)
+
+
+def mintime_rig_starts():
+    """tools/slice8_gates_jax.py's starts of path (b): the nominal one and
+    7 with N(0, 0.02²) on every state entry (seed 0)."""
+    rng = np.random.default_rng(0)
+    return np.concatenate([np.zeros((1, 4)), rng.normal(
+        size=(MINTIME_RIG_STARTS - 1, 4)) * 0.02])
+
+
+def mintime_rig_job():
+    """Path (b) in a worker process on the card: ``altro_solve_batch`` of
+    the minimum-time double-pendulum rig from its 8 starts, in float32,
+    with the launch counts read around it (as ``mintime_job``)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.solvers.altro import altro_solve_batch
+    from trajopt_tpu_torch.utils.tree import precise_context
+
+    _build.load()
+    dev = torch.device("cuda", 0)
+    prob = mintime_rig(torch.float32, device=dev)
+    x0s = torch.as_tensor(mintime_rig_starts(), dtype=torch.float32,
+                          device=dev)
+    with precise_context():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        r = altro_solve_batch(prob, mintime_rig_options(), x0s,
+                              minimum_time=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    goal = (r.X[:, -1] - prob.xf).abs().amax(-1)
+    return dict(tt=r.tt.tolist(), c_max=r.c_max.tolist(),
+                goal=goal.tolist(), iterations=r.iterations_total.tolist(),
+                wall=wall, launches=counts, host_syncs=r.host_syncs,
+                finite=bool(torch.isfinite(r.X).all()))
+
+
+def jax_slice8():
+    """tools/slice8_gates_jax.jsonl by (pool, type)."""
+    path = ROOT / "tools" / "slice8_gates_jax.jsonl"
+    return {(d["pool"], d["dtype"]): d
+            for d in map(json.loads, path.read_text().splitlines())}
+
+
+def slice8_job(report):
+    """Slice 8's path (a) and the launch-only drives (``phase_slice8``) in a
+    worker process on the card (``run_worker``), which starts with slice
+    7's: each pool's outcome {name: c_max, J, terminal errors}."""
+    import torch
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.problems import zoo
+
+    pools = {}
+    warm = tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
+        iterations=2))
+    for name in SLICE8_TWO_LINK:
+        prob = getattr(zoo, f"{name}_problem")(dtype=torch.float32)
+        n, m = prob.n, prob.m
+        x0s = torch.as_tensor(cartpole_starts(prob.x0.cpu(), SLICE8_POOL),
+                              dtype=torch.float32, device=prob.device)
+        res = run_arm(report, f"slice 8 (a) {name}", prob, tt.ALOptions(),
+                      x0s, (f"riccati_sweep_{n}x{m}",
+                            f"rollout_closed_loop_{name}"), warm)
+        pools[name] = dict(c_max=res.c_max.tolist(), J=res.J.tolist(),
+                           err=(res.X[:, -1] - prob.xf).norm(dim=-1).tolist())
+    drive_forms(report, "slice 8", SLICE8_CHAINS + SLICE8_TWO_LINK,
+                SLICE8_TWO_LINK, batch_too=())
+    return pools
+
+
+def phase_slice8(report, job):
+    """Slice 8's path (a) on the card in float32, collected from its worker
+    (``slice8_job``): ``solve_batch`` on 128 starts of
+    ``doublependulum_problem()`` and of ``acrobot_problem()`` with the
+    analytic models, phase-split on K5 and K2, held to the JAX package's
+    shares on the same starts (``SLICE8_SHARES``); and the launch-only
+    drives of the slice-8 forms no path reaches (``drive_forms``: the
+    minimum-time ``altro_solve`` of kuka on ``kuka_obstacles()``, of each
+    URDF rig and of both two-link models, feasible and line-seeded, and the
+    two-link models' line-seeded ``altro_solve``)."""
+    import torch
+
+    pools = collect_worker(report, job, "slice 8")
+    gates = jax_slice8()
+    for name in SLICE8_TWO_LINK:
+        pool = pools[name]
+        tag = f"slice 8 (a) {name}"
+        c_max, err = (torch.as_tensor(pool[k], dtype=torch.float64)
+                      for k in ("c_max", "err"))
+        mine = slice6_outcome(c_max, err)
+        jax = gates[name, "float32"]
+        k = min(jax["count"], SLICE8_POOL)
+        theirs = slice6_outcome(torch.as_tensor(jax["c_max"][:k]),
+                                torch.as_tensor(jax["err"][:k]))
+        wide = gates.get((name, "float64"))
+        if wide:
+            w = slice6_outcome(torch.as_tensor(wide["c_max"][:k]),
+                               torch.as_tensor(wide["err"][:k]))
+            theirs = {key: min(v, w[key]) for key, v in theirs.items()}
+        J = torch.as_tensor(pool["J"], dtype=torch.float64)
+        Jj = torch.as_tensor(jax["J"][:k], dtype=torch.float64)
+        dJ = float(((J[:k] - Jj).abs() / Jj.abs()).median())
+        log(f"{tag}: shares {mine} (the JAX package on the CPU, same "
+            f"starts, float32{' and float64, the lower' if wide else ''}: "
+            f"{theirs}; gate: {SLICE8_SHARES[name]}, each less "
+            f"{GATE_MARGIN}) | median J {float(J.median()):.6g} (JAX "
+            f"{float(Jj.median()):.6g}), median relative difference of "
+            f"final J {dJ:.2e} (printed), median error "
+            f"{float(err.median()):.4e}, median c_max "
+            f"{float(c_max.median()):.3e}")
+        report[tag].update(shares=mine, J_median_rel=dJ)
+        for key in SLICE8_SHARES[name]:
+            check(mine[key] >= theirs[key] - GATE_MARGIN,
+                  f"{tag}: share {key} {mine[key]:.4f} below the JAX "
+                  f"package's {theirs[key]} less {GATE_MARGIN}")
+
+
+def phase_slice8_mintime(report, job):
+    """Slice 8's path (b), collected from its worker (``mintime_rig_job``):
+    the share of starts with c_max < 1e-3 and the goal within 1e-3 at least
+    the JAX package's float32 share less one start, the nominal start among
+    them, and the median total time within MINTIME_RIG_TT_RTOL of the JAX
+    package's float32 median."""
+    out = job.result()
+    ref = jax_slice8()["dp_rig_mintime", "float32"]
+    ran = ("riccati_sweep_5x3", "rollout_closed_loop_doublependulum_urdf_"
+           "mintime")
+    tag = "slice 8 (b) the minimum-time double-pendulum rig"
+    log(f"{tag}, {MINTIME_RIG_STARTS} starts in one altro_solve_batch call "
+        f"in a worker process: {out['wall']:.3f} s, launches "
+        f"{out['launches']}, host syncs {out['host_syncs']}")
+    record_launches(report, out["launches"], ran=ran)
+    check(out["finite"], f"{tag}: non-finite states")
+    tt_, c, g = (np.array(out[k]) for k in ("tt", "c_max", "goal"))
+    bars = (c < 1e-3) & (g < 1e-3)
+    share, med = float(bars.mean()), float(np.median(tt_))
+    log(f"{tag}: tt {np.round(tt_, 4).tolist()}, c_max "
+        f"{[f'{v:.2e}' for v in c]}, goal error {[f'{v:.2e}' for v in g]}, "
+        f"inner iterations {out['iterations']} | c_max < 1e-3 and the goal "
+        f"within 1e-3 on {share:.4f} (the JAX package in float32 on the "
+        f"same starts: {ref['share_bars']}, gate less one start; the "
+        f"nominal start: {bool(bars[0])}); median tt {med:.4f} (JAX "
+        f"{ref['median_tt']:.4f}, within {MINTIME_RIG_TT_RTOL})")
+    check(bool(bars[0]) and share >= ref["share_bars"] - 1.0
+          / MINTIME_RIG_STARTS - 1e-9, f"{tag}: the bars")
+    check(abs(med - ref["median_tt"]) <= MINTIME_RIG_TT_RTOL
+          * ref["median_tt"], f"{tag}: median total time")
+    report[tag] = dict(wall_s=out["wall"], share=share, median_tt=med)
 
 
 # ------------------------------------------ float64 references on the CPU
@@ -4956,12 +5422,14 @@ def main() -> int:
     return run_phases(report, None)
 
 
-PHASES = ("build", "k1", "k2", "slice1", "profile1", "k3", "k4", "maze",
-          "profile2", "k5", "k7a", "k7b", "k2full", "almodels", "slice3",
-          "profile3", "escape", "escape_pool", "profile4", "slice4models",
-          "kuka_kernels", "kuka", "kuka_pool", "kuka_profile", "kuka_slack",
-          "slice7_kernels", "rig_kernels", "slice7", "slice6",
-          "slice6models", "slice7_mintime")
+PHASES = ("build", "k1", "k2", "slice1", "profile1", "build_report", "k3",
+          "k4", "maze", "profile2", "k5", "k7a", "k7b", "k2full", "almodels",
+          "slice3", "profile3", "escape", "escape_pool", "profile4",
+          "slice4models",
+          "kuka_kernels", "slice7_kernels", "slice8_kernels", "rig_kernels",
+          "kuka_profile", "kuka", "kuka_slack", "slice7", "slice6models",
+          "kuka_pool", "slice6", "slice7_mintime", "slice7_split", "slice8",
+          "slice8_mintime")
 
 
 def run_phases(report, only):
@@ -4992,11 +5460,15 @@ def run_phases(report, only):
     # the GPU phases go on; each phase that needs one waits for it
     workers = concurrent.futures.ProcessPoolExecutor(
         max_workers=4, mp_context=multiprocessing.get_context("spawn"))
-    # slice 7's path (a) on the card in two worker processes of its own
-    # (``mintime_job``)
+    # the host-bound paths on the card, a worker process each: slice 7's
+    # path (a) in three (``mintime_job``), slice 8's path (b)
+    # (``mintime_rig_job``), and through ``run_worker`` the kuka pool,
+    # slice 6's paths (in two), slice 7's phase-split arms and slice 8's
+    # path (a)
     gpu_workers = concurrent.futures.ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
-    jobs7 = None
+        max_workers=9, mp_context=multiprocessing.get_context("spawn"))
+    jobs7 = job8 = None
+    jobs = {}
     try:
         # (slice 3's start once the host-bound slice 1 has been timed)
         early = [p for p in ("slice1", "maze", "kuka") if p in want]
@@ -5007,6 +5479,8 @@ def run_phases(report, only):
             run("k2", "K2 vs twin", phase_k2, report, lin)
             run("slice1", "slice 1", phase_slice, report, refs)
             run("profile1", "profile of slice 1", phase_profile, report)
+            run("build_report", "the build's report", phase_build_report,
+                report)
             if not failed:
                 refs.update(start_references(
                     workers, [p for p in ("slice3", "escape", "escape_pool",
@@ -5036,35 +5510,60 @@ def run_phases(report, only):
                 phase_slice4_models, report)
             run("kuka_kernels", "slice 5: every kuka instantiation against "
                 "its plain version", phase_kuka_kernels, report)
-            run("kuka", "slice 5: altro_solve(kuka_obstacles)", phase_kuka,
-                report, refs)
-            run("kuka_pool", "slice 5: the kuka pool, both arms",
-                phase_kuka_pool, report)
-            run("kuka_profile", "profile of slice 5", phase_kuka_profile,
-                report)
-            run("kuka_slack", "slice 5: the kuka slack instantiations",
-                phase_kuka_slack, report)
             run("slice7_kernels", "slice 7: K2's new forms and K3/K4 on "
                 "quad_obs's stack against their plain versions",
                 phase_slice7_kernels, report)
+            run("slice8_kernels", "slice 8: K2's new forms against their "
+                "plain versions", phase_slice8_kernels, report)
             run("rig_kernels", "slice 6: K7a/K7b for kuka and the rigs, "
                 "K2-K5 for the rigs, against their plain versions",
                 phase_rig_kernels, report)
-            # path (a) of slice 7 in its workers from here on: beside the
-            # path phases left, after every phase that times a kernel
-            if "slice7_mintime" in want and not failed:
-                jobs7 = {False: [gpu_workers.submit(mintime_job, False,
-                                                    slice(0, 9))],
-                         True: [gpu_workers.submit(mintime_job, True, part)
-                                for part in (slice(0, 5), slice(5, 9))]}
-            run("slice7", "slice 7: quad_obs, the constrained quadrotor_line "
-                "and the other forms", phase_slice7, report)
-            run("slice6", "slice 6: the unconstrained kuka and the rigs, "
-                "fused and phase-split", phase_slice6, report, refs)
+            run("kuka_profile", "profile of slice 5", phase_kuka_profile,
+                report)
+            # the host-bound paths in worker processes from here on, side
+            # by side: after every phase that times a kernel or profiles a
+            # round
+            if not failed:
+                submit = gpu_workers.submit
+                if "slice7_mintime" in want:
+                    jobs7 = {False: [submit(mintime_job, False,
+                                            slice(0, 9))],
+                             True: [submit(mintime_job, True, part)
+                                    for part in (slice(0, 5), slice(5, 9))]}
+                if "slice8_mintime" in want:
+                    job8 = submit(mintime_rig_job)
+                for name, fn, *args in (
+                        ("kuka_pool", "phase_kuka_pool"),
+                        ("slice6", "slice6_job", SLICE6_SPLIT[0]),
+                        ("slice6", "slice6_job", SLICE6_SPLIT[1]),
+                        ("slice7_split", "slice7_split_job"),
+                        ("slice8", "slice8_job")):
+                    if name in want:
+                        jobs.setdefault(name, []).append(
+                            submit(run_worker, fn, *args))
+            run("kuka", "slice 5: altro_solve(kuka_obstacles)", phase_kuka,
+                report, refs)
+            run("kuka_slack", "slice 5: the kuka slack instantiations",
+                phase_kuka_slack, report)
+            run("slice7", "slice 7: quad_obs fused and the other forms",
+                phase_slice7, report)
             run("slice6models", "slice 6: the rigs' other instantiations",
                 phase_slice6_models, report)
+            run("kuka_pool", "slice 5: the kuka pool, both arms",
+                collect_worker, report, jobs.get("kuka_pool", [None])[0],
+                "kuka pool")
+            run("slice6", "slice 6: the unconstrained kuka and the rigs, "
+                "fused and phase-split", phase_slice6, report, refs,
+                jobs.get("slice6"))
             run("slice7_mintime", "slice 7: the minimum-time pendulum",
                 phase_slice7_mintime, report, jobs7)
+            run("slice7_split", "slice 7: the phase-split arms",
+                phase_slice7_split, report,
+                jobs.get("slice7_split", [None])[0])
+            run("slice8", "slice 8: the two-link pools and the other "
+                "forms", phase_slice8, report, jobs.get("slice8", [None])[0])
+            run("slice8_mintime", "slice 8: the minimum-time double-pendulum "
+                "rig", phase_slice8_mintime, report, job8)
     finally:
         workers.shutdown(wait=True, cancel_futures=True)
         gpu_workers.shutdown(wait=True, cancel_futures=True)

@@ -132,16 +132,17 @@ def test_every_model_has_both_instantiations():
     scalar ones, kuka and the three two-link rigs) with and without slacks,
     with the widths the transform produces; the fused AL kernels take all
     eighteen and refuse a model without a CUDA step. The table's other
-    entries (ballonbeam, the Euler-angle quadrotor, every minimum-time
-    form) are marked K2-only, which the fused kernels refuse too."""
+    entries (ballonbeam, the Euler-angle quadrotor, the analytic double
+    pendulum and acrobot, every minimum-time form) are marked K2-only,
+    which the fused kernels refuse too."""
     fused = {k: cm for k, cm in CUDA_MODELS.items() if not cm.k2_only}
-    assert len(fused) == 18 and len(CUDA_MODELS) == 36
+    assert len(fused) == 18 and len(CUDA_MODELS) == 52
     for (step, slack, mintime), cm in CUDA_MODELS.items():
         assert cm.m == cm.m_base + (cm.n - mintime if slack else 0) + mintime
         assert cm.label.endswith("_mintime") == mintime
         assert cm.label.removesuffix("_mintime").endswith("_slack") == slack
     assert sorted(cm.id for cm in fused.values()) == list(range(9)) + list(
-        range(11, 20))
+        range(13, 22))
     ids = [cm.id for cm in CUDA_MODELS.values()]
     assert len(set(ids)) == len(ids)
 

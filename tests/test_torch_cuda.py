@@ -1715,9 +1715,15 @@ def test_slice7_rollout_kernel_matches_plain_version(cuda_device, name,
                                                      slack, mintime):
     """K2's slice-7 instantiations (every scalar model under MinTime, with
     and without slacks; ballonbeam and the Euler-angle quadrotor plain and
-    with slacks) on K5's gains at rho = 1: ok masks equal, X and U within
-    1e-5 of scale or three times the float32 plain version's distance from
-    float64, the launch counted under the form's label."""
+    with slacks): ``_check_form_rollout``."""
+    _check_form_rollout(cuda_device, name, slack, mintime)
+
+
+def _check_form_rollout(cuda_device, name, slack, mintime):
+    """K2's instantiation of a form on K5's gains at rho = 1: ok masks
+    equal, X and U within 1e-5 of scale or three times the float32 plain
+    version's distance from float64, the launch counted under the form's
+    label."""
     p64 = _form_problem(name, slack, mintime, cuda_device, torch.float64)
     p32 = _form_problem(name, slack, mintime, cuda_device, torch.float32)
     rng = np.random.default_rng(5)
@@ -1755,9 +1761,14 @@ def test_slice7_rollout_kernel_matches_plain_version(cuda_device, name,
 @pytest.mark.parametrize("n,m", [(12, 16), (5, 2), (4, 3), (14, 5), (13, 5),
                                  (3, 4), (5, 6), (14, 18)])
 def test_slice7_riccati_shapes_match_plain_version(cuda_device, n, m):
-    """K5's slice-7 shapes on well-conditioned random linearizations
-    (B = 16, N = 21) at rho = 1: no failure, K within 2e-3 and d within
-    1e-1 of scale of ``scan_sweep``, ΔV at rtol 3e-2."""
+    """K5's slice-7 shapes: ``_check_riccati_shape``."""
+    _check_riccati_shape(cuda_device, n, m)
+
+
+def _check_riccati_shape(cuda_device, n, m):
+    """K5 at (n, m) on well-conditioned random linearizations (B = 16,
+    N = 21) at rho = 1: no failure, K within 2e-3 and d within 1e-1 of
+    scale of ``scan_sweep``, ΔV at rtol 3e-2."""
     g = torch.Generator().manual_seed(100 * n + m)
     r = lambda *s: torch.randn(*s, generator=g, dtype=torch.float64)  # noqa
     L, Lu = r(B, N, n, n) * 0.3, r(B, N - 1, m, m) * 0.3
@@ -1777,3 +1788,29 @@ def test_slice7_riccati_shapes_match_plain_version(cuda_device, n, m):
     assert (d1 - d0).abs().max() < 1e-1 * d0.abs().max()
     torch.testing.assert_close(v11, v10, rtol=3e-2, atol=1e-5)
     torch.testing.assert_close(v21, v20, rtol=3e-2, atol=1e-5)
+
+
+# ------------------------------------------------------------ slice 8
+
+# the chains (kuka and the three URDF rigs) under MinTime with and without
+# slacks; the analytic double pendulum and acrobot in all four forms
+SLICE8_FORMS = [(name, slack, True)
+                for name in ("kuka", "acrobot_urdf", "doublependulum_urdf",
+                             "cartpole_urdf", "doublependulum", "acrobot")
+                for slack in (False, True)] \
+    + [(name, slack, False) for name in ("doublependulum", "acrobot")
+       for slack in (False, True)]
+
+
+@pytest.mark.parametrize("name,slack,mintime", SLICE8_FORMS)
+def test_slice8_rollout_kernel_matches_plain_version(cuda_device, name,
+                                                     slack, mintime):
+    """K2's slice-8 instantiations: ``_check_form_rollout``."""
+    _check_form_rollout(cuda_device, name, slack, mintime)
+
+
+@pytest.mark.parametrize("n,m", [(15, 8), (15, 22), (5, 3), (5, 7)])
+def test_slice8_riccati_shapes_match_plain_version(cuda_device, n, m):
+    """K5's slice-8 shapes (kuka's and the double pendulum's minimum-time
+    forms, with and without slacks): ``_check_riccati_shape``."""
+    _check_riccati_shape(cuda_device, n, m)

@@ -17,7 +17,7 @@ JAX package's float64 one (the solve is chaotic in float64: the packages
 agree to 1e-10 for about ten outer iterations and part after, and the JAX
 package's own total time spreads over 0.772-0.925 when x0 moves by 1e-13,
 tools/slice7_gates_jax.py --spread; ROADMAP Q3-27). The feasible solve is ``tests/test_torch_altro.py``'s. And a chain's
-minimum-time model has no CUDA form, while its plain solve runs.
+minimum-time model has its K2-only CUDA form, and its plain step runs.
 """
 import jax
 import jax.numpy as jnp
@@ -261,8 +261,9 @@ def test_rollout_plain_version_on_mintime_models_matches_jax(transformed):
 def test_mintime_runs_phase_split_and_chains_have_no_cuda_form():
     """A minimum-time problem is never fused (``fused=True`` runs the
     phase-split path, as in the JAX package): its K2 entry is K2-only. A
-    chain's minimum-time model has no entry at all, and ``cuda_model``'s
-    message names its ROADMAP item; its plain step still runs."""
+    chain's minimum-time model has its K2-only entry too (K2's
+    ``MinTime<Chain>``), which the fused kernels refuse; its plain step
+    runs."""
     _, pt = _pair()
     pm = alt.minimum_time_problem(pt)
     fused = iLQROptions(fused=True)
@@ -279,9 +280,13 @@ def test_mintime_runs_phase_split_and_chains_have_no_cuda_form():
                     N=5, dt=0.01, device="cpu")
     pcm = alt.minimum_time_problem(pc)
     assert pcm.model.mintime and pcm.model.cuda_step == "acrobot_urdf_rk3"
-    assert find_cuda_model(pcm.model, slack_ok=True, k2_only_ok=True) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 #4"):
-        cuda_model(pcm.model, "test", slack_ok=True, k2_only_ok=True)
+    cmc = cuda_model(pcm.model, "test", slack_ok=True, k2_only_ok=True)
+    assert cmc.label == "acrobot_urdf_mintime" and cmc.k2_only
+    assert (cmc.n, cmc.m) == (pcm.model.n, pcm.model.m) == (5, 2)
+    assert pcm.model.chain_table is chain.chain_table
+    assert find_cuda_model(pcm.model, slack_ok=True) is None
+    with pytest.raises(NotImplementedError, match="no lane step"):
+        cuda_model(pcm.model, "test", slack_ok=True)
     x = torch.zeros(3, 5, dtype=torch.float64)
     u = torch.full((3, 2), 0.1, dtype=torch.float64)
     assert pcm.model.step(x, u, 0.01).shape == (3, 5)

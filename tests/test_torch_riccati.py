@@ -151,12 +151,14 @@ def test_scan_backward_pass_matches_jax_f64(reg_type):
 def test_riccati_wrapper_takes_the_ported_shapes():
     """Every (n, m) a ported model produces has an instantiation, with or
     without the slack controls (the quadrotor's (13, 17), the car's (3, 5),
-    kuka's (14, 21), ...), in the minimum-time form of a scalar model (the
-    pendulum's (3, 2), the quadrotor's with slacks (14, 18), ...), and the
-    error state (12, 4); and no shape that no model gives."""
-    assert len(CUDA_MODELS) == 36
+    kuka's (14, 21), ...), in the minimum-time form of any model (the
+    pendulum's (3, 2), the quadrotor's with slacks (14, 18), kuka's (15, 8)
+    and with slacks (15, 22), the double pendulum's (5, 3) and (5, 7), ...),
+    and the error state (12, 4); and no shape that no model gives."""
+    assert len(CUDA_MODELS) == 52
     shapes = {(cm.n, cm.m) for cm in CUDA_MODELS.values()}
     assert shapes | {(12, 4)} == set(SHAPES)
-    assert len(SHAPES) == len(set(SHAPES)) == 21
+    assert len(SHAPES) == len(set(SHAPES)) == 25
     assert (12, 4) in SHAPES and (13, 17) in SHAPES and (3, 5) in SHAPES
     assert (3, 2) in SHAPES and (14, 18) in SHAPES and (12, 16) in SHAPES
+    assert {(15, 8), (15, 22), (5, 3), (5, 7)} <= set(SHAPES)

@@ -213,7 +213,8 @@ def test_model_ids_and_table_size_agree_with_models_cuh():
              "Kuka": "kuka", "AcrobotUrdf": "acrobot_urdf",
              "DoublependulumUrdf": "doublependulum_urdf",
              "CartpoleUrdf": "cartpole_urdf", "Ballonbeam": "ballonbeam",
-             "QuadrotorEuler": "quadrotor_euler"}
+             "QuadrotorEuler": "quadrotor_euler",
+             "Doublependulum": "doublependulum", "Acrobot": "acrobot"}
     assert enum.pop("Slack") == SLACK_ID
     assert enum.pop("MinTime") == MINTIME_ID == 2 * SLACK_ID
     assert {names[k]: v for k, v in enum.items()} == {
@@ -221,22 +222,22 @@ def test_model_ids_and_table_size_agree_with_models_cuh():
     assert len(set(enum.values())) == len(enum) and max(enum.values()) \
         < SLACK_ID
     # every entry: the base id plus its offsets; the K2-only mark on the
-    # two scalar models without a JAX lane step and on every MinTime form
+    # four scalar models without a JAX lane step and on every MinTime form,
+    # the chains' too
     by_label = {cm.label: cm for cm in CUDA_STEPS.values()}
-    assert len(CUDA_MODELS) == 2 * len(CUDA_STEPS) + 2 * (
-        len(CUDA_STEPS) - len(CHAIN_LABELS))
+    assert len(CUDA_MODELS) == 4 * len(CUDA_STEPS)
     for (step, slack, mintime), cm in CUDA_MODELS.items():
         base = CUDA_STEPS[step]
         assert cm.id == base.id + SLACK_ID * slack + MINTIME_ID * mintime
         assert cm.k2_only == (mintime or base.label in (
-            "ballonbeam", "quadrotor_euler"))
+            "ballonbeam", "quadrotor_euler", "doublependulum", "acrobot"))
         assert (cm.n, cm.m) == (base.n + mintime, base.m + base.n * slack
                                 + mintime)
         assert by_label[cm.label.removesuffix("_mintime").removesuffix(
             "_slack")] is base
-    assert not any(mt for (_, _, mt), cm in CUDA_MODELS.items()
-                   if cm.label.split("_slack")[0].split("_mintime")[0]
-                   in CHAIN_LABELS)
+    assert sum(mt for (_, _, mt), cm in CUDA_MODELS.items()
+               if cm.label.split("_slack")[0].split("_mintime")[0]
+               in CHAIN_LABELS) == 2 * len(CHAIN_LABELS)
     D = int(re.search(r"kChainMaxDof = (\d+)", src).group(1))
     assert D == CHAIN_MAX_DOF
     fields = re.search(r"struct ChainTable \{(.*?)\};", src, re.S).group(1)

@@ -70,7 +70,9 @@ def test_two_link_dynamics_match_jax_and_the_rigs(name, rig):
     """The analytic model against the JAX package's at 1e-12, float64 in
     and float32 in, float32 out; the URDF rig of the same mechanism (the
     acrobot's with the elbow actuated) against it at 1e-12 of scale, as
-    the JAX package's rigs equal its analytic models."""
+    the JAX package's rigs equal its analytic models. The JAX package
+    gives the analytic models no lane step; K2 alone carries them here,
+    under a ``k2_only`` entry that no fused kernel takes."""
     rng = np.random.default_rng(3)
     m = zoo.MODELS[name]
     x = rng.normal(size=(32, 4)) * 2.0
@@ -85,10 +87,13 @@ def test_two_link_dynamics_match_jax_and_the_rigs(name, rig):
     np.testing.assert_allclose(f32.numpy(), ref, rtol=1e-4, atol=1e-3)
     chain = zoo.MODELS[rig](_t(x), _t(u)).numpy()
     assert np.abs(chain - ref).max() < 1e-12 * np.abs(ref).max()
-    # no lane step in the JAX package, no CUDA step here
+    # no lane step in the JAX package; K2's k2_only entry here
     assert getattr(tt_jax.discretize(getattr(jzoo, name), "rk3"),
                    "step_lanes", None) is None
-    assert discretize(m, "rk3").cuda_step is None
+    md = discretize(m, "rk3")
+    assert md.cuda_step == f"{name}_rk3"
+    cm = cuda_model(md, "test", k2_only_ok=True)
+    assert cm.label == name and cm.k2_only and (cm.n, cm.m) == (4, m.m)
 
 
 @pytest.mark.parametrize("rig", ["acrobot_urdf", "doublependulum_urdf",

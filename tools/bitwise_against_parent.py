@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Hold kernels K1, K3, K4, K5, K7a and K7b bitwise against another tree's,
-on one GPU.
+"""Hold kernels K1, K2, K3, K4, K5, K7a and K7b bitwise against another
+tree's, on one GPU.
 
     python3 tools/bitwise_against_parent.py PARENT [sqrt_sweep]
 
 PARENT is the root of another checkout of this repository (for example the
 parent commit, unpacked by ``git archive`` into a directory that
 ``.gitignore`` lists) whose kernels have this tree's C interfaces
-(``kernels/_build.py`` SIGNATURES). Its ``sqrt_sweep.cu`` (K1),
+(``kernels/_build.py`` SIGNATURES); a model's id is translated to the other
+tree's numbering (its ``kModelSlack`` and ``kModelMinTime`` in
+``csrc/models.cuh``). Its ``sqrt_sweep.cu`` (K1), ``rollout.cu`` (K2),
 ``fused_al_backward.cu`` (K3), ``fused_al_forward.cu`` (K4),
 ``riccati_sweep.cu`` (K5), ``fused_backward.cu`` (K7a) and
 ``fused_forward.cu`` (K7b), or with ``sqrt_sweep`` K1's alone, are
@@ -25,7 +27,14 @@ with its branch lanes; K5 at ρ = 1 and 0, control and state
 regularization, and K7a at ρ = 1 and 0 with its Jacobians, on the five
 scalar models, the three rigs and kuka (path (a)'s inputs), and K5 at ρ =
 1 at every slack-augmented shape on the AL expansion (the maze's (13,17)
-among them); K7b on their searches. Each case is also timed, both trees
+among them); K7b on their searches; K2 for every form the other tree's
+K2 carries: the quadrotor's error state on slice 1's candidates
+(``chip_smoke.rollout_inputs``), each model of K3 with and without slacks
+(kuka and the rigs among them) on K3's gains at ρ = 1 on its set-up,
+ballonbeam, the Euler-angle quadrotor and every scalar model's minimum-time
+forms on ``chip_smoke.form_setup``'s inputs (K5's gains at the form's ρ,
+its steps at the form's α), lanes K4_DIVERGE blown up; and K5 on those
+forms' linearizations. Each case is also timed, both trees
 in turns (other, this, this, other; CUDA events over 10 launches each),
 and the ones of ``chip_smoke.py``'s main paths at their batch too: B =
 1024 for K3's cartpole (slice 3 arm (c)), K5 (13,4) (arm (b)) and (4,1)
@@ -47,6 +56,7 @@ sys.path.insert(0, str(ROOT))
 # the kernels compared, by source: the C entry point called in both trees
 PARENT = {
     "sqrt_sweep": "trajopt_sqrt_sweep_f32",
+    "rollout": "trajopt_rollout_f32",
     "fused_al_backward": "trajopt_fused_al_backward_f32",
     "fused_al_forward": "trajopt_fused_al_forward_f32",
     "fused_forward": "trajopt_fused_forward_f32",
@@ -79,6 +89,39 @@ def build(parent: Path, stems):
         fn.restype = ctypes.c_int
         fns[stem] = fn
     return fns
+
+
+# the other tree's kModelSlack and kModelMinTime (set by main)
+THEIR_IDS = {}
+
+
+def their_id(cm) -> int:
+    """The other tree's id of this tree's entry ``cm``: its base model's id
+    (the same in both trees) plus the other tree's offsets."""
+    from trajopt_tpu_torch.ops.cuda_models import MINTIME_ID, SLACK_ID
+
+    mintime, rest = divmod(cm.id, MINTIME_ID)
+    slack, base = divmod(rest, SLACK_ID)
+    return (base + slack * THEIR_IDS["Slack"]
+            + mintime * THEIR_IDS["MinTime"])
+
+
+def model_id(cm, f, stem) -> int:
+    """``cm``'s id for the entry point ``f`` of kernel ``stem``: this
+    tree's, or the other tree's numbering."""
+    from trajopt_tpu_torch.kernels import _build
+
+    this = getattr(_build.load(), PARENT[stem])
+    return cm.id if f is this else their_id(cm)
+
+
+def read_their_ids(parent: Path):
+    import re
+
+    src = (parent / "trajopt_tpu_torch" / "csrc" / "models.cuh").read_text()
+    for key in ("Slack", "MinTime"):
+        THEIR_IDS[key] = int(re.search(rf"kModel{key} = (\d+)",
+                                       src).group(1))
 
 
 def ms_per_launch(fn, reps=10):
@@ -148,6 +191,32 @@ def k1_case(fn, label, ins, rho_val):
                 (K, d, dV[:, 0], dV[:, 1], fail))
 
 
+def k2_case(fn, label, model, ins, dt, error_state=False):
+    """K2 on ``ins`` = (x0, X, U, K, d, alpha): X̄, Ū and ok."""
+    import torch
+    from trajopt_tpu_torch.kernels import _build
+    from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
+    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
+
+    cm = cuda_model(model, "bitwise_against_parent", slack_ok=True,
+                    k2_only_ok=True)
+    X, U = ins[1], ins[2]
+    Bz, N, _ = X.shape
+    dev = X.device
+    Xo, Uo = torch.empty_like(X), torch.empty_like(U)
+    ok = torch.empty(Bz, dtype=torch.bool, device=dev)
+    def call(f):
+        return f(*(t.data_ptr() for t in ins), Xo.data_ptr(), Uo.data_ptr(),
+                  ok.data_ptr(), chain_table_ptr(model, cm, dev), Bz, N,
+                  model_id(cm, f, "rollout"), int(error_state), float(dt),
+                  1e8, 1e8, _build.stream(dev))
+
+    kw = dict(quat_slice=(3, 7)) if error_state else {}
+    return same(f"K2 {label} B={Bz} N={N}",
+                lambda: rollout_closed_loop_cuda(model, *ins, dt, **kw),
+                call, "rollout", fn, (Xo, Uo, ok))
+
+
 def k3_case(fn, label, model, canon, X, U, lam, mu, dt, obj, rho):
     import torch
     from trajopt_tpu_torch.kernels import _build
@@ -172,8 +241,9 @@ def k3_case(fn, label, model, canon, X, U, lam, mu, dt, obj, rho):
                   chain_table_ptr(model, cm, dev), K.data_ptr(), d.data_ptr(),
                   dV.data_ptr(), fail.data_ptr(), A.data_ptr(),
                   Bo.data_ptr(), Bz, N, canon.P, canon.groups.shape[0],
-                  canon.fk_joint.shape[0], canon.fk_point.shape[0], cm.id, 0,
-                  0.0, None, _build.stream(dev))
+                  canon.fk_joint.shape[0], canon.fk_point.shape[0],
+                  model_id(cm, f, "fused_al_backward"), 0, 0.0, None,
+                  _build.stream(dev))
 
     def mine():
         out = fused_al_backward_cuda(model, canon, X, U, lam, mu, dt, obj,
@@ -217,8 +287,8 @@ def k4_case(fn, args):
                   chain_table_ptr(model, cm, dev), ws.data_ptr(), ws.numel(),
                   Xo.data_ptr(), Uo.data_ptr(), scal.data_ptr(), Bz, N,
                   canon.P, canon.fk_joint.shape[0], canon.fk_point.shape[0],
-                  cm.id, int(iters), lb, ub, reg_min, reg_factor, reg_fp,
-                  0.0, _build.stream(dev))
+                  model_id(cm, f, "fused_al_forward"), int(iters), lb, ub,
+                  reg_min, reg_factor, reg_fp, 0.0, _build.stream(dev))
 
     return same(f"K4 {cm.label} B={Bz} W={W}",
                 lambda: fused_al_forward_cuda(*args), call,
@@ -276,7 +346,8 @@ def k7a_case(fn, label, st, rho_val=1.0, X=None, U=None):
                   obj.q.data_ptr(), obj.r.data_ptr(), rho.data_ptr(),
                   chain_table_ptr(model, cm, dev), K.data_ptr(), d.data_ptr(),
                   dV.data_ptr(), fail.data_ptr(), A.data_ptr(),
-                  Bo.data_ptr(), Bz, N, cm.id, 0, _build.stream(dev))
+                  Bo.data_ptr(), Bz, N, model_id(cm, f, "fused_backward"), 0,
+                  _build.stream(dev))
 
     sh = fused_backward_shape(model, Bz)
     return same(f"K7a {label} B={Bz} rho={rho_val:g} (Wc, Wp, G) = "
@@ -313,7 +384,8 @@ def k7b_case(fn, label, args):
                   chain_table_ptr(model, cm, dev),
                   ws.data_ptr() if W > 1 else None,
                   ws.numel() if W > 1 else 0, Xo.data_ptr(), Uo.data_ptr(),
-                  scal.data_ptr(), Bz, N, cm.id, int(iters), lb, ub, reg_min,
+                  scal.data_ptr(), Bz, N, model_id(cm, f, "fused_forward"),
+                  int(iters), lb, ub, reg_min,
                   reg_factor, reg_fp, _build.stream(dev))
 
     fused_forward_cuda(*args)
@@ -338,6 +410,7 @@ def main():
         print("bitwise_against_parent: no CUDA device", file=sys.stderr)
         return 1
     print(cs.nvidia_smi_line(), flush=True)
+    read_their_ids(Path(sys.argv[1]))
     fns = build(Path(sys.argv[1]), sys.argv[2:] or list(PARENT))
     dev = torch.device("cuda", 0)
     B = cs.B
@@ -466,6 +539,53 @@ def main():
                           rho_val)
     ok &= k5_case(fns["riccati_sweep"], "kuka",
                   [t[:64].contiguous() for t in ins], False)
+    # K2: slice 1's error-state candidates; K3's gains at rho = 1 on its
+    # set-ups (the maze's slack quadrotor, every other model of K3 with and
+    # without slacks, kuka's), lanes K4_DIVERGE blown up; and the other
+    # tree's other forms (ballonbeam and the Euler-angle quadrotor plain
+    # and with slacks, every scalar model's minimum-time forms) on
+    # form_setup's inputs, K5's gains at the form's rho, with K5 on those
+    # linearizations
+    from trajopt_tpu_torch.models import zoo
+    from trajopt_tpu_torch.models.base import discretize
+    from trajopt_tpu_torch.ops.cuda_models import CHAIN_LABELS, CUDA_STEPS
+    from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
+
+    ins, dt = cs.rollout_inputs()
+    ok &= k2_case(fns["rollout"], "quadrotor error state",
+                  discretize(zoo.quadrotor, "rk3"), ins, dt,
+                  error_state=True)
+    steps = (0.5 ** (torch.arange(B, device=dev) % 4)).float()
+    for label, p, canon, (X, U, lam, mu) in [
+            ("quadrotor_slack", ms["prob"], ms["canon"],
+             (ms["X"], ms["U"], ms["lam"], ms["mu"]))] + [
+            (st["label"], st["p32"], st["canon"], st["data"])
+            for st in setups]:
+        K, d, _, _, _ = fused_al_backward_cuda(p.model, canon, X, U, lam, mu,
+                                               p.dt_traj(), p.obj, one)
+        for lane in cs.K4_DIVERGE:
+            d[lane] *= 1e5
+        ok &= k2_case(fns["rollout"], label, p.model,
+                      [X[:, 0].contiguous(), X, U, K, d, steps], p.dt)
+    for base in CUDA_STEPS.values():
+        if base.id >= THEIR_IDS["Slack"] or base.label in CHAIN_LABELS:
+            continue            # a model the other tree does not carry
+        for slack in (False, True):
+            for mintime in (False, True):
+                if not mintime and base.label not in ("ballonbeam",
+                                                      "quadrotor_euler"):
+                    continue    # on K3's gains above
+                fs = cs.form_setup(base.label, slack, mintime)
+                rho = torch.full((B,), fs["rho"], device=dev)
+                ok &= k5_case(fns["riccati_sweep"], fs["label"], fs["ins"],
+                              False, fs["rho"])
+                K, d, _, _, _ = riccati_sweep_cuda(*fs["ins"], rho)
+                for lane in cs.K4_DIVERGE:
+                    d[lane] *= 1e5
+                p32 = fs["p32"]
+                ok &= k2_case(fns["rollout"], fs["label"], p32.model, [
+                    fs["X"][:, 0].contiguous(), fs["X"], fs["U"], K, d,
+                    torch.full((B,), fs["alpha"], device=dev)], p32.dt)
     # K3's cartpole at B = 1024 (slice 3 arm (c))
     st = next(st for st in setups if st["label"] == "cartpole")
     p = st["p32"]

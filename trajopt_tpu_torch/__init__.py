@@ -20,10 +20,12 @@ phase-split), the quadrotor iLQR queued-pool path
 ``ALOptions(opts_uncon=iLQROptions(error_state=True, bp_type="sqrt"))``),
 the quadrotor_maze ALTRO AL stage (``solve_batch_queued_altro_retry``), the
 kuka arm and the URDF rigs, custom constraints, generic costs and every
-model and problem of the zoo (``models.zoo.MODELS``, ``convert.PROBLEMS``)
-but the uncertain models. Each Pallas kernel is a CUDA kernel of
-``csrc/``; ballonbeam, the Euler-angle quadrotor and the minimum-time forms
-run phase-split on K5 and K2, as the JAX package runs them unfused.
+model and problem of the zoo (``models.zoo.MODELS``, ``convert.PROBLEMS``),
+the uncertain models with ``models.base.discretize_uncertain`` among them.
+Each Pallas kernel is a CUDA kernel of ``csrc/``; ballonbeam, the
+Euler-angle quadrotor, the analytic double pendulum and acrobot and every
+minimum-time form (the rigid-body chains' too) run phase-split on K5 and
+K2, as the JAX package runs them unfused. Only RK3 has CUDA steps.
 
 Constructors and entry points build on the current CUDA device unless told
 otherwise (``device="cpu"`` runs the kernels' plain versions).

@@ -19,7 +19,8 @@ as nested dicts of plain values: ``options_dict`` reads them off the JAX
 package's option dataclasses (``ALTROOptions`` with its ``ALOptions``,
 ``iLQROptions`` and ``PNOptions``), ``altro_options_from_dict`` builds the
 port's. ``MODELS`` and ``PROBLEMS`` name the ported models (``kuka``,
-``ballonbeam`` and ``quadrotor_euler`` among them) and zoo problems
+``ballonbeam``, ``quadrotor_euler`` and the uncertain ``pendulum_uncertain``
+and ``cartpole_uncertain`` among them) and zoo problems
 (``car_escape``, ``quad_obs``, ``kuka_obstacles`` among them) as the JAX
 package's ``models.zoo`` and ``problems.zoo.PROBLEMS`` do. A problem's
 per-interval ``dt`` (the steps of a solved minimum-time problem) carries
@@ -138,9 +139,14 @@ def problem_from_arrays(*, model, integrator, x0, xf, X, U, dt, tf, N, Q, R,
     and the CPU solves and the fused paths take it (on a CUDA tensor the
     phase-split path asks for one uniform step)."""
     if model not in MODELS:
+        raise NotImplementedError(f"model {model!r} is not a model of "
+                                  f"the zoo ({sorted(MODELS)})")
+    if MODELS[model].r:
         raise NotImplementedError(
-            f"model {model!r} is not ported yet (ROADMAP Queue 1 #4: the "
-            "uncertain models go with discretize_uncertain)")
+            f"model {model!r} is uncertain (f(x, u, w), r = "
+            f"{MODELS[model].r}): a Problem steps f(x, u); its solver is "
+            "DIRTREL (ROADMAP Queue 1 #6), and discretize_uncertain gives "
+            "its step")
     device = resolve_device(device)
 
     def tensor(a):

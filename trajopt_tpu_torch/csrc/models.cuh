@@ -25,8 +25,9 @@
 // argument), and of the slack step of the
 // infeasible-start model (solvers/altro.py: x⁺ = base_step(x, u[:m]) +
 // u[m:]), which WithSlack<M> adds to any of them; the rollout kernel K2 alone
-// also carries ballonbeam, the Euler-angle quadrotor and the minimum-time
-// form MinTime<M> of every scalar model (solvers/altro.py:
+// also carries ballonbeam, the Euler-angle quadrotor, the analytic double
+// pendulum and acrobot (TwoLink) and the minimum-time form MinTime<M> of
+// every model, the chains included (solvers/altro.py:
 // x⁺ = [base_step(x[:-1], u[:-1], h²); h], h = u[-1]), which the JAX
 // package gives no lane step and never runs fused.
 // Each dynamics function keeps the order of operations of its plain PyTorch
@@ -62,12 +63,14 @@ enum ModelId {
   kModelCartpoleUrdf = 8,
   kModelBallonbeam = 9,
   kModelQuadrotorEuler = 10,
-  kModelSlack = 11,     // id of WithSlack<M> = id of M + kModelSlack
-  kModelMinTime = 22,   // id of MinTime<M> = id of M + kModelMinTime
+  kModelDoublependulum = 11,
+  kModelAcrobot = 12,
+  kModelSlack = 13,     // id of WithSlack<M> = id of M + kModelSlack
+  kModelMinTime = 26,   // id of MinTime<M> = id of M + kModelMinTime
 };
 
-// whether model id `model` (with or without slacks) is a rigid-body chain,
-// whose kernels need its ChainTable
+// whether model id `model` (in any of its forms: kModelMinTime is twice
+// kModelSlack) is a rigid-body chain, whose kernels need its ChainTable
 __host__ __device__ constexpr bool is_chain_model(int model) {
   return model >= 0 && model % kModelSlack >= kModelKuka
          && model % kModelSlack <= kModelCartpoleUrdf;
@@ -287,13 +290,15 @@ struct WithSlack {
 // more control h = u[NU - 1] and one more state that carries it; the step
 // is M's with dt = h² (the dt argument is ignored) and x⁺[NX - 1] = h. Over
 // WithSlack<M> it is the infeasible-start problem's minimum-time form (the
-// slacks come first and h last, as the transforms are applied). A scalar
-// model's only: K2's warp step (no chain, no table) and nothing else.
+// slacks come first and h last, as the transforms are applied). K2's warp
+// step only. Over a chain it reads M's table and M's warp scratch: M's step
+// is computed by the warp together but leaves its result in every lane's
+// registers (out[0..M::NX-1], after the step's last __syncwarp), so each
+// lane writes the state h into its own out[M::NX] and no lane races another.
 template <class M>
 struct MinTime {
-  static_assert(!M::kChain, "no MinTime form of a rigid-body chain");
   static constexpr int NX = M::NX + 1, NU = M::NU + 1;
-  static constexpr bool kChain = false;
+  static constexpr bool kChain = M::kChain;
   static constexpr int kWarpScratch = M::kWarpScratch;
   static __device__ __forceinline__ void step_warp(const float* x,
                                                    const float* u, float,
@@ -528,6 +533,61 @@ struct QuadrotorEuler : RegisterStep<QuadrotorEuler> {
     rk3_step<QuadrotorEuler, T>(x, u, dt, out, chain);
   }
 };
+
+// the analytic double pendulum (both joints actuated) and acrobot (the elbow
+// only: τ = (0, u)), models/zoo.py::_two_link_dynamics: the 2R manipulator
+// equations, m1 = m2 = 1, l1 = 1, lc1 = 0.5, lc2 = 1, I1 = 0.083,
+// I2 = 0.33, no damping, q from hanging straight down; the 2×2 mass-matrix
+// solve written as an explicit inverse, as the cart-pole's (ROADMAP Q3-10).
+// State [q1, q2, q̇1, q̇2]. The constants are folded in double in the plain
+// version's order; the zero damping and the acrobot's zero shoulder torque
+// stay in the sums, as there (0·q̇ and 0 − C are not folded away without
+// fast-math).
+template <bool kElbowOnly>
+struct TwoLink : RegisterStep<TwoLink<kElbowOnly>> {
+  static constexpr int NX = 4, NU = kElbowOnly ? 1 : 2;
+  template <class T>
+  static __device__ __forceinline__ void dynamics(
+      const T* x, const T* u, T* xd, const ChainTable* = nullptr) {
+    // a = I1 + I2 + m1 lc1² + m2 (l1² + lc2²), b = m2 l1 lc2,
+    // d = I2 + m2 lc2²; gravity (m1 lc1 + m2 l1) g and m2 lc2 g
+    constexpr float a = (float)(0.083 + 0.33 + 1.0 * 0.5 * 0.5
+                                + 1.0 * (1.0 * 1.0 + 1.0 * 1.0));
+    constexpr float b = (float)(1.0 * 1.0 * 1.0);
+    constexpr float b2 = (float)(2.0 * (1.0 * 1.0 * 1.0));
+    constexpr float nb = (float)(-(1.0 * 1.0 * 1.0));
+    constexpr float d = (float)(0.33 + 1.0 * 1.0 * 1.0);
+    constexpr float g1c = (float)((1.0 * 0.5 + 1.0 * 1.0) * 9.81);
+    constexpr float g2c = (float)(1.0 * 1.0 * 9.81);
+    constexpr float damp = 0.0f;
+    const T q1 = x[0], q2 = x[1], qd1 = x[2], qd2 = x[3];
+    const T c2 = tcos(q2), s2 = tsin(q2);
+    const T H11 = a + b2 * c2;
+    const T H12 = d + b * c2;
+    const T C1 = nb * s2 * qd2 * (2.0f * qd1 + qd2);
+    const T C2 = b * s2 * qd1 * qd1;
+    const T s12 = tsin(q1 + q2);
+    const T G1 = g1c * tsin(q1) + g2c * s12;
+    const T G2 = g2c * s12;
+    const T tau1 = kElbowOnly ? T(0.0f) : u[0];
+    const T tau2 = kElbowOnly ? u[0] : u[1];
+    const T r1 = tau1 - C1 - G1 - damp * qd1;
+    const T r2 = tau2 - C2 - G2 - damp * qd2;
+    const T det = H11 * d - H12 * H12;
+    xd[0] = qd1;
+    xd[1] = qd2;
+    xd[2] = (d * r1 - H12 * r2) / det;
+    xd[3] = (H11 * r2 - H12 * r1) / det;
+  }
+  template <class T>
+  static __device__ __forceinline__ void step(
+      const T* x, const T* u, float dt, T* out,
+      const ChainTable* chain = nullptr) {
+    rk3_step<TwoLink, T>(x, u, dt, out, chain);
+  }
+};
+using Doublependulum = TwoLink<false>;
+using Acrobot = TwoLink<true>;
 
 // ------------------------------------------------------ rigid-body chains
 //

@@ -188,31 +188,39 @@ int dispatch(int n, int m, F f, int none) {
                              // Euler-angle quadrotor under minimum time
                              // with the slacks
   TRAJOPT_RICCATI(4, 1);     // cartpole, the acrobot and cartpole rigs,
-                             // ballonbeam
+                             // ballonbeam, the acrobot
   TRAJOPT_RICCATI(3, 2);     // car; pendulum, double integrator under
                              // minimum time
   TRAJOPT_RICCATI(2, 1);     // pendulum, double integrator
-  TRAJOPT_RICCATI(4, 5);     // cartpole (and the two rigs), ballonbeam
-                             // with the slacks
+  TRAJOPT_RICCATI(4, 5);     // cartpole (and the two rigs), ballonbeam,
+                             // the acrobot with the slacks
   TRAJOPT_RICCATI(3, 5);     // car with the slacks
   TRAJOPT_RICCATI(2, 3);     // pendulum, double integrator with the slacks
   TRAJOPT_RICCATI(14, 7);    // kuka
   TRAJOPT_RICCATI(14, 21);   // kuka with the slacks
-  TRAJOPT_RICCATI(4, 2);     // double pendulum rig
-  TRAJOPT_RICCATI(4, 6);     // double pendulum rig with the slacks; car
+  TRAJOPT_RICCATI(4, 2);     // double pendulum (analytic and rig)
+  TRAJOPT_RICCATI(4, 6);     // double pendulum with the slacks; car
                              // under minimum time with the slacks
   TRAJOPT_RICCATI(12, 16);   // Euler-angle quadrotor with the slacks
   // the minimum-time forms (one more state and control), with and without
   // the slacks; (3, 2), (4, 5) and (13, 17) are the pendulum's and double
   // integrator's, ballonbeam's and the cartpole's with slacks, and the
   // Euler-angle quadrotor's with slacks above
-  TRAJOPT_RICCATI(5, 2);     // cartpole, ballonbeam
+  TRAJOPT_RICCATI(5, 2);     // cartpole, ballonbeam, the acrobots, the
+                             // cartpole rig
   TRAJOPT_RICCATI(4, 3);     // car
   TRAJOPT_RICCATI(14, 5);    // quadrotor
   TRAJOPT_RICCATI(13, 5);    // Euler-angle quadrotor
   TRAJOPT_RICCATI(3, 4);     // pendulum, double integrator with the slacks
-  TRAJOPT_RICCATI(5, 6);     // cartpole, ballonbeam with the slacks
+  TRAJOPT_RICCATI(5, 6);     // cartpole, ballonbeam, the acrobots, the
+                             // cartpole rig with the slacks
   TRAJOPT_RICCATI(14, 18);   // quadrotor with the slacks
+  // the chains' and the analytic two-link models' minimum-time forms; the
+  // acrobots' and the cartpole rig's are (5, 2) and (5, 6) above
+  TRAJOPT_RICCATI(15, 8);    // kuka
+  TRAJOPT_RICCATI(15, 22);   // kuka with the slacks
+  TRAJOPT_RICCATI(5, 3);     // the double pendulum (analytic and rig)
+  TRAJOPT_RICCATI(5, 7);     // the double pendulum with the slacks
 #undef TRAJOPT_RICCATI
   return none;
 }

@@ -3,11 +3,11 @@
 // Replaces the TPU kernel trajopt_tpu/ops/pallas_rollout.py::_rollout_kernel
 // (front end rollout_closed_loop_pallas) with the model's step inlined
 // (models.cuh: the quadrotor, cartpole, car, pendulum, double integrator,
-// ballonbeam, the Euler-angle quadrotor, the rigid-body chain step of the
-// 7-DOF kuka arm and of the three two-link URDF rigs, each of them with the
-// slack controls of the infeasible-start transform, and the scalar ones in
-// the minimum-time form MinTime<M> of either, whose dt is u[-1]² and which
-// ignores the dt argument)
+// ballonbeam, the Euler-angle quadrotor, the analytic double pendulum and
+// acrobot, the rigid-body chain step of the 7-DOF kuka arm and of the three
+// two-link URDF rigs, each of them with the slack controls of the
+// infeasible-start transform, and each in the minimum-time form MinTime<M>
+// of either, whose dt is u[-1]² and which ignores the dt argument)
 // and, for the quadrotor's error-state solves,
 // quadrotor_state_diff_lanes (quaternion error state). For every problem and
 // knot k:
@@ -222,9 +222,9 @@ extern "C" int trajopt_rollout_f32(
   return launch<M, ES>(x0, X, U, K, d, alpha, Xout, Uout, ok,              \
                        (const ChainTable*)chain, batch, N, dt, max_state,  \
                        max_control, (cudaStream_t)stream)
-  // a scalar model in its four forms: plain, with slacks, minimum time,
-  // minimum time with slacks
-#define TRAJOPT_SCALAR(ID, M)                                               \
+  // a model's other three forms: with slacks, minimum time, minimum time
+  // with slacks
+#define TRAJOPT_FORMS(ID, M)                                                \
   case kModelSlack + ID: TRAJOPT_ROLLOUT(WithSlack<M>, false);             \
   case kModelMinTime + ID: TRAJOPT_ROLLOUT(MinTime<M>, false);             \
   case kModelMinTime + kModelSlack + ID:                                   \
@@ -233,32 +233,33 @@ extern "C" int trajopt_rollout_f32(
     case kModelQuadrotor:
       if (error_state) TRAJOPT_ROLLOUT(Quadrotor, true);
       TRAJOPT_ROLLOUT(Quadrotor, false);
-    TRAJOPT_SCALAR(kModelQuadrotor, Quadrotor);
+    TRAJOPT_FORMS(kModelQuadrotor, Quadrotor);
     case kModelCartpole: TRAJOPT_ROLLOUT(Cartpole, false);
-    TRAJOPT_SCALAR(kModelCartpole, Cartpole);
+    TRAJOPT_FORMS(kModelCartpole, Cartpole);
     case kModelCar: TRAJOPT_ROLLOUT(Car, false);
-    TRAJOPT_SCALAR(kModelCar, Car);
+    TRAJOPT_FORMS(kModelCar, Car);
     case kModelPendulum: TRAJOPT_ROLLOUT(Pendulum, false);
-    TRAJOPT_SCALAR(kModelPendulum, Pendulum);
+    TRAJOPT_FORMS(kModelPendulum, Pendulum);
     case kModelDoubleIntegrator: TRAJOPT_ROLLOUT(DoubleIntegrator, false);
-    TRAJOPT_SCALAR(kModelDoubleIntegrator, DoubleIntegrator);
+    TRAJOPT_FORMS(kModelDoubleIntegrator, DoubleIntegrator);
     case kModelBallonbeam: TRAJOPT_ROLLOUT(Ballonbeam, false);
-    TRAJOPT_SCALAR(kModelBallonbeam, Ballonbeam);
+    TRAJOPT_FORMS(kModelBallonbeam, Ballonbeam);
     case kModelQuadrotorEuler: TRAJOPT_ROLLOUT(QuadrotorEuler, false);
-    TRAJOPT_SCALAR(kModelQuadrotorEuler, QuadrotorEuler);
+    TRAJOPT_FORMS(kModelQuadrotorEuler, QuadrotorEuler);
+    case kModelDoublependulum: TRAJOPT_ROLLOUT(Doublependulum, false);
+    TRAJOPT_FORMS(kModelDoublependulum, Doublependulum);
+    case kModelAcrobot: TRAJOPT_ROLLOUT(Acrobot, false);
+    TRAJOPT_FORMS(kModelAcrobot, Acrobot);
     case kModelKuka: TRAJOPT_ROLLOUT(Kuka, false);
-    case kModelSlack + kModelKuka: TRAJOPT_ROLLOUT(WithSlack<Kuka>, false);
+    TRAJOPT_FORMS(kModelKuka, Kuka);
     case kModelAcrobotUrdf: TRAJOPT_ROLLOUT(AcrobotUrdf, false);
-    case kModelSlack + kModelAcrobotUrdf:
-      TRAJOPT_ROLLOUT(WithSlack<AcrobotUrdf>, false);
+    TRAJOPT_FORMS(kModelAcrobotUrdf, AcrobotUrdf);
     case kModelDoublependulumUrdf: TRAJOPT_ROLLOUT(DoublependulumUrdf, false);
-    case kModelSlack + kModelDoublependulumUrdf:
-      TRAJOPT_ROLLOUT(WithSlack<DoublependulumUrdf>, false);
+    TRAJOPT_FORMS(kModelDoublependulumUrdf, DoublependulumUrdf);
     case kModelCartpoleUrdf: TRAJOPT_ROLLOUT(CartpoleUrdf, false);
-    case kModelSlack + kModelCartpoleUrdf:
-      TRAJOPT_ROLLOUT(WithSlack<CartpoleUrdf>, false);
+    TRAJOPT_FORMS(kModelCartpoleUrdf, CartpoleUrdf);
   }
-#undef TRAJOPT_SCALAR
+#undef TRAJOPT_FORMS
 #undef TRAJOPT_ROLLOUT
   return (int)cudaErrorInvalidValue;
 }

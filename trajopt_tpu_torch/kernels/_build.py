@@ -15,11 +15,14 @@ ptxas's registers, shared memory and spills of every kernel, is kept beside
 each as ``lib<source>_<hash>.log``. The libraries are loaded with
 ``ctypes``; every pointer and the stream are ``c_void_p`` arguments. Nothing
 here runs at import time: this module imports on machines without ``nvcc``
-or a card, and only :func:`load` needs them.
+or a card, and only :func:`load` needs them. :func:`load` starts the
+compilers and returns at once; each library is waited for and loaded when
+one of its entry points is first used, so a kernel whose source has
+compiled runs while the others still compile (``fused_al_backward.cu``
+takes several times the others' seconds).
 """
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -27,8 +30,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
-import types
 from pathlib import Path
 
 import torch
@@ -117,46 +120,74 @@ def _nvcc() -> str:
                        "toolkit (PATH or /usr/local/cuda/bin)")
 
 
-def build() -> dict:
-    """Compile every source whose library does not exist yet, all at once
-    (one nvcc process per source), and keep nvcc's report beside each
-    library (``.log``). Returns {source stem: library path}; raises
-    RuntimeError with nvcc's output if a compile fails. ``build.seconds``
-    keeps each compiled source's seconds."""
+# source stem -> its running compile: the thread that waits for nvcc, and
+# what it leaves (the command, the temporary library, the output)
+_JOBS = {}
+
+
+def start_build() -> dict:
+    """Start nvcc, one process per source, for every source whose library
+    does not exist yet and is not being compiled, and return at once:
+    {source stem: library path}. A thread per compile records its seconds
+    from the start of this batch in ``build.seconds`` when nvcc ends."""
     libs = {src.stem: library_path(src) for src in _sources()}
-    todo = [src for src in _sources() if not libs[src.stem].exists()]
+    todo = [src for src in _sources()
+            if not libs[src.stem].exists() and src.stem not in _JOBS]
     if not todo:
         return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     build.seconds.clear()
     t0 = time.perf_counter()
-    jobs = []
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
-        jobs.append((src, tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        job = dict(cmd=cmd, tmp=tmp, proc=proc)
+
+        def finish(job=job, stem=src.stem):
+            job["out"], _ = job["proc"].communicate()
+            build.seconds[stem] = time.perf_counter() - t0
+
+        job["thread"] = threading.Thread(target=finish, daemon=True)
+        job["thread"].start()
+        _JOBS[src.stem] = job
+    return libs
+
+
+def _wait(stem: str) -> Path:
+    """The library of source ``stem``: its compile waited for and the
+    library put in place (its nvcc output beside it), started first if
+    need be; RuntimeError with nvcc's output if the compile failed."""
+    path = start_build()[stem]
+    job = _JOBS.pop(stem, None)
+    if job is None:
+        return path
+    job["thread"].join()
+    if job["proc"].returncode != 0:
+        os.unlink(job["tmp"])
+        raise RuntimeError(f"nvcc failed ({job['proc'].returncode}):\n"
+                           f"{' '.join(job['cmd'])}\n{job['out']}")
+    path.with_suffix(".log").write_text(job["out"])
+    os.replace(job["tmp"], path)
+    return path
+
+
+def build() -> dict:
+    """Compile every source whose library does not exist yet, all at once
+    (one nvcc process per source), and wait for all of them; keep nvcc's
+    report beside each library (``.log``). Returns {source stem: library
+    path}; raises RuntimeError with nvcc's output if a compile fails.
+    ``build.seconds`` keeps each compiled source's seconds."""
+    libs = start_build()
     errors = []
-
-    def finish(job):
-        """nvcc's output and its seconds from the start of all of them."""
-        out, _ = job[3].communicate()
-        return out, time.perf_counter() - t0
-
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        done = list(pool.map(finish, jobs))
-    for (src, tmp, cmd, proc), (out, seconds) in zip(jobs, done):
-        build.seconds[src.stem] = seconds
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed ({proc.returncode}):\n"
-                          f"{' '.join(cmd)}\n{out}")
-            continue
-        libs[src.stem].with_suffix(".log").write_text(out)
-        os.replace(tmp, libs[src.stem])
+    for stem in list(_JOBS):
+        try:
+            _wait(stem)
+        except RuntimeError as e:
+            errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
     return libs
@@ -166,21 +197,35 @@ def build() -> dict:
 # last build of this process; empty when every library was built already)
 build.seconds = {}
 
+# entry point -> the source stem whose library holds it
+_STEM_OF = {name: stem for stem, entries in SIGNATURES.items()
+            for name in entries}
 
-@functools.lru_cache(maxsize=1)
-def load() -> types.SimpleNamespace:
-    """Build if needed, load the libraries once per process and return
-    their entry points, argument types declared, as one namespace."""
-    libs = build()
-    fns = {}
-    for stem, entries in SIGNATURES.items():
-        lib = ctypes.CDLL(str(libs[stem]))
-        for name, argtypes in entries.items():
-            fn = getattr(lib, name)
+
+class _EntryPoints:
+    """The C entry points as attributes, argument types declared. A
+    library is waited for and loaded when one of its entry points is first
+    asked for."""
+
+    def __getattr__(self, name):
+        stem = _STEM_OF.get(name)
+        if stem is None:
+            raise AttributeError(name)
+        lib = ctypes.CDLL(str(_wait(stem)))
+        for entry, argtypes in SIGNATURES[stem].items():
+            fn = getattr(lib, entry)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-            fns[name] = fn
-    return types.SimpleNamespace(**fns)
+            setattr(self, entry, fn)
+        return self.__dict__[name]
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> _EntryPoints:
+    """Start the build if needed and return the entry points, once per
+    process; each library is waited for and loaded at its first use."""
+    start_build()
+    return _EntryPoints()
 
 
 def stream(device) -> int:

@@ -2,17 +2,15 @@
 
 Counterpart of ``trajopt_tpu/models/zoo.py``: the quaternion quadrotor, the
 four models whose scalar lane step the JAX package ships (pendulum, double
-integrator, car, cartpole), ballonbeam, the Euler-angle quadrotor and the
-analytic two-link double pendulum and acrobot; the uncertain models
-(``f(x, u, w)``) go with ``discretize_uncertain`` (ROADMAP Queue 1 #4). The
-JAX package registers no lane step for the two-link models, so no kernel
-carries them: on a CUDA tensor their solves raise, and their URDF rigs
-(``models/robots.py``) are the chain models the kernels carry. It has none
-for ballonbeam and the Euler-angle quadrotor either, which therefore never
-run fused; the rollout kernel K2 carries them (``ops/cuda_models.py``), so
-their phase-split solves run on the card. ``MODELS`` names the models here
-with the four rigid-body rigs (kuka and the URDF acrobot, double pendulum
-and cartpole). Every function
+integrator, car, cartpole), ballonbeam, the Euler-angle quadrotor, the
+analytic two-link double pendulum and acrobot, and the uncertain pendulum and
+cart-pole (``f(x, u, w)``, r = 1, which ``discretize_uncertain`` steps; no
+kernel carries them, they run wherever their tensors are). The JAX package
+registers no lane step for ballonbeam, the Euler-angle quadrotor and the
+two-link models, so they never run fused; the rollout kernel K2 carries
+them (``ops/cuda_models.py``), so their phase-split solves run on the card.
+``MODELS`` names the models here with the four rigid-body rigs (kuka and
+the URDF acrobot, double pendulum and cartpole). Every function
 takes states with any leading batch dimensions and works under
 ``torch.func.vmap``/``jacfwd``.
 
@@ -26,7 +24,6 @@ from __future__ import annotations
 import torch
 
 from trajopt_tpu_torch.models.base import Model
-from trajopt_tpu_torch.ops.linalg import spd_solve_vec
 
 # ---------------------------------------------------------------- pendulum
 # reference dynamics/pendulum.jl:3-14
@@ -40,6 +37,20 @@ def pendulum_dynamics(x, u):
 
 
 pendulum = Model(pendulum_dynamics, 2, 1, name="pendulum")
+
+
+def pendulum_dynamics_uncertain(x, u, w):
+    # reference dynamics/pendulum.jl:18-29 (unknown mass)
+    m = 1.0 + w[..., 0:1]
+    b, lc, g = 0.1, 0.5, 9.81
+    th, om = x[..., 0:1], x[..., 1:2]
+    return torch.cat([om, u[..., 0:1] / (m * lc * lc)
+                      - g * torch.sin(th) / lc - b * om / (m * lc * lc)],
+                     dim=-1)
+
+
+pendulum_uncertain = Model(pendulum_dynamics_uncertain, 2, 1, r=1,
+                           name="pendulum_uncertain")
 
 # ------------------------------------------------------- double integrator
 # reference dynamics/double_integrator.jl:1-9
@@ -89,6 +100,19 @@ def cartpole_dynamics(x, u):
 
 cartpole = Model(cartpole_dynamics, 4, 1, name="cartpole")
 
+
+def cartpole_dynamics_uncertain(x, u, w):
+    """reference dynamics/cartpole.jl:44-72 (an unknown force disturbance w
+    on the cart): q̈ = −H⁻¹(C q̇ + G − B u − B w), which is the nominal
+    cart-pole's dynamics with the force u + w, its 2×2 solve the same
+    explicit inverse (the JAX package's is ``spd_solve_vec``; the two agree
+    to rounding, held at 1e-12 in float64)."""
+    return cartpole_dynamics(x, u[..., 0:1] + w[..., 0:1])
+
+
+cartpole_uncertain = Model(cartpole_dynamics_uncertain, 4, 1, r=1,
+                           name="cartpole_uncertain")
+
 # ------------------------------------------------------------ ball on beam
 # reference dynamics/ballonbeam.jl:3-24
 
@@ -112,12 +136,16 @@ ballonbeam = Model(ballonbeam_dynamics, 4, 1, name="ballonbeam")
 # link 1 joint to joint 1 m, COM at 0.5 m, iyy1 = 0.083; link 2 COM at 1 m,
 # iyy2 = 0.33) by the planar manipulator equations. No damping: the
 # reference's RigidBodyDynamics.jl ignores the URDF's <dynamics damping>.
+# The 2x2 mass-matrix solve is written as an explicit inverse, as the
+# cart-pole's (the JAX package solves it by ``spd_solve_vec``; the two agree
+# to rounding, held at 1e-12 in float64), in the order of K2's step
+# (csrc/models.cuh TwoLink).
 
 _DP = dict(m1=1.0, m2=1.0, l1=1.0, lc1=0.5, lc2=1.0, I1=0.083, I2=0.33,
            b1=0.0, b2=0.0, g=9.81)
 
 
-def _two_link_dynamics(x, tau):
+def _two_link_dynamics(x, tau1, tau2):
     p = _DP
     q1, q2 = x[..., 0:1], x[..., 1:2]
     qd1, qd2 = x[..., 2:3], x[..., 3:4]
@@ -130,31 +158,30 @@ def _two_link_dynamics(x, tau):
     d = p["I2"] + p["m2"] * p["lc2"] ** 2
     H11 = a + 2.0 * b * c2
     H12 = d + b * c2
-    H22 = torch.full_like(H11, d)
-    H = torch.stack([torch.cat([H11, H12], -1), torch.cat([H12, H22], -1)],
-                    dim=-2)
     # Coriolis and centrifugal terms
-    C = torch.cat([-b * s2 * qd2 * (2.0 * qd1 + qd2), b * s2 * qd1 * qd1],
-                  dim=-1)
+    C1 = -b * s2 * qd2 * (2.0 * qd1 + qd2)
+    C2 = b * s2 * qd1 * qd1
     # gravity, q measured from hanging straight down
     s12 = torch.sin(q1 + q2)
-    g1 = (p["m1"] * p["lc1"] + p["m2"] * p["l1"]) * p["g"] * torch.sin(q1) \
+    G1 = (p["m1"] * p["lc1"] + p["m2"] * p["l1"]) * p["g"] * torch.sin(q1) \
         + p["m2"] * p["lc2"] * p["g"] * s12
-    g2 = p["m2"] * p["lc2"] * p["g"] * s12
-    G = torch.cat([g1, g2], dim=-1)
-    damp = torch.cat([p["b1"] * qd1, p["b2"] * qd2], dim=-1)
-    qdd = spd_solve_vec(H, tau - C - G - damp)
-    return torch.cat([x[..., 2:], qdd], dim=-1)
+    G2 = p["m2"] * p["lc2"] * p["g"] * s12
+    r1 = tau1 - C1 - G1 - p["b1"] * qd1
+    r2 = tau2 - C2 - G2 - p["b2"] * qd2
+    # H = [[H11, H12], [H12, d]]
+    det = H11 * d - H12 * H12
+    qdd1 = (d * r1 - H12 * r2) / det
+    qdd2 = (H11 * r2 - H12 * r1) / det
+    return torch.cat([qd1, qd2, qdd1, qdd2], dim=-1)
 
 
 def doublependulum_dynamics(x, u):
-    return _two_link_dynamics(x, u)
+    return _two_link_dynamics(x, u[..., 0:1], u[..., 1:2])
 
 
 def acrobot_dynamics(x, u):
     # elbow-only actuation (reference dynamics/acrobot.jl:6, B = [0; 1])
-    return _two_link_dynamics(x, torch.cat([torch.zeros_like(u[..., 0:1]),
-                                            u[..., 0:1]], dim=-1))
+    return _two_link_dynamics(x, torch.zeros_like(u[..., 0:1]), u[..., 0:1])
 
 
 doublependulum = Model(doublependulum_dynamics, 4, 2, name="doublependulum")
@@ -319,8 +346,10 @@ def _robot_models():
             "cartpole_urdf": robots.cartpole_urdf_model()}
 
 
-MODELS = {"pendulum": pendulum, "doubleintegrator": doubleintegrator,
-          "car": car, "cartpole": cartpole, "ballonbeam": ballonbeam,
+MODELS = {"pendulum": pendulum, "pendulum_uncertain": pendulum_uncertain,
+          "doubleintegrator": doubleintegrator, "car": car,
+          "cartpole": cartpole, "cartpole_uncertain": cartpole_uncertain,
+          "ballonbeam": ballonbeam,
           "quadrotor": quadrotor, "quadrotor_euler": quadrotor_euler,
           "doublependulum": doublependulum, "acrobot": acrobot,
           **_robot_models()}

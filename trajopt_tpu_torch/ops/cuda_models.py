@@ -8,17 +8,17 @@ a trait); the infeasible-start model of ``solvers/altro.py`` keeps its base
 model's name and carries ``slack_m``, the base model's control width, and
 the minimum-time model keeps it too and carries ``mintime``. Every base
 model has a slack-augmented instantiation: n slack controls after the base
-controls, x⁺ = base_step(x, u[:m]) + u[m:]. Every scalar model has a
-minimum-time instantiation of itself and of its slack form: one more control
-h after the others and one more state that carries it,
-x⁺ = [base_step(x[:-1], u[:-1], h²); h].
+controls, x⁺ = base_step(x, u[:m]) + u[m:]. Every model, the rigid-body
+chains included, has a minimum-time instantiation of itself and of its
+slack form: one more control h after the others and one more state that
+carries it, x⁺ = [base_step(x[:-1], u[:-1], h²); h].
 
 An entry marked ``k2_only`` is carried by the rollout kernel K2 alone (and
 takes K5's sweep, which is model-free): ballonbeam, the Euler-angle
-quadrotor and every minimum-time form. The JAX package gives them no lane
-step, so it never runs them fused, and neither does the port: the fused
-kernels (K3, K4, K7a, K7b) refuse them, and the fused paths' eligibility
-says no for them on either device.
+quadrotor, the analytic double pendulum and acrobot, and every minimum-time
+form. The JAX package gives them no lane step, so it never runs them fused,
+and neither does the port: the fused kernels (K3, K4, K7a, K7b) refuse
+them, and the fused paths' eligibility says no for them on either device.
 """
 from __future__ import annotations
 
@@ -51,15 +51,17 @@ CUDA_STEPS = {
     # scalar models without a lane step in the JAX package: K2 only
     "ballonbeam_rk3": CudaModel(9, "ballonbeam", 4, 1, 1, True),
     "quadrotor_euler_rk3": CudaModel(10, "quadrotor_euler", 12, 4, 4, True),
+    "doublependulum_rk3": CudaModel(11, "doublependulum", 4, 2, 2, True),
+    "acrobot_rk3": CudaModel(12, "acrobot", 4, 1, 1, True),
 }
 # kModelSlack and kModelMinTime of csrc/models.cuh: a slack-augmented
 # model's id is its base model's plus SLACK_ID, a minimum-time model's its
 # base model's (with or without slacks) plus MINTIME_ID
 # (tests/test_torch_rigidbody.py holds the two tables equal)
-SLACK_ID = 11
-MINTIME_ID = 22
-# the CUDA steps that are rigid-body chains (the Chain trait); K2 has no
-# minimum-time form of them (ROADMAP Queue 1 #4)
+SLACK_ID = 13
+MINTIME_ID = 26
+# the CUDA steps that are rigid-body chains (the Chain trait), whose kernels
+# read the model's chain table
 CHAIN_LABELS = ("kuka", "acrobot_urdf", "doublependulum_urdf",
                 "cartpole_urdf")
 
@@ -71,8 +73,8 @@ def with_slack(base: CudaModel) -> CudaModel:
 
 
 def with_mintime(cm: CudaModel) -> CudaModel:
-    """The minimum-time instantiation of ``cm`` (a scalar model, with or
-    without slacks): one more state and control, K2 only."""
+    """The minimum-time instantiation of ``cm`` (with or without slacks):
+    one more state and control, K2 only."""
     return CudaModel(cm.id + MINTIME_ID, cm.label + "_mintime", cm.n + 1,
                      cm.m + 1, cm.m_base, True)
 
@@ -83,8 +85,7 @@ def _entries():
         for slack in (False, True):
             e = with_slack(cm) if slack else cm
             out[(step, slack, False)] = e
-            if cm.label not in CHAIN_LABELS:
-                out[(step, slack, True)] = with_mintime(e)
+            out[(step, slack, True)] = with_mintime(e)
     return out
 
 
@@ -98,9 +99,8 @@ def find_cuda_model(model, slack_ok: bool = False,
                     k2_only_ok: bool = False):
     """The kernels' entry for ``model``, or None: a model without a CUDA
     step (``cuda_step`` is None), widths that are not the step's, a
-    slack-augmented model where ``slack_ok`` is False, a chain's
-    minimum-time model, or an entry marked ``k2_only`` where ``k2_only_ok``
-    is False."""
+    slack-augmented model where ``slack_ok`` is False, or an entry marked
+    ``k2_only`` where ``k2_only_ok`` is False."""
     slack = getattr(model, "slack_m", None)
     found = CUDA_MODELS.get((getattr(model, "cuda_step", None),
                              slack is not None,
@@ -124,14 +124,6 @@ def cuda_model(model, fn: str, slack_ok: bool = False,
     if found is not None:
         return found
     name = getattr(model, "name", model)
-    base = CUDA_STEPS.get(getattr(model, "cuda_step", None))
-    if getattr(model, "mintime", False) and base is not None \
-            and base.label in CHAIN_LABELS:
-        raise NotImplementedError(
-            f"{fn}: model {name!r} is the minimum-time form of the "
-            f"rigid-body chain {base.label!r}: K2 has no MinTime<Chain> "
-            "instantiation and K5 none of its shapes yet (ROADMAP Queue 1 "
-            "#4); on the CPU its plain solve runs")
     if not k2_only_ok and find_cuda_model(model, slack_ok, True) is not None:
         raise NotImplementedError(
             f"{fn}: model {name!r} has no lane step in the JAX package, so "
@@ -142,10 +134,10 @@ def cuda_model(model, fn: str, slack_ok: bool = False,
         f"(n={model.n}, m={model.m}); the kernels carry the RK3 steps of "
         f"{sorted(c.label for c in CUDA_STEPS.values())}"
         + (", each with or without slack controls" if slack_ok else "")
-        + (", the scalar ones also in their minimum-time form"
-           if k2_only_ok else "")
-        + " (no other model has a lane step, K6, in the JAX package "
-        "either: ROADMAP Queue 1)")
+        + (", each also in its minimum-time form" if k2_only_ok else "")
+        + " (no other model or integrator has a lane step, K6, here or in "
+        "the JAX package; the integrators other than rk3 on the card are "
+        "ROADMAP Queue 1 #4)")
 
 
 def chain_table_ptr(model, cm: CudaModel, device):
@@ -153,7 +145,8 @@ def chain_table_ptr(model, cm: CudaModel, device):
     chain model (``CHAIN_LABELS``), else None (a null pointer): the model's float32
     table (``models/rigidbody_lanes.py::chain_table``), copied to ``device``
     once and kept on the model."""
-    if cm.label.removesuffix("_slack") not in CHAIN_LABELS:
+    if cm.label.removesuffix("_mintime").removesuffix("_slack") \
+            not in CHAIN_LABELS:
         return None
     table = getattr(model, "chain_table", None)
     if table is None:

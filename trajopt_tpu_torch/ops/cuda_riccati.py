@@ -21,14 +21,15 @@ from trajopt_tpu_torch.ops.cost import Expansion
 from trajopt_tpu_torch.ops.riccati import scan_sweep
 
 # the (n, m) pairs csrc/riccati_sweep.cu instantiates: the quadrotor (full
-# and error state), cartpole (and the acrobot and cartpole rigs), car,
-# pendulum, double integrator, kuka, the double pendulum rig, ballonbeam and
+# and error state), cartpole (and the acrobots and the cartpole rig), car,
+# pendulum, double integrator, kuka, the double pendulums, ballonbeam and
 # the Euler-angle quadrotor, each with the n infeasible-start slacks
-# (n, m + n), and the scalar models' minimum-time forms (n + 1, m + 1) with
-# and without the slacks; several models share a pair
+# (n, m + n), and every model's minimum-time forms (n + 1, m + 1) with and
+# without the slacks; several models share a pair
 SHAPES = ((13, 4), (12, 4), (13, 17), (4, 1), (3, 2), (2, 1), (4, 5), (3, 5),
           (2, 3), (14, 7), (14, 21), (4, 2), (4, 6), (12, 16), (5, 2), (4, 3),
-          (14, 5), (13, 5), (3, 4), (5, 6), (14, 18))
+          (14, 5), (13, 5), (3, 4), (5, 6), (14, 18), (15, 8), (15, 22),
+          (5, 3), (5, 7))
 
 
 def riccati_sweep_cuda(A, B, lx, lu, lxx, luu, lux, rho,
@@ -48,8 +49,8 @@ def riccati_sweep_cuda(A, B, lx, lu, lxx, luu, lux, rho,
     if (n, m) not in SHAPES:
         raise NotImplementedError(
             f"{fn}: no kernel instantiation for n={n}, m={m} (there are "
-            f"{SHAPES}; a chain's minimum-time shapes: ROADMAP Queue 1 "
-            "#4)")
+            f"{SHAPES}: the shapes of the models the kernels carry; another "
+            "model's are ROADMAP Queue 1 work)")
     for name, t, shape in (
             ("A", A, (Bz, Nm1, n, n)), ("B", B, (Bz, Nm1, n, m)),
             ("lx", lx, (Bz, N, n)), ("lu", lu, (Bz, Nm1, m)),

@@ -175,6 +175,16 @@ def infeasible_problem(prob: Problem, R_inf: float = 1.0) -> Problem:
         return A, torch.cat([Bm, eye.expand(Bm.shape[:-1] + (n,))], dim=-1)
 
     model_inf._jac = jac_inf
+    base_jac_dt = base._jac_dt
+    if base_jac_dt is not None:
+        # the same with ∂x⁺/∂dt, which the slacks do not change
+        def jac_dt_inf(x, u, dt):
+            A, Bm, sdt = base_jac_dt(x, u[..., :m], dt)
+            eye = torch.eye(n, dtype=Bm.dtype, device=Bm.device)
+            return A, torch.cat([Bm, eye.expand(Bm.shape[:-1] + (n,))],
+                                dim=-1), sdt
+
+        model_inf._jac_dt = jac_dt_inf
 
     # objective: R ← blkdiag(R, R_inf/dt · I)  (infeasible.jl:8-15)
     obj = prob.obj
@@ -334,9 +344,13 @@ def minimum_time_problem(prob: Problem, R_min_time: float = 1.0,
     """τ = √dt state/control augmentation (reference minimum_time_problem,
     minimum_time.jl:2-37 + add_min_time_controls, :85-110). The model's
     step is x⁺ = [base_step(x[:-1], u[:-1], h²); h] with h = u[-1]; it
-    ignores its dt argument. It keeps the base model's CUDA step name and
-    slack width and is marked ``mintime``: K2's ``MinTime`` entry
-    (``ops/cuda_models.py``)."""
+    ignores its dt argument. It keeps the base model's CUDA step name,
+    slack width and chain table and is marked ``mintime``: K2's ``MinTime``
+    entry (``ops/cuda_models.py``). Where the base model has a structured
+    Jacobian with its dt column (``_jac_dt``: a rigid-body chain and its
+    slack form), the Jacobian is that one with h's column
+    ∂x⁺/∂h = 2h·∂step/∂dt, and ∂h⁺/∂h = 1; else ``torch.func.jacfwd``
+    through the step."""
     base = prob.model
     n, m, N = base.n, base.m, prob.N
     dtype, dev = prob.U.dtype, prob.device
@@ -352,6 +366,22 @@ def minimum_time_problem(prob: Problem, R_min_time: float = 1.0,
     model_mt.cuda_step = base.cuda_step
     model_mt.slack_m = base.slack_m
     model_mt.mintime = True
+    model_mt.chain_table = base.chain_table
+    base_jac_dt = base._jac_dt
+    if base_jac_dt is not None:
+        def jac_mt(x, u, dt):
+            h = u[..., -1:]
+            A, Bm, sdt = base_jac_dt(x[..., :-1], u[..., :-1], (h * h)[..., 0])
+            lead = A.shape[:-2]
+            Amt = A.new_zeros(lead + (n + 1, n + 1))
+            Amt[..., :n, :n] = A
+            Bmt = A.new_zeros(lead + (n + 1, m + 1))
+            Bmt[..., :n, :m] = Bm
+            Bmt[..., :n, m] = 2.0 * h * sdt
+            Bmt[..., n, m] = 1.0
+            return Amt, Bmt
+
+        model_mt._jac = jac_mt
 
     obj_mt = MinTimeObjective(base=prob.obj, R_mt=torch.as_tensor(
         R_min_time, dtype=dtype, device=dev))
