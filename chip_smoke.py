@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``trajopt_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py               # about seventeen minutes on one H100
+    python3 chip_smoke.py               # about twelve minutes on one H100
 
 Phases, each of which must pass (the float64 reference solves of phases 4, 8,
 15, 17 and 18 run on the CPU in worker processes beside the GPU phases).
-Phases 1 to 21 run in their order; then the kernel phases 29, 32 and 26,
-the profile 24, and from there on the host-bound paths side by side on the
-card, each in a worker process of its own (the kuka pool 23, slice 6's
-paths 27 in two, slice 7's path (a) in three and its phase-split arms,
-slice 8's paths in two), while the main process runs phases 22, 25, 30 and 28 and
-then collects the workers' results in the order 23, 27, 31, 30, 33, 34
-(``PHASES``):
+Phases 1 to 5 run in their order; from the end of the build on, the
+kernel phases 21, 32, 26, 29 and 35 run in two worker processes on the card
+(``KERNEL_WORKER_PHASES``; no two processes time a kernel at once) while
+the main process runs phases 6, 7, 8, 10 to 15, 17 and 20, then collects
+them and runs the profiles 9, 16, 19 and 24; from there on the host-bound
+paths run side by side on the card, each in a worker process of its own
+(slice 4's pool 18, the kuka pool 23, slice 6's paths 27 in two, slice 7's
+path (a) in three and its phase-split arms, slice 8's paths in two, slice
+9's in three), while the main process runs phases 22, 25, 30 and 28 and
+then collects the workers' results in the order 18, 23, 27, 31, 30, 33, 34,
+36 (``PHASES``):
 
 1. device and build: the card's name and power limit from ``nvidia-smi``,
    TF32 off (``precise``), the CUDA kernels' build from ``csrc/`` by nvcc
@@ -115,7 +119,8 @@ then collects the workers' results in the order 23, 27, 31, 30, 33, 34
     (held to that test's bars: c_max < 1e-6, goal within 1e-4), and with the
     feasible re-solve. K3 and K4 must run for the slack car and, in the
     re-solve, for the car; K5 and K2 only in the TVLQR projection;
-18. slice 4, path 2: ``solve_batch_queued_altro_retry`` on 512
+18. slice 4, path 2 (``escape_pool``, in a worker process):
+    ``solve_batch_queued_altro_retry`` on 512
     ``car_escape`` starts over 128 lanes, then ``pn_polish_batch`` on the
     result in float64 and in float32 (the first 128 each); outcome bars
     from the JAX package
@@ -191,7 +196,25 @@ then collects the workers' results in the order 23, 27, 31, 30, 33, 34
     start and 7 perturbed ones (K5 (5, 3), K2
     ``doublependulum_urdf_mintime``), held to the JAX package's float32
     share of starts that meet c_max < 1e-3 and the goal within 1e-3 and to
-    its median total time (``tools/slice8_gates_jax.py``).
+    its median total time (``tools/slice8_gates_jax.py``);
+35. slice 9's kernels (``slice9_kernels``, after phase 32): K2 under euler,
+    midpoint, rk4, midpoint_implicit and rk3_implicit (``rollout_<rule>.cu``)
+    for every base model and the slack, minimum-time and minimum-time
+    slack forms of the pendulum, the quadrotor and the acrobot rig, at
+    B = 32 (N = 11, 6 under the implicit rules and for kuka) with random
+    gains on every control (the slacks and h among them; not on the
+    quadrotor's h, ``SLICE9_H_SEEDED``), against ``rollout_closed_loop``;
+    and the pendulum's implicit steps at dt = 2 from states where the
+    Newton loop does not converge, NaN and the problem dead in K2 as in the
+    plain version (run on the CPU in worker processes meanwhile);
+36. slice 9's path (``slice9``, last), collected from two worker
+    processes: ``solve_batch`` on 128 perturbed starts of the pendulum
+    swing-up (tests/test_ilqr.py:36-50) under each of the five rules,
+    phase-split on K5 (2, 1) and K2, held to the JAX package's float32
+    shares of c_max < 1e-3 and the goal within 2e-3 on the same starts
+    less GATE_MARGIN (``tools/slice9_gates_jax.py``), and the minimum-time
+    ``altro_solve`` under rk3_implicit cut to three outer iterations; and
+    the launch-only ``solve_batch`` drives of the other slice-9 forms.
 
 Every log line is stamped with the seconds since the start. The last two
 lines of standard output are the card's ``nvidia-smi`` line and
@@ -202,8 +225,11 @@ script, it prints no result and exits non-zero.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import multiprocessing
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -619,6 +645,51 @@ SLICE8_SHARES = dict(doublependulum=("err_0.03",),
 MINTIME_RIG_STARTS, MINTIME_RIG_TT_RTOL = 8, 0.2
 
 
+# --- slice 9 (every integrator on the card: K2 under euler, midpoint, rk4
+# and the implicit midpoint and RK3 steps) ---
+SLICE9_RULES = ("euler", "midpoint", "rk4", "midpoint_implicit",
+                "rk3_implicit")
+# the models whose slack and minimum-time forms K2's checks take under every
+# rule (every base model is checked in its plain form)
+SLICE9_FORM_MODELS = ("pendulum", "quadrotor", "acrobot_urdf")
+# K2's checks: B problems of N knots (N_IMPLICIT under the implicit rules
+# and for kuka, whose plain versions cost ~0.1 s a knot: a batched jacfwd
+# and solve every Newton trip, a chain's linearization in torch ops), each
+# model's problem's dt; under the explicit rules lanes DIVERGE with the
+# feedforward blown up
+SLICE9_B, SLICE9_N, SLICE9_N_IMPLICIT = 32, 11, 6
+SLICE9_DIVERGE = (3, 17)
+# the models whose minimum-time forms take no random gain on h (h follows
+# its seed; the slacks take theirs): with one, a 1-ulp move of the
+# quadrotor's starts moves its float32 plain rollout by up to 1.6e-4 of
+# scale, past the bar its kernel is held to (tools/slice9_sensitivity.py
+# on the H100: 4.2e-5 against a bar of 4.4e-5 under midpoint, where the
+# kernel sat at 6.2e-5; 1.6e-4 under rk4; 7e-7 at most without the gain
+# on h, and the pendulum's and the acrobot rig's 3.1e-7 at most with it)
+SLICE9_H_SEEDED = ("quadrotor",)
+# kuka's steps: kuka_obstacles' 0.125 s is a step whose implicit Newton
+# loop fails from most perturbed starts in float64 too (the undamped arm on
+# its gravity hold, ROADMAP Q3-18); 0.02 s as its minimum-time forms of
+# slice 8
+SLICE9_DT_KUKA = 0.02
+# the non-converging step: the pendulum's implicit steps at dt = 2 from
+# these states poison (NaN) in float32 and float64 alike (the plain
+# version's and the JAX package's Newton loop runs its 1000 trips or meets
+# a NaN), beside a benign state that converges
+SLICE9_POISON_X = ((3.0, 40.0), (0.0, 100.0), (0.1, 0.0))
+# path 9: solve_batch on the pendulum swing-up of tests/test_ilqr.py:36-50
+# under each rule, SLICE9_POOL starts (seed 0, N(0, 0.02²) on both states,
+# tools/slice9_gates_jax.py), held to the JAX package's float32 shares of
+# c_max < 1e-3 and the goal within 2e-3 on the same starts less
+# GATE_MARGIN; and one minimum-time altro_solve of the reference pendulum
+# (tests/test_altro.py:64-82) under rk3_implicit, cut to
+# SLICE9_MINTIME_OUTER outer iterations, as a drive that only checks the
+# run completes
+SLICE9_POOL, SLICE9_MINTIME_OUTER = 128, 3
+# the launch-only drives of the other forms: inner iterations
+SLICE9_DRIVE_INNER = 1
+
+
 T0 = time.perf_counter()
 
 
@@ -651,6 +722,42 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# while kernel phases run in worker processes beside the main process
+# (``KERNEL_WORKER_PHASES``), a kernel is timed by one process at a time
+# with the others stopped (``timing_turn``): TIMING_LOCK is the turn,
+# GPU_PIDS (a shared array, 0 for an empty slot) the processes to stop;
+# None: this process times alone
+TIMING_LOCK = GPU_PIDS = None
+
+
+@contextlib.contextmanager
+def timing_turn():
+    """This process's turn to time a kernel alone on the card: TIMING_LOCK
+    held (waited for up to 120 s; past that the timing goes on, logged) and
+    every other process of GPU_PIDS stopped (SIGSTOP) until the timing
+    ends, their queued device work given 20 ms to drain. Only the holder
+    of the lock stops others, so no stopped process holds it."""
+    got = TIMING_LOCK is None or TIMING_LOCK.acquire(timeout=120)
+    if not got:
+        log("timing: the timing lock was held past 120 s; timing anyway")
+    stopped = []
+    try:
+        if got and GPU_PIDS is not None:
+            for pid in GPU_PIDS[:]:
+                if pid and pid != os.getpid():
+                    with contextlib.suppress(ProcessLookupError):
+                        os.kill(pid, signal.SIGSTOP)
+                        stopped.append(pid)
+            time.sleep(0.02)
+        yield
+    finally:
+        for pid in stopped:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGCONT)
+        if got and TIMING_LOCK is not None:
+            TIMING_LOCK.release()
+
+
 def cuda_time_ms(fn, reps, warmup=2):
     """Mean device time of one call: CUDA events around ``reps`` calls."""
     import torch
@@ -660,11 +767,12 @@ def cuda_time_ms(fn, reps, warmup=2):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    with timing_turn():
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -808,7 +916,47 @@ def run_worker(name, *args):
         result, error = None, traceback.format_exc()
     return dict(result=result, error=error, log=LOG_LINES,
                 recorded=wreport.pop("recorded", []),
-                entries={k: v for k, v in wreport.items() if k != "kernels"})
+                kernels=wreport.pop("kernels"), entries=wreport)
+
+
+def init_kernel_worker(lock, pids, t0):
+    """A kernel phases' worker process: the main process's timing lock and
+    stop list (``timing_turn``), this process's pid entered in it, and the
+    main process's clock for the log's stamps."""
+    global TIMING_LOCK, GPU_PIDS, T0
+    TIMING_LOCK, GPU_PIDS, T0 = lock, pids, t0
+    with lock:
+        pids[list(pids).index(0)] = os.getpid()
+
+
+def kernel_phase_job(report, name, checked_elsewhere=()):
+    """The kernel phase ``phase_<name>`` in a worker process beside the
+    main process (``run_worker``); ``checked_elsewhere``: the ``kernels``
+    entries the main process has made, which this process cannot see (a K5
+    shape checked once, ``al_case``)."""
+    report["checked_elsewhere"] = list(checked_elsewhere)
+    t0 = time.perf_counter()
+    log(f"--- phase {name}: started in a kernel worker")
+    globals()[f"phase_{name}"](report)
+    report.pop("checked_elsewhere")
+    log(f"--- phase {name} in its kernel worker: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def collect_kernel_worker(report, jobs, who):
+    """The results of a kernel phase's ``kernel_phase_job`` jobs: each as
+    ``collect_worker``, then its ``kernels`` entries added to the line (an
+    instantiation checked a second time keeps its first entry)."""
+    for job in jobs:
+        collect_worker(report, job, who)
+        have = {k["name"] for k in report["kernels"]}
+        for entry in job.result()["kernels"]:
+            if entry["name"] in have:
+                log(f"[{who} worker] {entry['name']} was checked twice: the "
+                    "line keeps the first entry")
+                continue
+            have.add(entry["name"])
+            report["kernels"].append(entry)
 
 
 def collect_worker(report, job, who):
@@ -940,10 +1088,10 @@ def phase_build(report):
              "MinTime<Chain>)", lambda: fused_backward_cuda(
                  chain_mt, f(2, N, 5), f(2, N - 1, 2), f(N - 1), obj32,
                  f(2))),
-            ("rollout_closed_loop_cuda: the pendulum under rk4 (only rk3 "
-             "has CUDA steps)", lambda: rollout_closed_loop_cuda(
-                 discretize(zoo.pendulum, "rk4"), f(2, 2), f(2, 4, 2),
-                 f(2, 3, 1), f(2, 3, 1, 2), f(2, 3, 1), f(2), 0.05)),
+            ("fused_backward_cuda: the pendulum under rk4 (K2 only: no "
+             "lane step in the JAX package)", lambda: fused_backward_cuda(
+                 discretize(zoo.pendulum, "rk4"), f(2, N, 2),
+                 f(2, N - 1, 1), f(N - 1), obj32, f(2))),
             ("rollout_closed_loop_cuda: a per-interval dt",
              lambda: rollout_closed_loop_cuda(
                  quad, f(2, 13), f(2, 4, 13), f(2, 3, 4), f(2, 3, 4, 13),
@@ -972,9 +1120,7 @@ def phase_build_report(report):
         for line in path.with_suffix(".log").read_text().splitlines():
             if line.strip():
                 log("nvcc:", line.strip())
-    for stem in ("sqrt_sweep", "rollout", "fused_al_forward",
-                 "fused_al_backward", "fused_forward", "fused_backward",
-                 "riccati_sweep"):
+    for stem in sorted(libs):
         for name, regs, stack, spill in ptxas_report(
                 libs[stem].with_suffix(".log").read_text()):
             log(f"ptxas {stem}: {name}: {regs} registers, {stack} B stack, "
@@ -1449,13 +1595,30 @@ def phase_slice(report, refs):
     check(np.median(dp) < REF_TOL, "the card disagrees with the CPU twins")
 
 
+def device_events(prof):
+    """(start µs, end µs, name) of every kernel and copy on the device in a
+    ``torch.profiler`` trace: from the profiler's raw events, which the
+    trace's event tree is built from (building it takes seconds for a
+    round's ~1e5 host and device events); from the tree where the raw
+    events are not there or hold no device event."""
+    from torch.autograd import DeviceType
+
+    raw = getattr(prof.profiler, "kineto_results", None)
+    out = [] if raw is None else [
+        (e.start_ns() / 1e3, e.end_ns() / 1e3, e.name()) for e in raw.events()
+        if e.device_type() == DeviceType.CUDA
+        and e.name() not in ("[memory]", "[OutOfMemory]")
+        and not getattr(e, "is_hidden_event", lambda: False)()]
+    return out or [(e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def profile_round(tag, one_round, iters, names, lanes=B):
     """Where one round's time goes: ``one_round()`` (warmed up) is timed
     plainly, then again under torch.profiler. The busy share is the union of
     the device's kernel and copy intervals in the profiled run over the
     plain run's wall time. ``names``: the kernels whose launches to count."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     one_round()
@@ -1472,11 +1635,11 @@ def profile_round(tag, one_round, iters, names, lanes=B):
     log(f"{tag}: one round of {iters} iterations on {lanes} lanes: "
         f"{wall * 1e3:.1f} ms plain ({wall_prof * 1e3:.1f} ms profiled), "
         f"launches {counts}, {res.host_syncs} host syncs")
-    dev_evts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_evts = device_events(prof)
     if not dev_evts:
         log(f"{tag}: device time not measured (no device events traced)")
         return
-    spans = sorted((e.time_range.start, e.time_range.end) for e in dev_evts)
+    spans = sorted((a, b) for a, b, _ in dev_evts)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -1484,9 +1647,9 @@ def profile_round(tag, one_round, iters, names, lanes=B):
         hi = max(hi, b)
     busy = (busy + hi - lo) / 1e3  # ms
     by_name = {}
-    for e in dev_evts:
-        t, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    for a, b, name in dev_evts:
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + (b - a) / 1e3, c + 1)
     total = sum(t for t, _ in by_name.values())
     log(f"{tag}: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms plain "
         f"wall = busy share {busy / (wall * 1e3):.3f}, idle share "
@@ -2171,11 +2334,15 @@ def phase_k5(report, lin):
 
     dev = torch.device("cuda", 0)
 
-    def three(ins, rho, reg_state=False):
+    def three(ins, rho, reg_state=False, plain_ms=None):
+        """Kernel, float32 plain version (its time appended to the list
+        ``plain_ms``), float64 plain."""
         k = riccati_sweep_cuda(*ins, rho, reg_state=reg_state)
         torch.cuda.synchronize()
-        p = scan_sweep(ins[0], ins[1], Expansion(*ins[2:]), rho,
-                       reg_state=reg_state)
+        p, ms = timed(lambda: scan_sweep(ins[0], ins[1], Expansion(*ins[2:]),
+                                         rho, reg_state=reg_state))
+        if plain_ms is not None:
+            plain_ms.append(ms)
         p64 = scan_sweep(ins[0].double(), ins[1].double(),
                          Expansion(*(t.double() for t in ins[2:])),
                          rho.double(), reg_state=reg_state)
@@ -2303,13 +2470,14 @@ def phase_k5(report, lin):
         n, m = ins[1].shape[-2:]
         Nk = ins[2].shape[1]
         rho = full(rho_v)
-        k, p, p64 = three(ins, rho)
+        # (the plain version timed in its comparison run: scan_sweep has
+        # run before, so this is not its first call)
+        times = []
+        k, p, p64 = three(ins, rho, plain_ms=times)
+        plain_ms = times[0]
         worst = compare_sweeps(f"{tag} ({n},{m}) rho={rho_v:g}", k, p, p64)
         check(int(k[4].sum()) <= B // 4, f"{tag}: most problems fail")
         ms_k = cuda_time_ms(lambda: riccati_sweep_cuda(*ins, rho), reps=10)
-        exp = Expansion(*ins[2:])
-        plain_ms = cuda_time_ms(lambda: scan_sweep(ins[0], ins[1], exp, rho),
-                                reps=2, warmup=1)
         bound_ms, bound_by = bound(
             B * (Nk - 1) * riccati_flops(n, m),
             nbytes(*ins, rho) + nbytes(k[0], k[1]) + 9 * B)
@@ -2447,15 +2615,19 @@ def search_inputs(st):
     return X[:, 0].contiguous(), d, J_prev, alpha0
 
 
-def rollout_eps(model64, ins, dt, Xp, Up, calm):
+def rollout_eps(model64, ins, dt, Xp, Up, calm, rollout64=None):
     """How far the float32 plain rollout (Xp, Up) sits from the float64 one
     on the same (float32) inputs ``ins`` = (x0, X, U, K, d, alpha), of
     scale, on the problems ``calm``: the floor that float32 rounding times
-    the gains puts under any float32 rollout."""
+    the gains puts under any float32 rollout. ``rollout64``, a list, gets
+    the float64 rollout (X, U, ok), for a caller that needs its cost or
+    its ok mask too."""
     from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
 
     X64, U64, ok64 = rollout_closed_loop(
         model64, *(t.double() for t in ins), dt)
+    if rollout64 is not None:
+        rollout64[:] = [X64, U64, ok64]
     calm = calm & ok64
     eX = float((Xp.double() - X64)[calm].abs().max()
                / max(1.0, float(X64[calm].abs().max())))
@@ -2481,6 +2653,7 @@ def k7b_case(report, st, alpha_share=None, ls_opts=LS_OPTS, j_own=False,
     from trajopt_tpu_torch.ops.cost import total_cost
     from trajopt_tpu_torch.ops.cuda_fused import (
         fused_forward, fused_forward_cuda)
+    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
     from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
 
     name = st["name"]
@@ -2520,8 +2693,9 @@ def k7b_case(report, st, alpha_share=None, ls_opts=LS_OPTS, j_own=False,
                / max(1.0, float(Xp[calm].abs().max())))
     eU = float((Uk - Up)[calm].abs().max()
                / max(1.0, float(Up[calm].abs().max())))
+    rollout64 = []
     pX, pU = rollout_eps(st["p64"].model, (x0, X, U, st["K"], d, ak),
-                         st["dt"], Xp, Up, calm & (ak > 0))
+                         st["dt"], Xp, Up, calm & (ak > 0), rollout64)
     # with ``j_own``, J too within three times the float32 plain version's
     # own distance from the float64 rollout's cost at the same steps: stiff
     # gains (|K| ~ 3e2 on the cartpole rig) amplify float32 rounding of the
@@ -2530,9 +2704,7 @@ def k7b_case(report, st, alpha_share=None, ls_opts=LS_OPTS, j_own=False,
     live = calm & (ak > 0)
     if j_own and bool(live.any()):
         p64 = st["p64"]
-        X64, U64, _ = rollout_closed_loop(
-            p64.model, *(t.double() for t in (x0, X, U, st["K"], d, ak)),
-            st["dt"])
+        X64, U64 = rollout64[:2]
         J64 = total_cost(p64.obj, X64, U64, p64.dt_traj())
         pJ = float(((Jp.double() - J64).abs()
                     / J64.abs().clamp(min=1e-6))[live].max())
@@ -2552,9 +2724,12 @@ def k7b_case(report, st, alpha_share=None, ls_opts=LS_OPTS, j_own=False,
     for lane in K4_DIVERGE:
         check(float(ak[lane]) == float(ap[lane]),
               f"{tag} lane {lane}: step differs from the plain version")
-    # did the blown-up lanes' first candidates trip the guard?
-    ok0 = rollout_closed_loop(model, x0, X, U, st["K"], d, alpha0,
-                              st["dt"])[2]
+    # did the blown-up lanes' first candidates trip the guard? (checked on
+    # the quadrotor and the cart-pole, by the plain version; only logged
+    # for the others, by K2, which a chain's plain rollout costs seconds)
+    first = rollout_closed_loop if name in ("quadrotor", "cartpole") \
+        else rollout_closed_loop_cuda
+    ok0 = first(model, x0, X, U, st["K"], d, alpha0, st["dt"])[2]
     died = [lane for lane in K4_DIVERGE if not bool(ok0[lane])]
     log(f"{tag} branches: lanes {K4_DIVERGE} took alpha "
         f"{[float(ak[i]) for i in K4_DIVERGE]} (first candidate "
@@ -2618,6 +2793,21 @@ def phase_k2_full(report, setups, maze):
                 diverged=label != "quadrotor_slack")
 
 
+def warm_plain(model, ins, dt):
+    """One step of the first problem of ``ins`` = (x0, X, U, K, d, alpha)
+    through ``rollout_closed_loop``, before the timed run: the first plain
+    call of a model or rule in a process sets ``torch.func`` and the card's
+    solver libraries up (seconds), which is not the plain version's time."""
+    import torch
+    from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
+
+    x0, X, U, K, d, alpha = ins
+    if torch.is_tensor(alpha) and alpha.ndim:
+        alpha = alpha[:1]
+    rollout_closed_loop(model, x0[:1], X[:1, :2], U[:1, :1], K[:1, :1],
+                        d[:1, :1], alpha, dt)
+
+
 def k2_case(report, label, model, model64, ins, dt, diverged=True):
     """K2 on the inputs ``ins`` = (x0, X, U, K, d, alpha) against
     ``rollout_closed_loop``: ok masks equal, X and U within K7B_X_TOL of
@@ -2631,6 +2821,7 @@ def k2_case(report, label, model, model64, ins, dt, diverged=True):
     Nk, n, m = ins[1].shape[1], model.n, model.m
     tag = f"K2 {label} (n={n}, m={m}, N={Nk})"
     Xk, Uk, okk = rollout_closed_loop_cuda(model, *ins, dt)
+    warm_plain(model, ins, dt)
     torch.cuda.synchronize()
     (Xp, Up, okp), plain_ms = timed(
         lambda: rollout_closed_loop(model, *ins, dt))
@@ -3247,16 +3438,16 @@ def al_case(report, st):
                / max(1.0, float(Up[calm].abs().max())))
     # stiff gains (|K| ~ 1e2 on the car_escape stack) amplify float32
     # rounding of the state: the floor under any float32 rollout
+    rollout64 = []
     pX, pU = rollout_eps(p64.model, (x0, X, U, K, d, ak), p32.dt, Xp, Up,
-                         calm & (ak > 0))
+                         calm & (ak > 0), rollout64)
     # and, where ``st["j_own"]`` (the chains), into the AL cost: J is held
     # within three times the float32 plain version's distance from the
     # float64 rollout's cost at the same steps, too (K7b's rule)
     pJ = 0.0
     live = calm & (ak > 0)
     if st.get("j_own") and bool(live.any()):
-        X64r, U64r, _ = rollout_closed_loop(
-            p64.model, *(t.double() for t in (x0, X, U, K, d, ak)), p32.dt)
+        X64r, U64r = rollout64[:2]
         lam64, mu64 = st["data64"][2:]
         J64 = (total_cost(p64.obj, X64r, U64r, p64.dt_traj())
                + canon_al_cost(st["canon64"], X64r, pad_terminal(U64r),
@@ -3286,7 +3477,10 @@ def al_case(report, st):
     check(torch.equal(rk[same], rp[same])
           and torch.equal(drk[same], drp[same]),
           f"{tag}: rho or drho differ from the plain version")
-    ok0 = rollout_closed_loop(model, x0, X, U, K, d, alpha0, p32.dt)[2]
+    # (the first candidates, for the log: by K2, which a chain's plain
+    # rollout costs seconds)
+    ok0 = rollout_closed_loop_cuda(model, x0, X, U, K, d, alpha0,
+                                   p32.dt)[2]
     died = [lane for lane in K4_DIVERGE if not bool(ok0[lane])]
     log(f"{tag} branches: lanes {K4_DIVERGE} took alpha "
         f"{[float(ak[i]) for i in K4_DIVERGE]} (first candidate "
@@ -3371,8 +3565,8 @@ def al_case(report, st):
                       [model, *ins, p32.dt], range(1, 7))
 
     # ... and K5's (n, m + n) shape on the AL expansion of al_cost_fns
-    if any(e["name"] == f"riccati_sweep_{n}x{m}"
-           for e in report["kernels"]):
+    if f"riccati_sweep_{n}x{m}" in [e["name"] for e in report["kernels"]] \
+            + report.get("checked_elsewhere", []):
         return                   # the pendulum's shape is the same
     tag = f"K5 {label} ({n},{m}), N={Nk}"
     X64, U64, lam64, mu64 = st["data64"]
@@ -3538,12 +3732,14 @@ def phase_escape(report, refs):
           "the CPU reference misses the JAX test's bars")
 
 
-def phase_escape_pool(report, refs):
-    """Path 2: ``solve_batch_queued_altro_retry`` on 512 ``car_escape``
-    starts over 128 lanes in float32, then ``pn_polish_batch`` on the result:
-    the first ``POLISH_F64`` problems cast up to float64, ``POLISH_CHUNK`` at
-    a time (the Schur blocks of one problem are 2 × 101 × 180² values), and
-    the first ``POLISH_CHUNK`` in float32."""
+def escape_pool_job(report):
+    """Path 2, in a worker process on the card: ``solve_batch_queued_altro_retry``
+    on 512 ``car_escape`` starts over 128 lanes in float32, then
+    ``pn_polish_batch`` on the result: the first ``POLISH_F64`` problems
+    cast up to float64, ``POLISH_CHUNK`` at a time (the Schur blocks of one
+    problem are 2 × 101 × 180² values), and the first ``POLISH_CHUNK`` in
+    float32. Returns the first two problems' starts, c_max and inner
+    iterations, for ``phase_escape_pool`` to hold to the CPU reference."""
     import torch
     from trajopt_tpu_torch.parallel.batch import (
         pn_polish_batch, solve_batch_queued_altro,
@@ -3621,15 +3817,23 @@ def phase_escape_pool(report, refs):
         check(share6 >= JAX_ESCAPE_POLISH[name] - POLISH_MARGIN,
               f"{tag}: share with c_max < 1e-6 too low")
 
+    return dict(x0s=x0s_np[:2].tolist(), c_max=res.c_max[:2].tolist(),
+                iterations=res.iterations_total[:2].tolist())
+
+
+def phase_escape_pool(report, refs, job):
+    """Path 2 (``escape_pool_job``), collected from its worker, its first
+    two problems held to the float64 reference on the CPU."""
+    card = collect_worker(report, job, "slice 4 pool")
     ref = refs.pop("ref_escape_pool").result()
     ok_ref = [c < 1e-3 for c in ref["c_max"]]
     log(f"reference: pool problems 0 and 1 in float64 on the CPU by the "
         f"plain versions ({ref['seconds']:.1f} s): c_max {ref['c_max']} "
-        f"(card: {res.c_max[:2].tolist()}), inner iterations "
-        f"{ref['iterations']} (card: {res.iterations_total[:2].tolist()})")
-    check(ok_ref == (res.c_max[:2] < 1e-3).tolist(),
+        f"(card: {card['c_max']}), inner iterations {ref['iterations']} "
+        f"(card: {card['iterations']})")
+    check(ok_ref == [c < 1e-3 for c in card["c_max"]],
           "the card disagrees in outcome with the CPU plain versions")
-    check(np.array_equal(x0s_np[:2], escape_starts(
+    check(np.array_equal(np.array(card["x0s"]), escape_starts(
         np.array([2.5, 2.5, 0.0]), 2)), "the reference starts elsewhere")
 
 
@@ -4238,14 +4442,12 @@ def kuka_free_setup(seed=5):
                 Nk=p32.N)
 
 
-def phase_rig_kernels(report):
-    """Every new instantiation of slice 6 against its plain version on the
-    card, at B = 128 and each problem's own N: K7a (with its Jacobians
-    against ``jacobian_traj`` and against K5 fed them) and K7b (diverging
-    lanes, a search that runs out) for the three rigs on their zoo
-    problems and for kuka on path (a)'s; then K3, K4, K2 and K5 for each rig
-    with and without slacks through ``al_case`` (the double pendulum with a
-    goal constraint), K2 on K3's gains at the steps K4 accepted."""
+def phase_rig_fused_kernels(report):
+    """Phase ``rig_kernels``, first job: every new instantiation of slice 6
+    against its plain version on the card, at B = 128 and each problem's
+    own N: K7a (with its Jacobians against ``jacobian_traj`` and against K5
+    fed them) and K7b (diverging lanes, a search that runs out) for the
+    three rigs on their zoo problems and for kuka on path (a)'s."""
     # (the feedforward d and ΔV of every chain instantiation printed, not
     # held: at the cartpole rig's stiff knots, |K| ~ 9e2, two float32
     # reductions of the same Jacobians part by 4e-3 of their scale in K3,
@@ -4263,6 +4465,13 @@ def phase_rig_kernels(report):
                   dv_tol=AL_DV_TOL, jac_rtol=KUKA_JAC_RTOL, hold_d=False)
     k7b_case(report, st, alpha_share=K4_ALPHA_SHARE, ls_opts=LS_OPTS_CHAIN,
              j_own=True)
+
+
+def phase_rig_al_kernels(report):
+    """Phase ``rig_kernels``, second job: K3, K4, K2 and K5 for each rig
+    with and without slacks through ``al_case`` (the double pendulum with a
+    goal constraint), K2 on K3's gains at the steps K4 accepted (a K5 shape
+    that phase 10 or 14 checked is not checked again)."""
     for rig in RIGS:
         for slack in (False, True):
             st = al_setup(rig, slack)
@@ -4634,13 +4843,18 @@ def form_label(name, slack, mintime):
                                                   else "")
 
 
-def form_problem(name, slack, mintime, dtype, device=None):
-    """``form_base_problem(name)`` line-seeded and through the infeasible-start
-    transform if ``slack``, then through the minimum-time transform if
-    ``mintime`` (the order of ``altro_solve``)."""
+def form_problem(name, slack, mintime, dtype, device=None, rule="rk3"):
+    """``form_base_problem(name)`` with its model under the integrator
+    ``rule``, line-seeded and through the infeasible-start transform if
+    ``slack``, then through the minimum-time transform if ``mintime`` (the
+    order of ``altro_solve``)."""
     import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.models import zoo
 
     prob = form_base_problem(name, dtype, device)
+    if rule != "rk3":
+        prob = tt.update_problem(prob, model=tt.discretize(zoo.MODELS[name],
+                                                           rule))
     if slack:
         prob = tt.infeasible_problem(line_seeded(prob))
     if mintime:
@@ -5276,6 +5490,411 @@ def phase_slice8_mintime(report, job):
     report[tag] = dict(wall_s=out["wall"], share=share, median_tt=med)
 
 
+# ------------------------------------------------------------- slice 9
+
+def slice9_inputs(name, slack, mintime, rule, seed=17, device=None,
+                  gains="all"):
+    """K2's inputs for one form under ``rule`` (``SLICE9_B`` problems,
+    ``SLICE9_N`` knots, SLICE9_N_IMPLICIT under an implicit rule and for
+    kuka): the problem in float64 and float32, starts with 0.02 noise on
+    every base state, the problem's control seed with 0.02 noise (none on
+    the quadrotor's hover thrust; a chain's slacks 0; kuka each start's
+    gravity hold, steps of SLICE9_DT_KUKA), X the start at every knot (the
+    reference the gains act on; δx is the motion since the start), gains
+    K of N(0, 0.05²) and a feedforward d of N(0, 0.02²) on the controls
+    ``gains`` says (``all``: every control, the slacks and h among them;
+    ``slack``: all but h; ``base``: the base model's alone, the others
+    following their seed), α = 1; under an explicit rule lanes
+    ``SLICE9_DIVERGE`` with the base model's controls in d blown up by 1e5
+    (not the slacks' or h's). Not under an implicit rule: there a blown-up
+    step is one no Newton loop meets in float32 within its 1000 trips,
+    and whether the last trip's residual sits above the tolerance or just
+    under it is float32 rounding; phase ``slice9_kernels`` checks the
+    poisoning on a step that fails in every type."""
+    import torch
+
+    p64 = form_problem(name, slack, mintime, torch.float64, device, rule)
+    p32 = form_problem(name, slack, mintime, torch.float32, device, rule)
+    Bz, n, m = SLICE9_B, p64.n, p64.m
+    Nk = min(p64.N, SLICE9_N_IMPLICIT if "implicit" in rule or name == "kuka"
+             else SLICE9_N)
+    dev = p64.device
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    nb = n - 1 if mintime else n
+    x0s = p64.x0[None] + t(np.concatenate(
+        [rng.normal(size=(Bz, nb)) * 0.02, np.zeros((Bz, n - nb))], axis=1))
+    U = p64.U[None, :Nk - 1].expand(Bz, -1, -1)
+    if not name.startswith("quadrotor"):
+        U = U + t(rng.normal(size=(Bz, Nk - 1, m)) * 0.02)
+    U = U.contiguous()
+    if slack and name in SLICE8_CHAINS:
+        U[..., p64.model.slack_m:m - mintime] = 0.0
+    if name == "kuka":
+        U[..., :7] = kuka_hold_seeds(p64, x0s)[:, :Nk - 1]
+        if mintime:
+            U[..., -1] = 0.02 ** 0.5
+    dt = SLICE9_DT_KUKA if name == "kuka" else p64.dt
+    X = x0s[:, None].expand(-1, Nk, -1)
+    K = t(rng.normal(size=(Bz, Nk - 1, m, n)) * 0.05)
+    d = t(rng.normal(size=(Bz, Nk - 1, m)) * 0.02)
+    mb = p64.model.slack_m or m - mintime
+    seeded = dict(all=m, slack=m - mintime, base=mb)[gains]
+    K[..., seeded:, :] = 0.0
+    d[..., seeded:] = 0.0
+    for lane in () if "implicit" in rule else SLICE9_DIVERGE:
+        d[lane, :, :mb] *= 1e5
+    ins = [a.float().contiguous() for a in (
+        X[:, 0], X, U, K, d, torch.ones(Bz, dtype=torch.float64,
+                                         device=dev))]
+    return p64, p32, ins, dt
+
+
+def slice9_ops(cm, model, rule, slack, mintime, trips, steps):
+    """Operations of K2's ``steps`` steps of ``model`` (entry ``cm``) under
+    ``rule``: an explicit rule's stages' dynamics evaluations and
+    combinations; an implicit rule's per step (f(x) for RK3, the last
+    residual) and per Newton trip of this run's data (``trips``, the plain
+    version's count): the residual's evaluations, the n columns of dG/dy in
+    Dual (three times an evaluation each; RK3 two passes), the warp LU and
+    its substitutions (2n³/3 + 2n²); the slacks' n additions, h²."""
+    from trajopt_tpu_torch.ops.cuda_models import base_label
+
+    table = getattr(model, "chain_table", None)
+    dyn = DYN_OPS[base_label(cm)] if table is None else chain_dyn_ops(table)
+    n = cm.n - mintime
+    extra = (n if slack else 0) + mintime
+    if rule in ("euler", "midpoint", "rk4"):
+        stages = dict(euler=1, midpoint=2, rk4=4)[rule]
+        return steps * (stages * dyn + 3 * stages * n + extra)
+    evals = 1 if rule == "midpoint_implicit" else 2
+    lu = 2 * n ** 3 // 3 + 2 * n * n
+    per_trip = evals * dyn + evals * n * 3 * dyn + lu + 6 * n
+    return steps * (evals * dyn + 8 * n + extra) + trips * per_trip
+
+
+@contextlib.contextmanager
+def newton_trips(counts):
+    """Within the block, the plain Newton loop
+    (``ops/integration.py::_newton_iterate``) appends to ``counts`` a count
+    of its trips, summed over the problems, as device tensors: a problem is
+    active on a trip while its residual exceeds its tolerance (a stopped
+    problem's is evaluated again at the same y), so each residual the loop
+    evaluates counts the problems above their tolerance, its last one
+    excepted (no trip follows it)."""
+    import torch
+    from trajopt_tpu_torch.ops import integration
+
+    inner = integration._newton_iterate
+
+    def counted(x, residual_fn, newton_fn):
+        tol = integration._implicit_tol(x)
+        active = []
+
+        def residual(y):
+            g = residual_fn(y)
+            active.append((torch.linalg.vector_norm(g, dim=-1) > tol).sum())
+            return g
+
+        out = inner(x, residual, newton_fn)
+        counts.extend(active[:-1])
+        return out
+
+    integration._newton_iterate = counted
+    try:
+        yield
+    finally:
+        integration._newton_iterate = inner
+
+
+def slice9_case(report, name, slack, mintime, rule):
+    """K2 under ``rule`` on ``slice9_inputs`` (random gains on every
+    control, h's left to its seed on the minimum-time forms of
+    SLICE9_H_SEEDED) against ``rollout_closed_loop``: the ok masks equal,
+    X and U within K7B_X_TOL of scale or three times the float32 plain
+    version's distance from the float64 one on the same inputs, over the
+    problems alive in float64 too (lanes SLICE9_DIVERGE left out)."""
+    import torch
+    from trajopt_tpu_torch.ops.cuda_models import cuda_model
+    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
+    from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
+
+    p64, p32, ins, dt = slice9_inputs(
+        name, slack, mintime, rule,
+        gains="slack" if mintime and name in SLICE9_H_SEEDED else "all")
+    model = p32.model
+    cm = cuda_model(model, "chip_smoke", slack_ok=True, k2_only_ok=True)
+    Bz, Nk, n = ins[1].shape
+    tag = f"K2 {cm.label} (n={n}, m={cm.m}, B={Bz}, N={Nk})"
+    Xk, Uk, okk = rollout_closed_loop_cuda(model, *ins, dt)
+    warm_plain(model, ins, dt)
+    torch.cuda.synchronize()
+    counts = []
+    with newton_trips(counts):
+        (Xp, Up, okp), plain_ms = timed(
+            lambda: rollout_closed_loop(model, *ins, dt))
+    trips = int(torch.stack(counts).sum()) if counts else 0
+    check(torch.equal(okk, okp), f"{tag}: ok masks differ from the plain "
+          f"version ({okk.tolist()} against {okp.tolist()})")
+    calm = okk.clone()
+    calm[list(SLICE9_DIVERGE)] = False
+    rollout64 = []
+    pX, pU = rollout_eps(p64.model, ins, dt, Xp, Up, calm, rollout64)
+    # the kernel is held on the problems the floor is taken over: those the
+    # float64 rollout keeps alive too
+    calm = calm & rollout64[2]
+    check(int(calm.sum()) >= Bz // 2, f"{tag}: fewer than half the problems "
+          "stay alive")
+    eX = float((Xk - Xp)[calm].abs().max()
+               / max(1.0, float(Xp[calm].abs().max())))
+    eU = float((Uk - Up)[calm].abs().max()
+               / max(1.0, float(Up[calm].abs().max())))
+    log(f"{tag}: ok {int(okk.sum())}/{Bz} in both ({int(calm.sum())} held: "
+        f"alive in float64 too, lanes {SLICE9_DIVERGE} out), X {eX:.2e} and U "
+        f"{eU:.2e} of scale (tol {K7B_X_TOL:g}, or 3x the float32 plain "
+        f"version's distance from float64: X {pX:.2e}, U {pU:.2e})")
+    check(eX < max(K7B_X_TOL, 3 * pX) and eU < max(K7B_X_TOL, 3 * pU),
+          f"{tag}: disagrees with the plain version")
+    ms_k = cuda_time_ms(lambda: rollout_closed_loop_cuda(model, *ins, dt),
+                        reps=20)
+    bound_ms, bound_by = bound(
+        Bz * (Nk - 1) * mm(cm.m, 1, n)
+        + slice9_ops(cm, model, rule, slack, mintime, trips, Bz * (Nk - 1)),
+        nbytes(*ins) + nbytes(Xk, Uk, okk))
+    log(f"{tag} time per rollout: kernel {ms_k:.4f} ms, plain version "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms by {bound_by}"
+        + (f" ({trips} Newton trips)" if "implicit" in rule else ""))
+    kernel_entry(report, name=f"rollout_closed_loop_{cm.label}",
+                 source=f"trajopt_tpu_torch/csrc/rollout_{rule}.cu",
+                 replaces="trajopt_tpu/ops/pallas_rollout.py:260",
+                 max_abs_err=float((Xk - Xp)[calm].abs().max()), ms=ms_k,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def slice9_forms():
+    """(name, slack, mintime, rule) of every K2 form slice 9 checks."""
+    from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS
+
+    forms = []
+    for rule in SLICE9_RULES:
+        for name in CUDA_STEPS:
+            forms.append((name, False, False, rule))
+            if name in SLICE9_FORM_MODELS:
+                forms += [(name, slack, mintime, rule)
+                          for slack, mintime in ((True, False),
+                                                 (False, True), (True, True))]
+    return forms
+
+
+def slice9_poison_inputs(rule, dtype, device):
+    """The pendulum under ``rule`` and K2's inputs from SLICE9_POISON_X:
+    one step of dt = 2, no gains."""
+    import torch
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.models import zoo
+
+    x0 = torch.tensor(SLICE9_POISON_X, dtype=dtype, device=device)
+    Bz = x0.shape[0]
+    z = lambda *s: torch.zeros(s, dtype=dtype, device=device)  # noqa
+    return tt.discretize(zoo.pendulum, rule), [
+        x0, x0[:, None].expand(-1, 2, -1).contiguous(), z(Bz, 1, 1),
+        z(Bz, 1, 1, 2), z(Bz, 1, 1), torch.ones(Bz, dtype=dtype,
+                                                  device=device)]
+
+
+def slice9_poison_plain(rule):
+    """The plain versions of the non-converging step on the CPU, in float32
+    and float64 (in a worker process: 1000 Newton trips of a few tiny ops
+    each): (ok float32, X float32, ok float64)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
+
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        model, ins = slice9_poison_inputs(rule, dtype, "cpu")
+        out.append(rollout_closed_loop(model, *ins, 2.0))
+    return out[0][2], out[0][0], out[1][2]
+
+
+def phase_slice9_kernels(report):
+    """Slice 9's K2 forms against ``rollout_closed_loop``: every base model
+    under every rule other than RK3, and the slack, minimum-time and
+    minimum-time slack forms of SLICE9_FORM_MODELS under every rule
+    (``slice9_case``); then the non-converging implicit step, which must
+    come out NaN with the problem dead in K2 as in the plain version (whose
+    runs go on in worker processes meanwhile)."""
+    import torch
+    from trajopt_tpu_torch.ops.cuda_rollout import rollout_closed_loop_cuda
+    from trajopt_tpu_torch.ops.cuda_models import rule_label
+
+    rules = ("midpoint_implicit", "rk3_implicit")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(rules),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        plain = [pool.submit(slice9_poison_plain, rule) for rule in rules]
+        for form in slice9_forms():
+            slice9_case(report, *form)
+        dev = torch.device("cuda", 0)
+        for rule, job in zip(rules, plain):
+            model, ins = slice9_poison_inputs(rule, torch.float32, dev)
+            x0, Bz = ins[0], ins[0].shape[0]
+            Xk, _, okk = rollout_closed_loop_cuda(model, *ins, 2.0)
+            okp, Xp, ok64 = job.result()
+            tag = (f"K2 {rule_label('pendulum', rule)}: the non-converging "
+                   "step at dt = 2")
+            log(f"{tag}: alive {okk.tolist()} (plain version {okp.tolist()}, "
+                f"float64 {ok64.tolist()}); the benign start's step "
+                f"{Xk[-1, 1].tolist()} (plain {Xp[-1, 1].tolist()})")
+            check(okk.tolist() == okp.tolist() == ok64.tolist()
+                  == [False] * (Bz - 1) + [True], f"{tag}: not poisoned")
+            check(torch.equal(Xk[:-1], x0[:-1, None].expand(-1, 2, -1)),
+                  f"{tag}: a dead problem did not hold its start")
+            check(float((Xk[-1].cpu() - Xp[-1]).abs().max()) < 1e-4,
+                  f"{tag}: the benign step disagrees")
+
+
+def slice9_pendulum(rule, dtype, device=None):
+    """tests/test_ilqr.py:36-50 under ``rule``."""
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.models import zoo
+
+    n, m, N = 2, 1, 31
+    xf = np.array([np.pi, 0.0])
+    cons = tt.ConstraintSetBuilder(N)
+    cons.add(tt.bound_constraint(n, m, u_min=-3.0, u_max=3.0))
+    cons.add(tt.goal_constraint(xf))
+    return tt.problem(tt.discretize(zoo.pendulum, rule), tt.LQRObjective(
+        np.eye(n) * 1e-3, np.eye(m) * 1e-3, np.eye(n) * 1e-3, xf, N,
+        dtype=dtype, device=device), constraints=cons, x0=np.zeros(n),
+        xf=xf, N=N, dt=0.15, U0=np.ones((N - 1, m)), dtype=dtype,
+        device=device)
+
+
+def jax_slice9():
+    """tools/slice9_gates_jax.jsonl by (rule, type)."""
+    path = ROOT / "tools" / "slice9_gates_jax.jsonl"
+    return {(d["rule"], d["dtype"]): d
+            for d in map(json.loads, path.read_text().splitlines())}
+
+
+def slice9_job(report):
+    """Path 9 in a worker process on the card (``run_worker``): per rule
+    the pendulum swing-up pool (``solve_batch``, phase-split on K5 (2, 1)
+    and K2 ``pendulum_under_<rule>``), each start's c_max and goal error;
+    then the minimum-time ``altro_solve`` under rk3_implicit (K5 (3, 2), K2
+    ``pendulum_mintime_under_rk3_implicit``), cut to SLICE9_MINTIME_OUTER
+    outer iterations, checked for finite states."""
+    import torch
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.cuda_models import rule_label
+
+    pools = {}
+    warm = tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
+        iterations=2))
+    for rule in SLICE9_RULES:
+        prob = slice9_pendulum(rule, torch.float32)
+        starts = np.random.default_rng(0).normal(size=(1024, 2)) * 0.02
+        x0s = torch.as_tensor(starts[:SLICE9_POOL], dtype=torch.float32,
+                              device=prob.device)
+        res = run_arm(report, f"slice 9 pendulum {rule}", prob,
+                      tt.ALOptions(), x0s,
+                      ("riccati_sweep_2x1", "rollout_closed_loop_"
+                       + rule_label("pendulum", rule)), warm)
+        pools[rule] = dict(c_max=res.c_max.tolist(),
+                           err=(res.X[:, -1] - prob.xf).norm(dim=-1).tolist())
+    opts = mintime_options()
+    opts = tt.ALTROOptions(
+        opts_al=tt.ALOptions(iterations=SLICE9_MINTIME_OUTER,
+                             penalty_scaling=10.0),
+        R_minimum_time=opts.R_minimum_time, dt_max=opts.dt_max,
+        dt_min=opts.dt_min)
+    prob = tt.update_problem(
+        mintime_pendulum(torch.float32),
+        model=slice9_pendulum("rk3_implicit", torch.float32).model)
+    tag = (f"slice 9 the minimum-time pendulum under rk3_implicit, "
+           f"{SLICE9_MINTIME_OUTER} outer iterations")
+    res, wall, _ = run_counted(report, tag, lambda: tt.altro_solve(
+        prob, opts, minimum_time=True), (
+            "riccati_sweep_3x2", "rollout_closed_loop_"
+            + rule_label("pendulum_mintime", "rk3_implicit")))
+    check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite")
+    log(f"{tag}: c_max {float(res.c_max):.3e}, tt {float(res.tt):.4f} "
+        "(printed, not held: a cut drive)")
+    return pools
+
+
+def slice9_drives_job(report, rules):
+    """The launch-only drives of slice 9's other K2 forms, in a worker
+    process on the card: per rule of ``rules``, ``solve_batch`` on 2 starts
+    of each base
+    model's problem (``form_base_problem``) for its plain form, and for
+    SLICE9_FORM_MODELS also on the problem's slack (line-seeded),
+    minimum-time and minimum-time slack forms (the transforms of
+    ``altro_solve``, without its projection: an implicit rule's plain
+    projection is a Newton loop a knot on the host); one outer iteration of
+    SLICE9_DRIVE_INNER inner ones, ``fused=True`` (which no rule but RK3
+    takes: K3, K4, K7a and K7b must not launch). Outcomes are printed, not
+    held."""
+    import torch
+    import trajopt_tpu_torch as tt
+    from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS, rule_label
+
+    opts = tt.ALOptions(iterations=1, opts_uncon=tt.iLQROptions(
+        iterations=SLICE9_DRIVE_INNER, fused=True))
+    for rule in rules:
+        for name in CUDA_STEPS:
+            forms = ((False, False),) + (
+                ((True, False), (False, True), (True, True))
+                if name in SLICE9_FORM_MODELS else ())
+            for slack, mintime in forms:
+                prob = form_problem(name, slack, mintime, torch.float32,
+                                    rule=rule)
+                x0s = prob.x0[None].repeat(2, 1)
+                U0s = kuka_hold_seeds(prob, x0s) if name == "kuka" else None
+                label = rule_label(form_label(name, slack, mintime), rule)
+                tag = f"slice 9 {label} solve_batch, 2 starts"
+                res, wall, _ = run_counted(
+                    report, tag, lambda: tt.solve_batch(prob, opts, x0s, U0s),
+                    (f"riccati_sweep_{prob.n}x{prob.m}",
+                     f"rollout_closed_loop_{label}"))
+                check(bool(torch.isfinite(res.X).all()), f"{tag}: non-finite")
+
+
+def phase_slice9(report, job, *drives):
+    """Path 9, collected from its worker (``slice9_job``): each rule's
+    shares of c_max < 1e-3 and of the goal within 2e-3 at least the JAX
+    package's float32 shares on the same starts less GATE_MARGIN; and the
+    drives of the other forms (``slice9_drives_job``, the explicit and the
+    implicit rules in a worker each)."""
+    pools = collect_worker(report, job, "slice 9")
+    for each in drives:
+        collect_worker(report, each, "slice 9 drives")
+    ref = jax_slice9()
+    for rule in SLICE9_RULES:
+        c = np.array(pools[rule]["c_max"])
+        e = np.array(pools[rule]["err"])
+        r = ref[rule, "float32"]
+        shares = dict(cmax_1e3=float((c < 1e-3).mean()),
+                      goal_2e3=float((e < 2e-3).mean()))
+        tag = f"slice 9 pendulum {rule}"
+        log(f"{tag}: c_max < 1e-3 on {shares['cmax_1e3']:.4f}, the goal "
+            f"within 2e-3 on {shares['goal_2e3']:.4f}; median c_max "
+            f"{np.median(c):.3e}, goal error {np.median(e):.3e} (the JAX "
+            f"package in float32 on the same {r['count']} starts: "
+            f"{r['share_cmax_1e3']}, {r['share_goal_2e3']}; gates less "
+            f"{GATE_MARGIN})")
+        check(shares["cmax_1e3"] >= r["share_cmax_1e3"] - GATE_MARGIN
+              and shares["goal_2e3"] >= r["share_goal_2e3"] - GATE_MARGIN,
+              f"{tag}: below the JAX package's shares")
+        report[tag] = shares
+
+
 # ------------------------------------------ float64 references on the CPU
 
 def cpu_reference(kind, x0s):
@@ -5423,19 +6042,30 @@ def main() -> int:
 
 
 PHASES = ("build", "k1", "k2", "slice1", "profile1", "build_report", "k3",
-          "k4", "maze", "profile2", "k5", "k7a", "k7b", "k2full", "almodels",
-          "slice3", "profile3", "escape", "escape_pool", "profile4",
-          "slice4models",
-          "kuka_kernels", "slice7_kernels", "slice8_kernels", "rig_kernels",
-          "kuka_profile", "kuka", "kuka_slack", "slice7", "slice6models",
-          "kuka_pool", "slice6", "slice7_mintime", "slice7_split", "slice8",
-          "slice8_mintime")
+          "k4", "maze", "k5", "k7a", "k7b", "k2full", "almodels", "slice3",
+          "escape", "slice4models", "kuka_kernels", "slice7_kernels",
+          "slice8_kernels", "slice9_kernels", "rig_kernels", "profile2",
+          "profile3", "profile4", "kuka_profile", "kuka", "kuka_slack",
+          "slice7", "slice6models", "escape_pool", "kuka_pool", "slice6",
+          "slice7_mintime", "slice7_split", "slice8", "slice8_mintime",
+          "slice9")
+
+
+# the kernel phases that run in two worker processes on the card beside the
+# main process's phases 6 to 20 (``kernel_phase_job``), started in this
+# order once the build is done; ``rig_kernels`` in two jobs, its K7a/K7b
+# half then, its AL half after phase 14 (``almodels``), told which K5
+# shapes the main process has checked
+KERNEL_WORKER_PHASES = ("kuka_kernels", "slice8_kernels", "rig_kernels",
+                        "slice7_kernels", "slice9_kernels")
 
 
 def run_phases(report, only):
     """Run the phases (all of them, or the names in ``only``, for a short
     first check of a new kernel) and print the result lines."""
+    global TIMING_LOCK, GPU_PIDS
     import torch
+    from trajopt_tpu_torch.kernels import _build
     from trajopt_tpu_torch.utils.tree import precise_context
 
     failed = []
@@ -5456,19 +6086,35 @@ def run_phases(report, only):
             log(f"--- phase {title}: FAILED")
             return None
 
+    spawn = multiprocessing.get_context("spawn")
     # the float64 reference solves run on the CPU in worker processes while
     # the GPU phases go on; each phase that needs one waits for it
     workers = concurrent.futures.ProcessPoolExecutor(
-        max_workers=4, mp_context=multiprocessing.get_context("spawn"))
-    # the host-bound paths on the card, a worker process each: slice 7's
-    # path (a) in three (``mintime_job``), slice 8's path (b)
-    # (``mintime_rig_job``), and through ``run_worker`` the kuka pool,
-    # slice 6's paths (in two), slice 7's phase-split arms and slice 8's
-    # path (a)
+        max_workers=4, mp_context=spawn)
+    # the kernel phases of KERNEL_WORKER_PHASES, two at a time beside the
+    # main process; a kernel is timed with the other two stopped
+    # (``timing_turn``)
+    TIMING_LOCK = spawn.Lock()
+    GPU_PIDS = spawn.Array("i", 3, lock=False)
+    GPU_PIDS[0] = os.getpid()
+    kernel_workers = concurrent.futures.ProcessPoolExecutor(
+        max_workers=2, mp_context=spawn, initializer=init_kernel_worker,
+        initargs=(TIMING_LOCK, GPU_PIDS, T0))
+    # the host-bound paths on the card, a worker process each, all started
+    # at once after the kernel phases: slice 7's path (a) in three
+    # (``mintime_job``), slice 8's path (b) (``mintime_rig_job``), and
+    # through ``run_worker`` slice 4's pool, the kuka pool, slice 6's paths
+    # (in two), slice 7's phase-split arms, slice 8's path (a), slice 9's
+    # path and its drives (in two)
     gpu_workers = concurrent.futures.ProcessPoolExecutor(
-        max_workers=9, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=14, mp_context=spawn)
     jobs7 = job8 = None
-    jobs = {}
+    jobs, kjobs = {}, {}
+
+    def kernel_job(name, phase, *a):
+        kjobs.setdefault(name, []).append(kernel_workers.submit(
+            run_worker, "kernel_phase_job", phase, *a))
+
     try:
         # (slice 3's start once the host-bound slice 1 has been timed)
         early = [p for p in ("slice1", "maze", "kuka") if p in want]
@@ -5485,10 +6131,15 @@ def run_phases(report, only):
                 refs.update(start_references(
                     workers, [p for p in ("slice3", "escape", "escape_pool",
                                           "slice6") if p in want]))
+                if any(p in want for p in KERNEL_WORKER_PHASES):
+                    _build.build()      # every library in place first
+                for name in KERNEL_WORKER_PHASES:
+                    if name in want:
+                        kernel_job(name, "rig_fused_kernels"
+                                   if name == "rig_kernels" else name)
             maze = run("k3", "K3 vs plain version", phase_k3, report)
             run("k4", "K4 vs plain version", phase_k4, report, maze)
             run("maze", "slice 2 (maze)", phase_maze, report, refs)
-            run("profile2", "profile of slice 2", phase_maze_profile, report)
             run("k5", "K5 vs plain version", phase_k5, report, lin)
             setups = run("k7a", "K7a vs plain version and K5", phase_k7a,
                          report)
@@ -5497,27 +6148,35 @@ def run_phases(report, only):
                 report, setups, maze)
             run("almodels", "K3, K4 (and K2, K5 with slacks) for every "
                 "model vs plain versions", phase_al_models, report)
+            if "rig_kernels" in kjobs and not failed:
+                kernel_job("rig_kernels", "rig_al_kernels",
+                           [k["name"] for k in report["kernels"]])
             run("slice3", "slice 3", phase_slice3, report, refs)
-            run("profile3", "profile of slice 3", phase_slice3_profile,
-                report)
             run("escape", "slice 4: altro_solve(car_escape)", phase_escape,
                 report, refs)
-            run("escape_pool", "slice 4: the car_escape pool and its polish",
-                phase_escape_pool, report, refs)
-            run("profile4", "profile of slice 4", phase_escape_profile,
-                report)
             run("slice4models", "slice 4: the other instantiations",
                 phase_slice4_models, report)
-            run("kuka_kernels", "slice 5: every kuka instantiation against "
-                "its plain version", phase_kuka_kernels, report)
-            run("slice7_kernels", "slice 7: K2's new forms and K3/K4 on "
-                "quad_obs's stack against their plain versions",
-                phase_slice7_kernels, report)
-            run("slice8_kernels", "slice 8: K2's new forms against their "
-                "plain versions", phase_slice8_kernels, report)
-            run("rig_kernels", "slice 6: K7a/K7b for kuka and the rigs, "
-                "K2-K5 for the rigs, against their plain versions",
-                phase_rig_kernels, report)
+            for name, title in (
+                    ("kuka_kernels", "slice 5: every kuka instantiation "
+                     "against its plain version"),
+                    ("slice7_kernels", "slice 7: K2's new forms and K3/K4 on "
+                     "quad_obs's stack against their plain versions"),
+                    ("slice8_kernels", "slice 8: K2's new forms against "
+                     "their plain versions"),
+                    ("slice9_kernels", "slice 9: K2 under every other "
+                     "integrator against its plain versions"),
+                    ("rig_kernels", "slice 6: K7a/K7b for kuka and the "
+                     "rigs, K2-K5 for the rigs, against their plain "
+                     "versions")):
+                run(name, title + " (collected from a kernel worker)",
+                    collect_kernel_worker, report, kjobs.get(name), name)
+            TIMING_LOCK = GPU_PIDS = None   # the kernel workers are done
+            # the profiles once no kernel worker runs beside them
+            run("profile2", "profile of slice 2", phase_maze_profile, report)
+            run("profile3", "profile of slice 3", phase_slice3_profile,
+                report)
+            run("profile4", "profile of slice 4", phase_escape_profile,
+                report)
             run("kuka_profile", "profile of slice 5", phase_kuka_profile,
                 report)
             # the host-bound paths in worker processes from here on, side
@@ -5533,11 +6192,15 @@ def run_phases(report, only):
                 if "slice8_mintime" in want:
                     job8 = submit(mintime_rig_job)
                 for name, fn, *args in (
+                        ("escape_pool", "escape_pool_job"),
                         ("kuka_pool", "phase_kuka_pool"),
                         ("slice6", "slice6_job", SLICE6_SPLIT[0]),
                         ("slice6", "slice6_job", SLICE6_SPLIT[1]),
                         ("slice7_split", "slice7_split_job"),
-                        ("slice8", "slice8_job")):
+                        ("slice8", "slice8_job"),
+                        ("slice9", "slice9_job"),
+                        ("slice9", "slice9_drives_job", SLICE9_RULES[:3]),
+                        ("slice9", "slice9_drives_job", SLICE9_RULES[3:])):
                     if name in want:
                         jobs.setdefault(name, []).append(
                             submit(run_worker, fn, *args))
@@ -5549,6 +6212,9 @@ def run_phases(report, only):
                 phase_slice7, report)
             run("slice6models", "slice 6: the rigs' other instantiations",
                 phase_slice6_models, report)
+            run("escape_pool", "slice 4: the car_escape pool and its polish",
+                phase_escape_pool, report, refs,
+                jobs.get("escape_pool", [None])[0])
             run("kuka_pool", "slice 5: the kuka pool, both arms",
                 collect_worker, report, jobs.get("kuka_pool", [None])[0],
                 "kuka pool")
@@ -5564,9 +6230,14 @@ def run_phases(report, only):
                 "forms", phase_slice8, report, jobs.get("slice8", [None])[0])
             run("slice8_mintime", "slice 8: the minimum-time double-pendulum "
                 "rig", phase_slice8_mintime, report, job8)
+            run("slice9", "slice 9: the pendulum under every integrator and "
+                "the other forms' drives", phase_slice9, report,
+                *(jobs.get("slice9") or [None]))
     finally:
         workers.shutdown(wait=True, cancel_futures=True)
+        kernel_workers.shutdown(wait=True, cancel_futures=True)
         gpu_workers.shutdown(wait=True, cancel_futures=True)
+        TIMING_LOCK = GPU_PIDS = None
     idle = [k["name"] for k in report["kernels"] if not k.get("launches")]
     if only is None and not failed and idle:
         log(f"chip_smoke: no main path launched {idle}")

@@ -54,7 +54,7 @@ def test_car_escape_equals_jax_problem():
     assert convert.PROBLEMS["car_escape"] is probs.car_escape
     assert (pt.N, pt.n, pt.m, pt.constraints.P) == (101, 3, 2, 177)
     assert pt.dt == pytest.approx(float(pj.dt), abs=1e-15)
-    assert pt.model.cuda_step == "car_rk3"
+    assert pt.model.cuda_step == "car"
     for k in ("x0", "xf", "X", "U"):
         np.testing.assert_allclose(getattr(pt, k).numpy(),
                                    np.asarray(getattr(pj, k)), atol=1e-12)
@@ -212,6 +212,7 @@ def test_altro_solve_car_escape_polish_matches_jax():
 
 # ------------------------------------------------------------ what raises
 
+@pytest.mark.slow
 def test_minimum_time_pendulum():
     """tests/test_altro.py:64-82 (reference minimum_time_tests.jl:59-63) on
     the port: the fixed-time pendulum's total time is 0.15·30; the

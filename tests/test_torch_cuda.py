@@ -31,6 +31,7 @@ from trajopt_tpu_torch.ops.cuda_fused import (
     fused_backward, fused_backward_cuda, fused_backward_shape, fused_forward,
     fused_forward_cuda,
 )
+from trajopt_tpu_torch.ops.cuda_models import rule_label
 from trajopt_tpu_torch.ops.cuda_riccati import (
     riccati_sweep_cuda, riccati_sweep_shape,
 )
@@ -1670,16 +1671,16 @@ def test_sqrt_kernel_any_shape_matches_plain_version(cuda_device, n, m):
 
 # ------------------------------------------------------------ slice 7
 
-def _form_problem(name, slack, mintime, device, dtype):
-    """A short problem (N = 21, dt = 0.05) of model ``name`` near its
-    equilibrium (the quadrotors at hover), line-seeded with slacks if
-    ``slack``, then in minimum time if ``mintime`` (``altro_solve``'s
-    order)."""
+def _form_problem(name, slack, mintime, device, dtype, rule="rk3"):
+    """A short problem (N = 21, dt = 0.05) of model ``name`` under the
+    integrator ``rule`` near its equilibrium (the quadrotors at hover),
+    line-seeded with slacks if ``slack``, then in minimum time if
+    ``mintime`` (``altro_solve``'s order)."""
     from trajopt_tpu_torch.solvers.altro import minimum_time_problem
     from trajopt_tpu_torch.utils.interp import line_trajectory
     import trajopt_tpu_torch as tt
 
-    model = discretize(zoo.MODELS[name], "rk3")
+    model = discretize(zoo.MODELS[name], rule)
     n, m, Nk = model.n, model.m, N
     x0, xf = np.zeros(n), np.zeros(n)
     quad = name.startswith("quadrotor")
@@ -1719,13 +1720,15 @@ def test_slice7_rollout_kernel_matches_plain_version(cuda_device, name,
     _check_form_rollout(cuda_device, name, slack, mintime)
 
 
-def _check_form_rollout(cuda_device, name, slack, mintime):
-    """K2's instantiation of a form on K5's gains at rho = 1: ok masks
-    equal, X and U within 1e-5 of scale or three times the float32 plain
-    version's distance from float64, the launch counted under the form's
-    label."""
-    p64 = _form_problem(name, slack, mintime, cuda_device, torch.float64)
-    p32 = _form_problem(name, slack, mintime, cuda_device, torch.float32)
+def _check_form_rollout(cuda_device, name, slack, mintime, rule="rk3"):
+    """K2's instantiation of a form under the integrator ``rule`` on K5's
+    gains at rho = 1: ok masks equal, X and U within 1e-5 of scale or three
+    times the float32 plain version's distance from float64, the launch
+    counted under the form's label."""
+    p64 = _form_problem(name, slack, mintime, cuda_device, torch.float64,
+                        rule)
+    p32 = _form_problem(name, slack, mintime, cuda_device, torch.float32,
+                        rule)
     rng = np.random.default_rng(5)
     n, m = p64.n, p64.m
     nb = n - 1 if mintime else n
@@ -1742,8 +1745,8 @@ def _check_form_rollout(cuda_device, name, slack, mintime):
     alpha = (0.5 ** (torch.arange(B, device=cuda_device) % 4)).float()
     ins = (x0s.float().contiguous(), X.float().contiguous(),
            U.float().contiguous(), K, d, alpha)
-    label = name + ("_slack" if slack else "") + ("_mintime" if mintime
-                                                  else "")
+    label = rule_label(name + ("_slack" if slack else "")
+                       + ("_mintime" if mintime else ""), rule)
     before = rollout_closed_loop_cuda.launches_by[label]
     Xk, Uk, okk = rollout_closed_loop_cuda(p32.model, *ins, p32.dt)
     torch.cuda.synchronize()
@@ -1814,3 +1817,48 @@ def test_slice8_riccati_shapes_match_plain_version(cuda_device, n, m):
     """K5's slice-8 shapes (kuka's and the double pendulum's minimum-time
     forms, with and without slacks): ``_check_riccati_shape``."""
     _check_riccati_shape(cuda_device, n, m)
+
+
+# ------------------------------------------------------------ slice 9
+
+SLICE9_RULES = ("euler", "midpoint", "rk4", "midpoint_implicit",
+                "rk3_implicit")
+# a scalar model in all four forms, the quadrotors (the quaternion one also
+# line-seeded in minimum time: gains on its slack and h rows), a rig with and without
+# slacks in minimum time (kuka, whose implicit steps at these problems'
+# dt = 0.05 fail to converge from some starts, in chip_smoke.py at 0.02)
+SLICE9_FORMS = [("pendulum", False, False), ("pendulum", True, False),
+                ("pendulum", False, True), ("pendulum", True, True),
+                ("cartpole", False, False), ("quadrotor", False, False),
+                ("quadrotor", True, True), ("quadrotor_euler", False, False),
+                ("acrobot_urdf", False, True), ("acrobot_urdf", True, True)]
+
+
+@pytest.mark.parametrize("rule", SLICE9_RULES)
+@pytest.mark.parametrize("name,slack,mintime", SLICE9_FORMS)
+def test_slice9_rollout_kernel_matches_plain_version(cuda_device, name,
+                                                     slack, mintime, rule):
+    """K2 under every integrator but RK3 (``csrc/rollout_<rule>.cu``):
+    ``_check_form_rollout`` on the rule's own Jacobians (the implicit rules'
+    by the implicit-function theorem) and K5's gains."""
+    _check_form_rollout(cuda_device, name, slack, mintime, rule)
+
+
+@pytest.mark.parametrize("rule", ("midpoint_implicit", "rk3_implicit"))
+def test_slice9_nonconverging_step_is_poisoned(cuda_device, rule):
+    """The pendulum's implicit step at dt = 2 from (3, 40) and (0, 100)
+    does not converge in 1000 Newton trips: K2 returns NaN, its guard marks
+    the problem dead and holds its start, as the plain version does; a
+    benign start beside them steps as the plain version does."""
+    x0 = torch.tensor([[3.0, 40.0], [0.0, 100.0], [0.1, 0.0]],
+                      device=cuda_device)
+    z = lambda *s: torch.zeros(s, device=cuda_device)  # noqa: E731
+    ins = (x0, x0[:, None].expand(-1, 2, -1).contiguous(), z(3, 1, 1),
+           z(3, 1, 1, 2), z(3, 1, 1), torch.ones(3, device=cuda_device))
+    model = discretize(zoo.pendulum, rule)
+    Xk, _, okk = rollout_closed_loop_cuda(model, *ins, 2.0)
+    Xp, _, okp = rollout_closed_loop(model, *(t.cpu() for t in ins), 2.0)
+    assert okk.tolist() == okp.tolist() == [False, False, True]
+    assert torch.equal(Xk[:2], x0[:2, None].expand(-1, 2, -1))
+    assert float((Xk[2].cpu() - Xp[2]).abs().max()) < 1e-4
+

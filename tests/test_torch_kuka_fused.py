@@ -47,7 +47,7 @@ def test_unconstrained_fused_kuka_solve_matches_jax_f64():
                                                              device="cpu"),
                            X=torch.as_tensor(held))
     opts = _options(tt)
-    assert pt.constraints.P == 0 and pt.model.cuda_step == "kuka_rk3"
+    assert pt.constraints.P == 0 and pt.model.cuda_step == "kuka"
     assert _fused_eligible(pt.model, opts.opts_uncon, pt.obj, like=pt.X)
     res = tt.al_solve(pt, opts)
     Xj = np.asarray(ref.X)

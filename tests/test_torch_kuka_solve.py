@@ -82,7 +82,7 @@ def test_carried_over_problem_is_the_zoo_problem(solves):
     assert [c["kind"] for c in arrays["constraints"]] == [
         "linear", "fk_sphere", "linear"]
     pc = convert.problem_from_arrays(**arrays, device="cpu")
-    assert pc.model.cuda_step == pt.model.cuda_step == "kuka_rk3"
+    assert pc.model.cuda_step == pt.model.cuda_step == "kuka"
     assert np.array_equal(pc.model.chain_table, pt.model.chain_table)
     rng = np.random.default_rng(4)
     X = torch.as_tensor(rng.uniform(-1.5, 1.5, size=(pt.N, 14)))

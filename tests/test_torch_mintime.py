@@ -177,7 +177,7 @@ def test_minimum_time_problem_matches_jax(transformed):
     opts = _port_opts(_jopts())
     for label, pj, pt in transformed:
         assert (pt.n, pt.m, pt.N) == (pj.model.n, pj.model.m, pj.N)
-        assert pt.model.mintime and pt.model.cuda_step == "pendulum_rk3"
+        assert pt.model.mintime and pt.model.cuda_step == "pendulum"
         assert pt.model.slack_m == (1 if label == "slack" else None)
         for k in ("x0", "xf", "X", "U"):
             np.testing.assert_allclose(getattr(pt, k).numpy(),
@@ -279,7 +279,7 @@ def test_mintime_runs_phase_split_and_chains_have_no_cuda_form():
                                            np.zeros(4), 5, device="cpu"),
                     N=5, dt=0.01, device="cpu")
     pcm = alt.minimum_time_problem(pc)
-    assert pcm.model.mintime and pcm.model.cuda_step == "acrobot_urdf_rk3"
+    assert pcm.model.mintime and pcm.model.cuda_step == "acrobot_urdf"
     cmc = cuda_model(pcm.model, "test", slack_ok=True, k2_only_ok=True)
     assert cmc.label == "acrobot_urdf_mintime" and cmc.k2_only
     assert (cmc.n, cmc.m) == (pcm.model.n, pcm.model.m) == (5, 2)
@@ -300,6 +300,30 @@ def test_mintime_runs_phase_split_and_chains_have_no_cuda_form():
 
 # --------------------------------------------------------------- the solve
 
+def test_altro_solve_mintime_feasible_first_iterations_match_jax():
+    """The feasible arm of the minimum-time solve (tests/test_altro.py:64-82
+    from its own seed), cut to eight outer iterations in both packages: the
+    same outer and inner iteration counts, X within 1e-6, U within 1e-5,
+    τ² within 1e-6 (the whole solve is chaotic in float64, ROADMAP Q3-27:
+    it runs in the slow lane, ``tests/test_torch_altro.py::
+    test_minimum_time_pendulum``, and on the card in ``chip_smoke.py``'s
+    phase ``slice7_mintime``). The fixed-time solve's total time is
+    0.15·30, as there."""
+    pj, pt = _pair()
+    jopts = _jopts(iterations=8)
+    rj = jalt.altro_solve(pj, jopts, minimum_time=True)
+    rt = tt.altro_solve(pt, _port_opts(jopts), minimum_time=True)
+    assert int(rt.iterations) == int(rj.iterations)
+    assert int(rt.iterations_total) == int(rj.iterations_total)
+    np.testing.assert_allclose(rt.X.numpy(), np.asarray(rj.X), atol=1e-6)
+    np.testing.assert_allclose(rt.U.numpy(), np.asarray(rj.U), atol=1e-5)
+    np.testing.assert_allclose(rt.dt_traj.numpy(), np.asarray(rj.dt_traj),
+                               atol=1e-6)
+    fixed = tt.altro_solve(_pendulum(tt, zoo, "cpu", dt=0.15, u_bnd=5.0),
+                           _port_opts(_jopts()))
+    assert float(fixed.tt) == pytest.approx(0.15 * 30)
+
+
 def test_altro_solve_mintime_line_seeded_first_iterations_match_jax():
     """The infeasible arm of the minimum-time solve from the line seed, cut
     to eight outer iterations in both packages (the re-solve too): the
@@ -319,6 +343,7 @@ def test_altro_solve_mintime_line_seeded_first_iterations_match_jax():
                                atol=1e-6)
 
 
+@pytest.mark.slow
 def test_altro_solve_mintime_line_seeded_meets_the_reference_bars():
     """The whole line-seeded minimum-time solve with the reference test's
     options: tt < 0.5·(0.15·30), tt < 1, the goal within 1e-3 in the

@@ -91,7 +91,7 @@ def test_two_link_dynamics_match_jax_and_the_rigs(name, rig):
     assert getattr(tt_jax.discretize(getattr(jzoo, name), "rk3"),
                    "step_lanes", None) is None
     md = discretize(m, "rk3")
-    assert md.cuda_step == f"{name}_rk3"
+    assert md.cuda_step == name
     cm = cuda_model(md, "test", k2_only_ok=True)
     assert cm.label == name and cm.k2_only and (cm.n, cm.m) == (4, m.m)
 
@@ -161,7 +161,7 @@ def test_rig_problem_is_the_zoo_problem_with_the_rig(rig):
     jp = tt_jax.update_problem(jp, model=tt_jax.discretize(
         getattr(jrobots, f"{rig}_model")(), "rk3"))
     mine = problems.rig_problem(rig, device="cpu")
-    assert mine.model.name == rig and mine.model.cuda_step == f"{rig}_rk3"
+    assert mine.model.name == rig and mine.model.cuda_step == rig
     assert (mine.N, mine.n, mine.m) == (jp.N, jp.model.n, jp.model.m)
     assert mine.constraints.P == jp.constraints.P
     for field in ("x0", "xf", "U"):

@@ -68,7 +68,7 @@ def test_two_link_models_have_k2_only_entries(name):
     jm = jtt.discretize(getattr(jzoo, name), "rk3")
     assert getattr(jm, "step_lanes", None) is None
     md = tt.discretize(zoo.MODELS[name], "rk3")
-    assert md.cuda_step == f"{name}_rk3"
+    assert md.cuda_step == name
     cm = cuda_model(md, "test", slack_ok=True, k2_only_ok=True)
     assert cm.label == name and cm.k2_only and (cm.n, cm.m) == (4, md.m)
     assert find_cuda_model(md, slack_ok=True) is None

@@ -104,7 +104,9 @@ def test_float32_stays_float32(name):
 @pytest.mark.parametrize("name", MODELS + ("quadrotor",))
 def test_rk3_models_carry_a_cuda_step(name):
     """The (model, "rk3") pairs the JAX package ships a lane step for are
-    the ones the CUDA kernels carry; another integrator has none."""
+    the ones the fused CUDA kernels carry; under another integrator only
+    the rollout kernel K2 carries the model (k2_only), as the JAX package
+    has no lane step for it."""
     jm = tt_jax.discretize(getattr(jzoo, name), "rk3")
     assert getattr(jm, "step_lanes", None) is not None
     md = discretize(getattr(zoo, name), "rk3")
@@ -112,9 +114,11 @@ def test_rk3_models_carry_a_cuda_step(name):
     cm = cuda_model(md, "test")
     assert (cm.n, cm.m, cm.label) == (md.n, md.m, name)
     other = discretize(getattr(zoo, name), "rk4")
-    assert other.cuda_step is None
+    assert other.cuda_step == name
     with pytest.raises(NotImplementedError, match="K6"):
         cuda_model(other, "test")
+    k2 = cuda_model(other, "test", k2_only_ok=True)
+    assert k2.k2_only and (k2.id, k2.label) == (cm.id, f"{name}_under_rk4")
 
 
 @pytest.mark.parametrize("name", PROBLEMS)

@@ -31,8 +31,10 @@ among them); K7b on their searches; K2 for every form the other tree's
 K2 carries: the quadrotor's error state on slice 1's candidates
 (``chip_smoke.rollout_inputs``), each model of K3 with and without slacks
 (kuka and the rigs among them) on K3's gains at ρ = 1 on its set-up,
-ballonbeam, the Euler-angle quadrotor and every scalar model's minimum-time
-forms on ``chip_smoke.form_setup``'s inputs (K5's gains at the form's ρ,
+the K2-only models (ballonbeam, the Euler-angle quadrotor, the analytic
+double pendulum and acrobot) in every form and every other model's
+minimum-time forms, the chains' among them, on ``chip_smoke.form_setup``'s
+inputs (K5's gains at the form's ρ,
 its steps at the form's α), lanes K4_DIVERGE blown up; and K5 on those
 forms' linearizations. Each case is also timed, both trees
 in turns (other, this, this, other; CUDA events over 10 launches each),
@@ -205,6 +207,7 @@ def k2_case(fn, label, model, ins, dt, error_state=False):
     dev = X.device
     Xo, Uo = torch.empty_like(X), torch.empty_like(U)
     ok = torch.empty(Bz, dtype=torch.bool, device=dev)
+
     def call(f):
         return f(*(t.data_ptr() for t in ins), Xo.data_ptr(), Uo.data_ptr(),
                   ok.data_ptr(), chain_table_ptr(model, cm, dev), Bz, N,
@@ -548,7 +551,7 @@ def main():
     # linearizations
     from trajopt_tpu_torch.models import zoo
     from trajopt_tpu_torch.models.base import discretize
-    from trajopt_tpu_torch.ops.cuda_models import CHAIN_LABELS, CUDA_STEPS
+    from trajopt_tpu_torch.ops.cuda_models import CUDA_STEPS
     from trajopt_tpu_torch.ops.cuda_riccati import riccati_sweep_cuda
 
     ins, dt = cs.rollout_inputs()
@@ -568,12 +571,11 @@ def main():
         ok &= k2_case(fns["rollout"], label, p.model,
                       [X[:, 0].contiguous(), X, U, K, d, steps], p.dt)
     for base in CUDA_STEPS.values():
-        if base.id >= THEIR_IDS["Slack"] or base.label in CHAIN_LABELS:
+        if base.id >= THEIR_IDS["Slack"]:
             continue            # a model the other tree does not carry
         for slack in (False, True):
             for mintime in (False, True):
-                if not mintime and base.label not in ("ballonbeam",
-                                                      "quadrotor_euler"):
+                if not mintime and not base.k2_only:
                     continue    # on K3's gains above
                 fs = cs.form_setup(base.label, slack, mintime)
                 rho = torch.full((B,), fs["rho"], device=dev)

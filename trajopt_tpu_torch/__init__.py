@@ -25,7 +25,10 @@ the uncertain models with ``models.base.discretize_uncertain`` among them.
 Each Pallas kernel is a CUDA kernel of ``csrc/``; ballonbeam, the
 Euler-angle quadrotor, the analytic double pendulum and acrobot and every
 minimum-time form (the rigid-body chains' too) run phase-split on K5 and
-K2, as the JAX package runs them unfused. Only RK3 has CUDA steps.
+K2, as the JAX package runs them unfused; so does every model under the
+integrators other than RK3 (``euler``, ``midpoint``, ``rk4`` and the
+implicit ``midpoint_implicit`` and ``rk3_implicit`` with their Newton loop),
+which K2 carries for every model.
 
 Constructors and entry points build on the current CUDA device unless told
 otherwise (``device="cpu"`` runs the kernels' plain versions).
@@ -41,8 +44,9 @@ from trajopt_tpu_torch.ops.cost import (
     GenericObjective, LQRCost, LQRCostTerminal, LQRObjective, Objective,
     QuadraticCost, cost_expansion, stage_cost, total_cost,
 )
-from trajopt_tpu_torch.ops.integration import INTEGRATORS, euler, midpoint, \
-    rk3, rk4
+from trajopt_tpu_torch.ops.integration import (
+    INTEGRATORS, euler, midpoint, midpoint_implicit, rk3, rk3_implicit, rk4,
+)
 from trajopt_tpu_torch.ops.rollout import rollout, rollout_closed_loop
 from trajopt_tpu_torch.parallel.batch import (
     QueuedBatchResult, pn_polish_batch, solve_batch, solve_batch_queued,
@@ -76,11 +80,11 @@ __all__ = [
     "custom_constraint", "discretize", "euler", "goal_constraint",
     "iLQROptions", "ilqr_solve", "infeasible_constraint",
     "infeasible_problem", "initial_controls", "initial_states",
-    "max_violation", "midpoint", "minimum_time_problem",
+    "max_violation", "midpoint", "midpoint_implicit", "minimum_time_problem",
     "obstacle_field_constraint", "planar_obstacle_constraint",
     "pn_polish_batch", "pn_solve", "precise", "precise_context", "problem",
-    "rk3", "rk4", "rollout", "rollout_closed_loop", "solve_batch",
-    "solve_batch_queued", "solve_batch_queued_altro",
+    "rk3", "rk3_implicit", "rk4", "rollout", "rollout_closed_loop",
+    "solve_batch", "solve_batch_queued", "solve_batch_queued_altro",
     "solve_batch_queued_altro_retry", "sphere_constraint_fn", "stage_cost",
     "total_cost", "total_time", "tvlqr_projection", "update_problem",
 ]

@@ -1,5 +1,6 @@
 // The models whose discrete step the kernels inline, behind one trait:
 //   NX, NU            state and control widths
+//   dynamics<T>(x, u, xd, chain)    the continuous dynamics
 //   step<T>(x, u, dt, out, chain)   the RK3 step with zero-order hold
 // templated on the scalar type, so float rolls a trajectory out and Dual (a
 // value and one tangent, below) carries one direction through the same code
@@ -8,7 +9,7 @@
 // the kernels that give each problem a warp (K2, K4):
 //   kChain            whether the step reads a chain table
 //   kWarpScratch      floats of shared memory the warp step needs per warp
-//   step_warp(x, u, dt, out, tab, scr, lane)
+//   step_warp<Rule>(x, u, dt, out, tab, scr, lane)
 // called on all 32 lanes of a warp with the same x and u on every lane, it
 // leaves the same out on every lane. A scalar model's warp step is its step,
 // run in registers on every lane (RegisterStep); a chain's is computed by
@@ -29,7 +30,10 @@
 // pendulum and acrobot (TwoLink) and the minimum-time form MinTime<M> of
 // every model, the chains included (solvers/altro.py:
 // x⁺ = [base_step(x[:-1], u[:-1], h²); h], h = u[-1]), which the JAX
-// package gives no lane step and never runs fused.
+// package gives no lane step and never runs fused, and every model's step
+// under the other integration rules of ops/integration.py (IntegratorId:
+// the explicit Euler, midpoint and RK4 steps, and the implicit midpoint and
+// RK3 steps with their Newton loop over the warp), the Rule of step_warp.
 // Each dynamics function keeps the order of operations of its plain PyTorch
 // version (models/zoo.py), because a divergence guard or a line-search
 // decision can hinge on the last bits. No fast-math and no rsqrtf: sinf,
@@ -39,7 +43,8 @@
 //
 // The ids are what the C entry points take (ops/cuda_models.py holds the
 // same table): a base model's id, plus kModelSlack for its slack-augmented
-// form, plus kModelMinTime for the minimum-time form of either.
+// form, plus kModelMinTime for the minimum-time form of either; and K2's the
+// integrator's IntegratorId beside it.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -161,6 +166,25 @@ __device__ __forceinline__ Dual tmax(Dual a, float floor) {
   return a.v >= floor ? a : Dual(floor);
 }
 
+// A Dual carrying a Dual: the Euler-angle quadrotor's pass through G along
+// rpẏ (a Dual of its own) inside K2's Dual evaluations of ∂f/∂x.
+struct DualDual {
+  Dual v, d;
+  __device__ __forceinline__ DualDual() {}
+  __device__ __forceinline__ DualDual(float v_) : v(v_), d(0.f) {}
+  __device__ __forceinline__ DualDual(Dual v_, Dual d_) : v(v_), d(d_) {}
+};
+__device__ __forceinline__ DualDual operator*(DualDual a, DualDual b) {
+  return DualDual(a.v * b.v, a.d * b.v + a.v * b.d);
+}
+__device__ __forceinline__ DualDual operator/(DualDual a, DualDual b) {
+  const Dual q = a.v / b.v;
+  return DualDual(q, (a.d - q * b.d) / b.v);
+}
+__device__ __forceinline__ DualDual operator-(DualDual a) {
+  return DualDual(-a.v, -a.d);
+}
+
 template <class T>
 __device__ __forceinline__ void quat_mul(T qw, T qx, T qy, T qz, T pw, T px,
                                          T py, T pz, T& w, T& x, T& y, T& z) {
@@ -230,18 +254,287 @@ __device__ __forceinline__ void rk3_step(const T* x, const T* u, float dt,
   }
 }
 
+// ------------------------------------------- the other integration rules
+//
+// K2 steps a model with any rule of ops/integration.py (INTEGRATORS); the
+// id goes to the kernel beside the model's. The fused kernels carry RK3
+// alone, as the JAX package's lane steps do.
+enum IntegratorId {
+  kRk3 = 0,
+  kEuler = 1,
+  kMidpoint = 2,
+  kRk4 = 3,
+  kMidpointImplicit = 4,
+  kRk3Implicit = 5,
+};
+
+// x⁺ = x + dt f(x) (ops/integration.py::euler)
+template <class Dyn, class T, class Ctx>
+__device__ __forceinline__ void euler_step(const T* x, const T* u, float dt,
+                                           T* out, Ctx chain) {
+  constexpr int NX = Dyn::NX;
+  T k1[NX];
+  Dyn::template dynamics<T>(x, u, k1, chain);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) out[i] = x[i] + dt * k1[i];
+}
+
+// xm = x + (dt/2) f(x), x⁺ = x + dt f(xm) (ops/integration.py::midpoint)
+template <class Dyn, class T, class Ctx>
+__device__ __forceinline__ void midpoint_step(const T* x, const T* u,
+                                              float dt, T* out, Ctx chain) {
+  constexpr int NX = Dyn::NX;
+  T k[NX], xt[NX];
+  Dyn::template dynamics<T>(x, u, k, chain);
+  const float hdt = 0.5f * dt;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xt[i] = x[i] + hdt * k[i];
+  Dyn::template dynamics<T>(xt, u, k, chain);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) out[i] = x[i] + dt * k[i];
+}
+
+// k1 = dt f(x), k2 = dt f(x + k1/2), k3 = dt f(x + k2/2), k4 = dt f(x + k3),
+// x⁺ = x + (k1 + 2 k2 + 2 k3 + k4)/6, the sums in the order of
+// ops/integration.py::rk4
+template <class Dyn, class T, class Ctx>
+__device__ __forceinline__ void rk4_step(const T* x, const T* u, float dt,
+                                         T* out, Ctx chain) {
+  constexpr int NX = Dyn::NX;
+  T k1[NX], k2[NX], k3[NX], k4[NX], xt[NX];
+  Dyn::template dynamics<T>(x, u, k1, chain);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    k1[i] = dt * k1[i];
+    xt[i] = x[i] + 0.5f * k1[i];
+  }
+  Dyn::template dynamics<T>(xt, u, k2, chain);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    k2[i] = dt * k2[i];
+    xt[i] = x[i] + 0.5f * k2[i];
+  }
+  Dyn::template dynamics<T>(xt, u, k3, chain);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    k3[i] = dt * k3[i];
+    xt[i] = x[i] + k3[i];
+  }
+  Dyn::template dynamics<T>(xt, u, k4, chain);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    k4[i] = dt * k4[i];
+    out[i] = x[i] + (k1[i] + 2.0f * k2[i] + 2.0f * k3[i] + k4[i]) / 6.0f;
+  }
+}
+
+// Solves A y = b for one N×N system over a warp by LU with partial pivoting
+// (jnp.linalg.solve's and torch.linalg.solve's rule: the first row of
+// largest |entry| pivots): lane j < N holds column j of A in col, lane N
+// holds b there, the other lanes nothing they need. Each pivot column is
+// read by shuffles from its lane; every lane swaps and eliminates its own
+// column, the right-hand side's lane among them, so the forward
+// substitution is done with the elimination. The back substitution reads U
+// a column at a time from its lane and leaves y on every lane.
+template <int N>
+__device__ __forceinline__ void warp_lu_solve(float (&col)[N], float (&y)[N],
+                                              int lane) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    int p = k;
+    float best = fabsf(col[k]);
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const float a = fabsf(col[i]);
+      if (a > best) {
+        best = a;
+        p = i;
+      }
+    }
+    p = __shfl_sync(kFullMask, p, k);
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      if (i == p) {
+        const float t = col[i];
+        col[i] = col[k];
+        col[k] = t;
+      }
+    }
+    const float piv = __shfl_sync(kFullMask, col[k], k);
+#pragma unroll
+    for (int i = k + 1; i < N; ++i) {
+      const float l = __shfl_sync(kFullMask, col[i], k) / piv;
+      if (lane > k) col[i] = col[i] - l * col[k];
+    }
+  }
+#pragma unroll
+  for (int k = N - 1; k >= 0; --k) {
+    const float yk = __shfl_sync(kFullMask, col[k], N)
+                     / __shfl_sync(kFullMask, col[k], k);
+#pragma unroll
+    for (int i = 0; i < k; ++i) {
+      const float uik = __shfl_sync(kFullMask, col[i], k);
+      if (lane == N) col[i] = col[i] - uik * yk;
+    }
+    y[k] = yk;
+  }
+}
+
+// the Newton loop's tolerance eps^0.75 · (1 + |x|) of ops/integration.py
+// (_implicit_tol) in float32: (2^-23)^0.75 in double, rounded to float, as
+// torch multiplies a float32 norm by it; at most 1000 trips
+// (_IMPLICIT_MAX_ITERS)
+constexpr float kImplicitTolScale = (float)6.4155305118844185e-06;
+constexpr int kImplicitMaxIters = 1000;
+
+template <int N>
+__device__ __forceinline__ float norm2(const float (&v)[N]) {
+  float s = v[0] * v[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) s = s + v[i] * v[i];
+  return sqrtf(s);
+}
+
+// The implicit midpoint and RK3 steps (ops/integration.py::midpoint_implicit,
+// rk3_implicit) over one warp, called on all 32 lanes with the same x and u:
+// Newton from y = x until the residual G(y) meets the tolerance (a NaN
+// residual stops it too) or 1000 trips; out = y, or NaN if the last
+// residual misses the tolerance (K2's guard then marks the problem dead).
+// f is Dyn's float dynamics with ctx (a chain's warp form: every lane takes
+// part, and every lane holds the same values throughout, so the loop's
+// exit is the same on every lane). The Newton matrix dG/dy has column j on
+// lane j < NX from one pass of Dyn's one-thread dynamics in Dual with the
+// tangent e_j (tab: a chain's table, else null), so its NX columns take the
+// time of one evaluation: midpoint I − (dt/2) ∂f(xm); RK3
+// I − (4dt/6) ∂f(xm)·v_j − (dt/6) ∂f(y) e_j with v_j = e_j/2 − (dt/8) ∂f(y) e_j,
+// ∂f(xm)·v_j a second Dual pass along v_j. Lane NX holds G; warp_lu_solve
+// gives the Newton step on every lane. Not inlined: a model's four forms
+// (with slacks, in minimum time) call the one copy, which keeps the
+// implicit rules' compiles off the build's critical path.
+template <int Rule, class Dyn, class Ctx>
+__device__ __noinline__ void implicit_step_warp(
+    const float* x, const float* u, float dt, float* out, Ctx ctx,
+    const ChainTable* tab, int lane) {
+  constexpr int NX = Dyn::NX, NU = Dyn::NU;
+  static_assert(NX < 32, "a lane per column and one for the residual");
+  float xv[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) xv[i] = x[i];
+  const float tol = kImplicitTolScale * (1.0f + norm2<NX>(xv));
+  float y[NX], g[NX], xm[NX], f1[NX], fa[NX], fb[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) y[i] = x[i];
+  if constexpr (Rule == kRk3Implicit)
+    Dyn::template dynamics<float>(x, u, f1, ctx);
+  Dual ud[NU];
+#pragma unroll
+  for (int j = 0; j < NU; ++j) ud[j] = Dual(u[j]);
+  float gn;
+  for (int trips = 0;; ++trips) {
+    if constexpr (Rule == kMidpointImplicit) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xm[i] = 0.5f * (x[i] + y[i]);
+      Dyn::template dynamics<float>(xm, u, fa, ctx);
+#pragma unroll
+      for (int i = 0; i < NX; ++i) g[i] = y[i] - x[i] - dt * fa[i];
+    } else {
+      Dyn::template dynamics<float>(y, u, fb, ctx);   // f3 = f(y)
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        xm[i] = 0.5f * (x[i] + y[i]) + dt / 8.0f * (f1[i] - fb[i]);
+      Dyn::template dynamics<float>(xm, u, fa, ctx);  // f2 = f(xm)
+#pragma unroll
+      for (int i = 0; i < NX; ++i)
+        g[i] = y[i] - x[i] - dt / 6.0f * f1[i] - 4.0f / 6.0f * dt * fa[i]
+               - dt / 6.0f * fb[i];
+    }
+    gn = norm2<NX>(g);
+    if (!(gn > tol) || trips >= kImplicitMaxIters) break;
+    float col[NX];
+    if (lane < NX) {
+      Dual zd[NX], fd[NX];
+      if constexpr (Rule == kMidpointImplicit) {
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          zd[i] = Dual(xm[i], i == lane ? 1.0f : 0.0f);
+        Dyn::template dynamics<Dual>(zd, ud, fd, tab);
+        const float hdt = 0.5f * dt;
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          col[i] = (i == lane ? 1.0f : 0.0f) - hdt * fd[i].d;
+      } else {
+        float a2[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          zd[i] = Dual(y[i], i == lane ? 1.0f : 0.0f);
+        Dyn::template dynamics<Dual>(zd, ud, fd, tab);
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+          a2[i] = fd[i].d;
+          zd[i] = Dual(xm[i],
+                       (i == lane ? 0.5f : 0.0f) - dt / 8.0f * a2[i]);
+        }
+        Dyn::template dynamics<Dual>(zd, ud, fd, tab);
+        const float c46 = 4.0f / 6.0f * dt, c16 = dt / 6.0f;
+#pragma unroll
+        for (int i = 0; i < NX; ++i)
+          col[i] = (i == lane ? 1.0f : 0.0f) - c46 * fd[i].d - c16 * a2[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) col[i] = g[i];
+    }
+    float step[NX];
+    warp_lu_solve<NX>(col, step, lane);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) y[i] = y[i] - step[i];
+  }
+  const bool ok = gn <= tol;
+#pragma unroll
+  for (int i = 0; i < NX; ++i) out[i] = ok ? y[i] : __int_as_float(0x7fc00000);
+}
+
+// Dyn's step under rule Rule over one warp (Rule is not RK3, whose steps
+// the traits keep as they were): the explicit rules with ctx as rk3_step
+// takes it, the implicit ones by implicit_step_warp
+template <int Rule, class Dyn, class Ctx>
+__device__ __forceinline__ void rule_step_warp(const float* x, const float* u,
+                                               float dt, float* out, Ctx ctx,
+                                               const ChainTable* tab,
+                                               int lane) {
+  if constexpr (Rule == kEuler) {
+    euler_step<Dyn, float>(x, u, dt, out, ctx);
+  } else if constexpr (Rule == kMidpoint) {
+    midpoint_step<Dyn, float>(x, u, dt, out, ctx);
+  } else if constexpr (Rule == kRk4) {
+    rk4_step<Dyn, float>(x, u, dt, out, ctx);
+  } else {
+    static_assert(Rule == kMidpointImplicit || Rule == kRk3Implicit,
+                  "an IntegratorId");
+    implicit_step_warp<Rule, Dyn>(x, u, dt, out, ctx, tab, lane);
+  }
+}
+
 // The warp step of a model whose step needs no table: every lane runs the
-// float step in registers (Self: the trait itself).
+// float step in registers (Self: the trait itself). Rule: the integrator
+// (the RK3 step is the trait's own step).
 template <class Self>
 struct RegisterStep {
   static constexpr bool kChain = false;
   static constexpr int kWarpScratch = 0;
+  template <int Rule = kRk3>
   static __device__ __forceinline__ void step_warp(const float* x,
                                                    const float* u, float dt,
                                                    float* out,
                                                    const ChainTable*, float*,
-                                                   int) {
-    Self::template step<float>(x, u, dt, out);
+                                                   int lane) {
+    if constexpr (Rule == kRk3) {
+      Self::template step<float>(x, u, dt, out);
+    } else {
+      rule_step_warp<Rule, Self>(x, u, dt, out,
+                                 static_cast<const ChainTable*>(nullptr),
+                                 nullptr, lane);
+    }
   }
 };
 
@@ -275,12 +568,13 @@ struct WithSlack {
 #pragma unroll
     for (int i = 0; i < NX; ++i) out[i] = out[i] + u[M::NU + i];
   }
+  template <int Rule = kRk3>
   static __device__ __forceinline__ void step_warp(const float* x,
                                                    const float* u, float dt,
                                                    float* out,
                                                    const ChainTable* tab,
                                                    float* scr, int lane) {
-    M::step_warp(x, u, dt, out, tab, scr, lane);
+    M::template step_warp<Rule>(x, u, dt, out, tab, scr, lane);
 #pragma unroll
     for (int i = 0; i < NX; ++i) out[i] = out[i] + u[M::NU + i];
   }
@@ -300,13 +594,14 @@ struct MinTime {
   static constexpr int NX = M::NX + 1, NU = M::NU + 1;
   static constexpr bool kChain = M::kChain;
   static constexpr int kWarpScratch = M::kWarpScratch;
+  template <int Rule = kRk3>
   static __device__ __forceinline__ void step_warp(const float* x,
                                                    const float* u, float,
                                                    float* out,
                                                    const ChainTable* tab,
                                                    float* scr, int lane) {
     const float h = u[M::NU];
-    M::step_warp(x, u, h * h, out, tab, scr, lane);
+    M::template step_warp<Rule>(x, u, h * h, out, tab, scr, lane);
     out[M::NX] = h;
   }
 };
@@ -428,7 +723,8 @@ struct Ballonbeam : RegisterStep<Ballonbeam> {
 // rpy(3), vel(3), rpy rates(3); the quaternion model's constants. The rpy
 // accelerations are rpÿ = G·pqṙ + Ġ·pqr with G = A(rpy)·R(rpy), Ġ the
 // derivative of G along rpẏ, taken by one pass of Dual through G (the
-// plain version takes it by torch.func.jvp). Float only: K2's step.
+// plain version takes it by torch.func.jvp). K2's step: float, and Dual
+// for the implicit rules' ∂f/∂x.
 struct QuadrotorEuler : RegisterStep<QuadrotorEuler> {
   static constexpr int NX = 12, NU = 4;
   // R(rpy), row-major (_rpy2rotmat), from the cosines c and sines s of
@@ -468,52 +764,55 @@ struct QuadrotorEuler : RegisterStep<QuadrotorEuler> {
   template <class T>
   static __device__ __forceinline__ void dynamics(
       const T* x, const T* u, T* xd, const ChainTable* = nullptr) {
-    static_assert(std::is_same<T, float>::value, "K2's float step only");
+    // G's pass along rpẏ: Dual over float, DualDual over Dual (K2's
+    // implicit steps take ∂f/∂x in Dual)
+    using GT = typename std::conditional<std::is_same<T, float>::value,
+                                         Dual, DualDual>::type;
     constexpr float m = 0.5f, g = 9.81f, L = 0.1750f, km = 0.0245f;
     constexpr float J0 = 0.0023f, J1 = 0.0023f, J2 = 0.004f;
     constexpr float Ji0 = (float)(1.0 / 0.0023), Ji1 = (float)(1.0 / 0.0023);
     constexpr float Ji2 = (float)(1.0 / 0.004);
-    const float* rpy = x + 3;
-    const float* rpyd = x + 9;
+    const T* rpy = x + 3;
+    const T* rpyd = x + 9;
     // the angles' cosines and sines, once: the latency of the six calls is
     // most of a step (one warp an SM hides none of it)
-    float c[3], s[3];
+    T c[3], s[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      s[i] = sinf(rpy[i]);
-      c[i] = cosf(rpy[i]);
+      s[i] = tsin(rpy[i]);
+      c[i] = tcos(rpy[i]);
     }
-    float R[9];
-    rotmat<float>(c, s, R);
-    const float F0 = u[0], F1 = u[1], F2 = u[2], F3 = u[3];   // kf = 1
-    const float sumF = ((F0 + F1) + F2) + F3;
+    T R[9];
+    rotmat<T>(c, s, R);
+    const T F0 = u[0], F1 = u[1], F2 = u[2], F3 = u[3];   // kf = 1
+    const T sumF = ((F0 + F1) + F2) + F3;
     // world angular velocity W(rpy) rpẏ (_rpydot2angularvel_matrix), then
     // the body rates pqr = Rᵀ (W rpẏ)
-    const float sp = s[1], cp = c[1], sy = s[2], cy = c[2];
-    const float w0 = cp * cy * rpyd[0] - sy * rpyd[1];
-    const float w1 = cp * sy * rpyd[0] + cy * rpyd[1];
-    const float w2 = -sp * rpyd[0] + rpyd[2];
-    float pqr[3];
+    const T sp = s[1], cp = c[1], sy = s[2], cy = c[2];
+    const T w0 = cp * cy * rpyd[0] - sy * rpyd[1];
+    const T w1 = cp * sy * rpyd[0] + cy * rpyd[1];
+    const T w2 = -sp * rpyd[0] + rpyd[2];
+    T pqr[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
       pqr[i] = R[i] * w0 + R[3 + i] * w1 + R[6 + i] * w2;
-    const float tau0 = L * (F1 - F3), tau1 = L * (F2 - F0);
-    const float tau2 = km * F0 - km * F1 + km * F2 - km * F3;
-    const float Jp0 = J0 * pqr[0], Jp1 = J1 * pqr[1], Jp2 = J2 * pqr[2];
-    const float pd0 = Ji0 * (tau0 - (pqr[1] * Jp2 - pqr[2] * Jp1));
-    const float pd1 = Ji1 * (tau1 - (pqr[2] * Jp0 - pqr[0] * Jp2));
-    const float pd2 = Ji2 * (tau2 - (pqr[0] * Jp1 - pqr[1] * Jp0));
-    // G and Ġ by one Dual pass through G along rpẏ: the roll's and pitch's
-    // cosines and sines as Duals (the values and derivatives of tcos and
-    // tsin of Dual(rpy, rpẏ))
-    Dual cD[2], sD[2];
+    const T tau0 = L * (F1 - F3), tau1 = L * (F2 - F0);
+    const T tau2 = km * F0 - km * F1 + km * F2 - km * F3;
+    const T Jp0 = J0 * pqr[0], Jp1 = J1 * pqr[1], Jp2 = J2 * pqr[2];
+    const T pd0 = Ji0 * (tau0 - (pqr[1] * Jp2 - pqr[2] * Jp1));
+    const T pd1 = Ji1 * (tau1 - (pqr[2] * Jp0 - pqr[0] * Jp2));
+    const T pd2 = Ji2 * (tau2 - (pqr[0] * Jp1 - pqr[1] * Jp0));
+    // G and Ġ by one pass through G along rpẏ: the roll's and pitch's
+    // cosines and sines carrying their derivatives (the values and
+    // derivatives of tcos and tsin of (rpy, rpẏ))
+    GT cD[2], sD[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      cD[i] = Dual(c[i], -(s[i] * rpyd[i]));
-      sD[i] = Dual(s[i], c[i] * rpyd[i]);
+      cD[i] = GT(c[i], -(s[i] * rpyd[i]));
+      sD[i] = GT(s[i], c[i] * rpyd[i]);
     }
-    Dual G[9];
-    gmat<Dual>(cD, sD, G);
+    GT G[9];
+    gmat<GT>(cD, sD, G);
 #pragma unroll
     for (int i = 0; i < 6; ++i) xd[i] = x[6 + i];
     xd[6] = (R[2] * sumF) / m;
@@ -1174,12 +1473,18 @@ struct Chain {
 
   // tab is the block's table in shared memory, scr the warp's kWarpScratch
   // floats
+  template <int Rule = kRk3>
   static __device__ __forceinline__ void step_warp(const float* x,
                                                    const float* u, float dt,
                                                    float* out,
                                                    const ChainTable* tab,
                                                    float* scr, int lane) {
-    rk3_step<Chain, float>(x, u, dt, out, WarpStep{tab, scr, lane});
+    if constexpr (Rule == kRk3) {
+      rk3_step<Chain, float>(x, u, dt, out, WarpStep{tab, scr, lane});
+    } else {
+      rule_step_warp<Rule, Chain>(x, u, dt, out, WarpStep{tab, scr, lane},
+                                  tab, lane);
+    }
   }
 };
 

@@ -1,0 +1,6 @@
+// Kernel K2 (rollout.cu) under the integrator midpoint_implicit (ops/integration.py),
+// for every model and form rollout.cu carries under RK3, in a translation
+// unit of its own so that nvcc compiles each rule beside the others.
+#include "rollout_kernel.cuh"
+
+TRAJOPT_ROLLOUT_ENTRY(trajopt_rollout_midpoint_implicit_f32, kMidpointImplicit)

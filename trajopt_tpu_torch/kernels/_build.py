@@ -43,6 +43,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
+# K2's C entry point under each integrator of ops/integration.py, and the
+# source whose library holds it: RK3's in rollout.cu, each other rule's in a
+# library of its own (csrc/rollout_<rule>.cu), all with the same arguments
+ROLLOUT_ENTRIES = {
+    "rk3": ("rollout", "trajopt_rollout_f32"),
+    **{rule: (f"rollout_{rule}", f"trajopt_rollout_{rule}_f32")
+       for rule in ("euler", "midpoint", "rk4", "midpoint_implicit",
+                    "rk3_implicit")}}
 # C entry points by source file, and their argument types (see csrc/*.cu)
 SIGNATURES = {
     "sqrt_sweep": {
@@ -52,10 +60,10 @@ SIGNATURES = {
         # A, B, lx, lu, lxx, luu, lux, rho, K, d, dV, fail, batch, N, n, m,
         # stream
         "trajopt_sqrt_sweep_f32": (_P,) * 12 + (_I,) * 4 + (_P,)},
-    "rollout": {
-        # x0, X, U, K, d, alpha, Xout, Uout, ok, chain, batch, N, model,
-        # error_state, dt, max_state, max_control, stream
-        "trajopt_rollout_f32": (_P,) * 10 + (_I,) * 4 + (_F,) * 3 + (_P,)},
+    # x0, X, U, K, d, alpha, Xout, Uout, ok, chain, batch, N, model,
+    # error_state, dt, max_state, max_control, stream
+    **{stem: {entry: (_P,) * 10 + (_I,) * 4 + (_F,) * 3 + (_P,)}
+       for stem, entry in ROLLOUT_ENTRIES.values()},
     "riccati_sweep": {
         # n, m, batch, shape (4 ints of host memory) -> the launch's Wc, Wp,
         # S and shared bytes at that batch

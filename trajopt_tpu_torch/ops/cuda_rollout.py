@@ -2,13 +2,15 @@
 
 ``rollout_closed_loop_cuda`` wraps ``csrc/rollout.cu``, the counterpart of
 ``trajopt_tpu/ops/pallas_rollout.py::rollout_closed_loop_pallas`` with the
-model's RK3 step inlined (``csrc/models.cuh``): the full-state rollout
+model's step inlined (``csrc/models.cuh``): the full-state rollout
 (``quat_slice=None``) for every model of ``ops/cuda_models.py`` (kuka's
 rigid-body chain step among them), with or without the slack controls of
-the infeasible-start transform, the scalar models (ballonbeam and the
-Euler-angle quadrotor among them) in their minimum-time form too, and the
-quaternion error state for the quadrotor; one warp a problem, a chain's step computed by the warp
-together. A tensor on the CPU goes to the plain version
+the infeasible-start transform, each in its minimum-time form too, and the
+quaternion error state for the quadrotor; one warp a problem, a chain's
+step computed by the warp together. RK3 is ``rollout.cu``'s; each other
+integrator of ``ops/integration.py`` is the same kernel in a library of its
+own (``csrc/rollout_<rule>.cu``: the explicit rules, and the implicit ones
+with their Newton loop over the warp). A tensor on the CPU goes to the plain version
 ``ops/rollout.py::rollout_closed_loop``; a CUDA tensor goes to the kernel,
 and anything the kernel does not take raises.
 """
@@ -20,8 +22,14 @@ import numbers
 import torch
 
 from trajopt_tpu_torch.kernels import _build
-from trajopt_tpu_torch.ops.cuda_models import chain_table_ptr, cuda_model
+from trajopt_tpu_torch.ops.cuda_models import (
+    INTEGRATOR_IDS, chain_table_ptr, cuda_model,
+)
 from trajopt_tpu_torch.ops.rollout import rollout_closed_loop
+
+# the C entry point of K2 for each integrator id
+ENTRIES = {INTEGRATOR_IDS[rule]: entry
+           for rule, (_, entry) in _build.ROLLOUT_ENTRIES.items()}
 
 
 def rollout_closed_loop_cuda(model, x0, X, U, K, d, alpha, dt,
@@ -70,13 +78,14 @@ def rollout_closed_loop_cuda(model, x0, X, U, K, d, alpha, dt,
     Xout = torch.empty_like(X)
     Uout = torch.empty_like(U)
     ok = torch.empty((Bz,), dtype=torch.bool, device=X.device)
-    err = lib.trajopt_rollout_f32(
+    entry = ENTRIES[cm.integrator]
+    err = getattr(lib, entry)(
         x0.data_ptr(), X.data_ptr(), U.data_ptr(), K.data_ptr(),
         d.data_ptr(), alpha.data_ptr(), Xout.data_ptr(), Uout.data_ptr(),
-        ok.data_ptr(), chain, Bz, N, cm.id, int(error_state), float(dt),
-        float(max_state_value), float(max_control_value),
+        ok.data_ptr(), chain, Bz, N, cm.id, int(error_state),
+        float(dt), float(max_state_value), float(max_control_value),
         _build.stream(X.device))
-    _build.check(err, "trajopt_rollout_f32")
+    _build.check(err, entry)
     rollout_closed_loop_cuda.launches += 1
     rollout_closed_loop_cuda.launches_by[
         cm.label + ("_error_state" if error_state else "")] += 1

@@ -73,6 +73,7 @@ def line_search(rollout_fn, cost_fn, X, U, dV1, dV2, J_prev, rho, drho,
         return s & ~done & active
 
     go = searching()
+    passes = 0
     while syncs.any(go):
         over = it > ls_iters
 
@@ -80,18 +81,25 @@ def line_search(rollout_fn, cost_fn, X, U, dV1, dV2, J_prev, rho, drho,
         rho_o, drho_o = reg_increase(rho, drho, reg_factor, reg_min)
         rho_o = rho_o + reg_fp
 
-        # normal branch: rollout at the current α
-        Xc, Uc, ok = rollout_fn(alpha.contiguous())
-        J_c = cost_fn(Xc, Uc)
-        expected_c = -alpha * (dV1 + alpha * dV2)
-        z_c = torch.where(expected_c > 0.0, (J_prev - J_c) / expected_c,
-                          -torch.ones_like(J_c))
+        # normal branch: rollout at the current α. A problem searches from
+        # the first pass until it leaves for good, so every searching
+        # problem has taken as many passes as the loop: past ls_iters all
+        # of them take the exhausted branch, and no rollout is needed
+        if passes <= ls_iters:
+            Xc, Uc, ok = rollout_fn(alpha.contiguous())
+            J_c = cost_fn(Xc, Uc)
+            expected_c = -alpha * (dV1 + alpha * dV2)
+            z_c = torch.where(expected_c > 0.0, (J_prev - J_c) / expected_c,
+                              -torch.ones_like(J_c))
 
-        # a diverged rollout keeps J = inf and just halves α
-        J_n = torch.where(ok, J_c, J)
-        z_n = torch.where(ok, z_c, z)
-        Xb_n = where_rows(ok, Xc, Xb)
-        Ub_n = where_rows(ok, Uc, Ub)
+            # a diverged rollout keeps J = inf and just halves α
+            J_n = torch.where(ok, J_c, J)
+            z_n = torch.where(ok, z_c, z)
+            Xb_n = where_rows(ok, Xc, Xb)
+            Ub_n = where_rows(ok, Uc, Ub)
+        else:
+            J_n, z_n, Xb_n, Ub_n = J, z, Xb, Ub
+        passes += 1
 
         # exhausted vs normal, applied only where the search is running
         zero = torch.zeros_like(alpha)

@@ -347,8 +347,9 @@ def minimum_time_problem(prob: Problem, R_min_time: float = 1.0,
     ignores its dt argument. It keeps the base model's CUDA step name,
     slack width and chain table and is marked ``mintime``: K2's ``MinTime``
     entry (``ops/cuda_models.py``). Where the base model has a structured
-    Jacobian with its dt column (``_jac_dt``: a rigid-body chain and its
-    slack form), the Jacobian is that one with h's column
+    Jacobian with its dt column (``_jac_dt``: a rigid-body chain under any
+    rule, any model under an implicit rule, and their slack forms), the
+    Jacobian is that one with h's column
     ∂x⁺/∂h = 2h·∂step/∂dt, and ∂h⁺/∂h = 1; else ``torch.func.jacfwd``
     through the step."""
     base = prob.model
